@@ -1,0 +1,388 @@
+"""The session API: ``connect(catalog) -> Database``, ``db.prepare(sql) ->
+Statement``, ONE ``Statement.execute`` front door.
+
+* ``Statement.execute(binds)`` routes by shape — a single bind dict runs the
+  single-query pipeline, a list of dicts (or a stacked dict with a leading
+  Q axis) runs the size-bucketed path; ``ExecutionHints(exact_shape=True)``
+  runs the exact-shape batch (the bit-parity reference).
+* ``Database`` fronts a **normalized plan cache**: the key is the
+  canonicalized logical-plan fingerprint (whitespace / parameter-rename /
+  conjunct-order variants collapse to one key) plus the ``EngineOptions``
+  fingerprint plus the canonicalized static binds, LRU-bounded.  A hit
+  reuses the compiled plan AND its bucket executors.
+
+Serving, the adaptive optimizer, the on-disk plan cache and the live corpus
+belong to later slices of the port and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any
+
+import numpy as np
+
+from ..core.compiler import (CompiledQuery, StalePlanError, compile_plan,
+                             fingerprint_digest, plan_fingerprint,
+                             _stacked_qn)
+from ..core.expr import Param
+from ..core.physical import EngineOptions
+from ..core.schema import Catalog, not_ported
+from ..core.sql import parse_sql
+from .hints import ExecutionHints
+from .result import ExplainReport, Result, ResultBatch
+
+NO_HINTS = ExecutionHints()
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheInfo:
+    """Plan-cache statistics snapshot (functools-style).  ``aot`` is the
+    on-disk cache's counters in the reference; always None here."""
+    hits: int
+    misses: int
+    entries: int
+    evictions: int = 0
+    max_entries: "int | None" = None
+    aot: "dict | None" = None
+
+
+@dataclasses.dataclass
+class _CacheEntry:
+    """One normalized plan: the compiled artifact plus ITS parameter names in
+    canonical slot order (variants translate their names slot-by-slot).
+    ``evicted`` flips when the LRU bound or a stale-plan invalidation drops
+    the entry; Statements holding it re-prepare on their next execute."""
+    compiled: CompiledQuery
+    param_order: tuple[str, ...]
+    fingerprint: str
+    evicted: bool = False
+
+
+def connect(catalog: Catalog, options: EngineOptions | None = None,
+            max_cached_plans: int | None = 128, adaptive: bool = False,
+            stats_path: str | None = None,
+            aot_cache_path: str | None = None,
+            **option_overrides) -> "Database":
+    """Open a session over a catalog — the one front door to the engine.
+
+    Plans run on the device the catalog's tables live on.
+    ``option_overrides`` are convenience kwargs onto :class:`EngineOptions`
+    (``connect(cat, engine="brute", use_pallas=True)``); ``max_cached_plans``
+    bounds the normalized plan cache (LRU; None = unbounded)."""
+    if adaptive or stats_path is not None:
+        raise not_ported("connect(adaptive=...) (adaptive optimizer)", "11")
+    if aot_cache_path is not None:
+        raise not_ported("connect(aot_cache_path=...) (on-disk plan cache)",
+                          "12")
+    if option_overrides:
+        options = dataclasses.replace(options or EngineOptions(),
+                                      **option_overrides)
+    return Database(catalog, options or EngineOptions(),
+                    max_cached_plans=max_cached_plans)
+
+
+class Database:
+    """A connection-like session: catalog + options + normalized plan cache
+    (LRU-bounded by ``max_cached_plans``)."""
+
+    def __init__(self, catalog: Catalog, options: EngineOptions | None = None,
+                 max_cached_plans: int | None = 128):
+        if max_cached_plans is not None and max_cached_plans < 1:
+            raise ValueError(
+                f"max_cached_plans must be >= 1 or None, "
+                f"got {max_cached_plans}")
+        self.catalog = catalog
+        self.options = options or EngineOptions()
+        self.max_cached_plans = max_cached_plans
+        self._cache: "collections.OrderedDict[tuple, _CacheEntry]" = (
+            collections.OrderedDict())
+        self._hits = 0
+        self._misses = 0
+        self._evictions = 0
+
+    # -- prepared statements ------------------------------------------------
+
+    def prepare(self, sql: str, hints: ExecutionHints | None = None,
+                options: EngineOptions | None = None,
+                **static_binds) -> "Statement":
+        """Parse, normalize, and compile (or reuse) a statement.
+
+        ``hints`` become the statement's default execution hints; a
+        ``join_lowering`` or ``rescore_factor`` hint is compile-affecting and
+        folds into the options fingerprint.  ``static_binds`` resolve
+        shape-forming parameters (K values) and are part of the cache key in
+        canonical slot order."""
+        hints = hints or NO_HINTS
+        base_options = options or self.options
+        eff_options = base_options
+        if hints.join_lowering is not None:
+            eff_options = dataclasses.replace(
+                eff_options, join_lowering=hints.join_lowering)
+        if hints.rescore_factor is not None:
+            eff_options = dataclasses.replace(
+                eff_options, rescore_factor=hints.rescore_factor)
+        plan = parse_sql(sql)
+        fp, param_order = plan_fingerprint(plan)
+        key = (fp, eff_options.fingerprint(),
+               self._static_key(static_binds, param_order))
+        entry = self._cache.get(key)
+        if entry is not None:
+            try:
+                entry.compiled.ensure_fresh()
+            except StalePlanError:
+                self._evict(key)
+                entry = None
+        if entry is None:
+            self._misses += 1
+            compiled = compile_plan(sql, plan, self.catalog, eff_options,
+                                    dict(static_binds))
+            entry = _CacheEntry(compiled, param_order, fp)
+            self._cache[key] = entry
+            self._trim()
+            cache_hit = False
+        else:
+            self._hits += 1
+            self._cache.move_to_end(key)
+            cache_hit = True
+        return Statement(self, sql, entry, param_order, hints, cache_hit,
+                         base_options, dict(static_binds))
+
+    def execute(self, sql: str, binds=None,
+                hints: ExecutionHints | None = None, **static_binds):
+        """One-shot convenience: ``prepare`` (cached) + ``execute``."""
+        return self.prepare(sql, hints=hints, **static_binds).execute(binds)
+
+    def cache_info(self) -> CacheInfo:
+        """Hits / misses / live entries / evictions of the plan cache."""
+        return CacheInfo(self._hits, self._misses, len(self._cache),
+                         self._evictions, self.max_cached_plans)
+
+    def serve(self, statement, config=None, **kwargs):
+        """The async serving tier is a later slice of the port."""
+        raise not_ported("Database.serve (serving tier)", "9")
+
+    def advise(self, sql: str, selectivity: float = 1.0, **static_binds):
+        """The lowering advisor is a later slice of the port."""
+        raise not_ported("Database.advise (adaptive optimizer)", "11")
+
+    def attach_live(self, table: str, column: str, path, **kw):
+        """The live corpus is a later slice of the port."""
+        raise not_ported("Database.attach_live (live corpus)", "10")
+
+    def insert(self, table: str, ids, vectors, columns=None, *,
+               column: str | None = None) -> int:
+        """The live corpus is a later slice of the port."""
+        raise not_ported("Database.insert (live corpus)", "10")
+
+    def delete(self, table: str, ids, *, column: str | None = None) -> int:
+        """The live corpus is a later slice of the port."""
+        raise not_ported("Database.delete (live corpus)", "10")
+
+    def compact(self, table: str, *, column: str | None = None) -> int:
+        """The live corpus is a later slice of the port."""
+        raise not_ported("Database.compact (live corpus)", "10")
+
+    # -- internals ----------------------------------------------------------
+
+    def _evict(self, key: tuple) -> None:
+        entry = self._cache.pop(key, None)
+        if entry is not None:
+            entry.evicted = True
+            self._evictions += 1
+
+    def _trim(self) -> None:
+        if self.max_cached_plans is None:
+            return
+        while len(self._cache) > self.max_cached_plans:
+            self._evict(next(iter(self._cache)))
+
+    @staticmethod
+    def _static_key(static_binds: dict, param_order: tuple[str, ...]) -> tuple:
+        """Static binds keyed by canonical parameter SLOT (rename-proof)."""
+        def slot(name: str):
+            return (param_order.index(name) if name in param_order
+                    else ("name", name))
+
+        def val(v: Any):
+            try:
+                hash(v)
+                return v
+            except TypeError:
+                return repr(np.asarray(v).tolist())
+
+        return tuple(sorted(
+            ((slot(k), val(v)) for k, v in static_binds.items()),
+            key=repr))
+
+
+class Statement:
+    """A prepared statement: the cached plan + this statement's bind-name
+    translation.  One ``execute`` front door for every execution shape."""
+
+    def __init__(self, db: Database, sql: str, entry: _CacheEntry,
+                 param_order: tuple[str, ...], hints: ExecutionHints,
+                 cache_hit: bool, base_options: EngineOptions,
+                 static_binds: dict):
+        self._db = db
+        self.sql = sql
+        self._entry = entry
+        self._param_order = param_order
+        self.hints = hints
+        self.cache_hit = cache_hit
+        # what prepare() saw BEFORE hint folding — a compile-affecting hint
+        # re-prepares with the same options base and static binds
+        self._base_options = base_options
+        self._static_binds = static_binds
+        # this statement's param name -> the cached plan's name, slot-aligned
+        self._rename = {a: b for a, b in zip(param_order, entry.param_order)
+                        if a != b}
+
+    @property
+    def compiled(self) -> CompiledQuery:
+        """The (shared, cached) compiled handle behind this statement."""
+        return self._entry.compiled
+
+    @property
+    def executor(self):
+        """The shared BucketedExecutor (bucket cache) of the cached plan."""
+        return self._entry.compiled.executor
+
+    @property
+    def batch_native(self) -> bool:
+        """True when the plan's batched lowering is native."""
+        return self._entry.compiled.batch_native
+
+    def ensure_fresh(self) -> None:
+        """Make this statement's entry current before execution: re-prepare
+        through the cache when the entry was evicted or the catalog moved
+        structurally under it (:class:`StalePlanError`)."""
+        if not self._entry.evicted:
+            try:
+                self._entry.compiled.ensure_fresh()
+                return
+            except StalePlanError:
+                pass
+        fresh = self._db.prepare(self.sql, hints=self.hints,
+                                 options=self._base_options,
+                                 **self._static_binds)
+        self._entry = fresh._entry
+        self._rename = fresh._rename
+        self.cache_hit = fresh.cache_hit
+
+    def execute(self, binds=None, hints: ExecutionHints | None = None):
+        """THE execute front door.
+
+        * dict of scalar-per-query binds  -> single-query pipeline,
+        * list/tuple of bind dicts        -> size-bucketed batch,
+        * stacked dict (leading Q axis)   -> size-bucketed batch,
+        * ``hints.exact_shape=True``      -> exact-shape batch.
+
+        Returns :class:`Result` (single) or :class:`ResultBatch` (batch)."""
+        self.ensure_fresh()
+        hints = self.hints if hints is None else hints
+        if (hints.join_lowering is not None
+                and hints.join_lowering != self.compiled.options.join_lowering
+                ) or (hints.rescore_factor is not None
+                      and hints.rescore_factor
+                      != self.compiled.options.rescore_factor):
+            return self._db.prepare(
+                self.sql, hints=hints, options=self._base_options,
+                **self._static_binds).execute(binds, hints=hints)
+        if binds is None:
+            binds = {}
+        if isinstance(binds, (list, tuple)):
+            return self._execute_batch([self._renamed(b) for b in binds],
+                                       None, hints)
+        if not isinstance(binds, dict):
+            raise TypeError(
+                f"binds must be a dict (single query), a list of dicts, or "
+                f"a stacked dict with a leading Q axis; got {type(binds)}")
+        renamed = self._renamed(binds)
+        if self._is_stacked(renamed):
+            return self._execute_batch(None, renamed, hints)
+        hints.validate_for_single()
+        out = self.compiled.plan.fn(self.compiled._arrays, dict(renamed))
+        report = self._report_fn(path="single", num_queries=1, hints=hints)
+        return Result(out, report)
+
+    def _execute_batch(self, binds_list, stacked_binds,
+                       hints: ExecutionHints):
+        compiled = self.compiled
+        hints.validate_for_plan(compiled.batch_native,
+                                compiled.plan.batch_reason)
+        if hints.pilot_budget > 0:
+            raise not_ported("ExecutionHints.pilot_budget (effort "
+                              "bucketing)", "9")
+        binds = compiled._stack_binds(binds_list, stacked_binds or {})
+        qn = _stacked_qn(binds)
+        probe_budget = hints.probe_budget
+        if isinstance(probe_budget, tuple):
+            if len(probe_budget) != qn:
+                raise ValueError(
+                    f"per-query probe_budget has {len(probe_budget)} "
+                    f"entries for a batch of {qn} queries")
+            probe_budget = np.asarray(probe_budget, np.int32)
+        if hints.exact_shape:
+            path = "batch"
+            out = compiled.plan.batch_fn(compiled._arrays, binds)
+        else:
+            path = "bucketed"
+            out = compiled.executor(binds, probe_budget=probe_budget)
+        bucket = compiled.executor.bucket_for(qn) if path == "bucketed" \
+            else None
+        report = self._report_fn(path=path, bucket=bucket, num_queries=qn,
+                                 hints=hints)
+        return ResultBatch(out, report, qn)
+
+    def explain(self) -> ExplainReport:
+        """Live statement-level report (no execution context)."""
+        return self._report_fn()()
+
+    def _report_fn(self, **exec_fields):
+        """Build an explain closure: called lazily so ``buckets`` and
+        ``trace_counts`` reflect the executor state WHEN explain() runs."""
+        def build() -> ExplainReport:
+            c = self.compiled
+            ex = c.executor
+            return ExplainReport(
+                sql=self.sql,
+                engine=c.options.engine,
+                query_class=c.analysis.query_class.value,
+                plan_key=fingerprint_digest(self._entry.fingerprint),
+                cache_hit=self.cache_hit,
+                batch_native=c.batch_native,
+                batch_lowering=c.plan.batch_reason,
+                buckets=tuple(ex.buckets),
+                trace_counts=dict(ex.trace_counts),
+                logical_plan=c.logical_plan.pretty(),
+                rewritten_plan=c.rewritten_plan.pretty(),
+                **exec_fields)
+
+        return build
+
+    def _renamed(self, binds: dict) -> dict:
+        unknown = [k for k in binds if k not in self._param_order]
+        if unknown:
+            raise ValueError(
+                f"unknown bind parameter(s) {sorted(unknown)}; this "
+                f"statement's parameters are {sorted(self._param_order)}")
+        if not self._rename:
+            return binds
+        return {self._rename.get(k, k): v for k, v in binds.items()}
+
+    def _is_stacked(self, binds: dict) -> bool:
+        """A dict routes to the batch path iff it is stacked: the query
+        vector carries (Q, D), or any bind carries a leading Q axis."""
+        def ndim(v) -> int:
+            return v.ndim if hasattr(v, "ndim") else np.ndim(v)
+
+        qe = self.compiled.analysis.query_expr
+        if isinstance(qe, Param) and qe.name in binds:
+            return ndim(binds[qe.name]) >= 2
+        return any(ndim(v) >= 1 for v in binds.values())
+
+    def __repr__(self):
+        return (f"Statement(class={self.compiled.analysis.query_class.value}, "
+                f"plan={fingerprint_digest(self._entry.fingerprint)}, "
+                f"cache_hit={self.cache_hit})")

@@ -1,0 +1,443 @@
+"""Query compilation: logical plan -> (semantic analysis + rewrite) ->
+physical builder -> torch pipeline.
+
+The compilation product is split in two, as in the reference:
+
+* :class:`CompiledPlan` — the shape-independent plan artifact: analysis,
+  plans, options, and the single/batch pipeline functions.
+* :class:`BucketedExecutor` — the runtime half: a batch of Q queries pads
+  up to the enclosing power-of-two bucket, runs with a per-query ``valid``
+  lane that makes pad queries inert (the kernels' qvalid lane), and slices
+  outputs back to Q.
+
+PyTorch runs eagerly, so there is nothing to trace: a bucket's executor is
+a plain closure over the plan, and ``trace_counts[bucket]`` counts the
+executor objects built for that bucket.  "Compiled once per bucket" keeps
+its meaning — a second batch in the same bucket builds nothing.
+
+This slice compiles Q1 (VKNN-SF) under ``engine="brute"``; every other
+query class and engine, and the dist / quant options, raise
+``NotImplementedError`` naming their ROADMAP.md item (live corpora cannot
+be registered yet).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .expr import BoolOp, Bindings, Expr, Param
+from .physical import BATCH_BUILDERS, BUILDERS, EngineOptions
+from .plan import PlanNode
+from .rewriter import rewrite
+from .schema import Catalog, not_ported
+from .semantics import Analysis, QueryClass, analyze
+from .sql import parse_sql
+
+
+class StalePlanError(RuntimeError):
+    """A compiled plan's catalog registrations changed in a way that cannot
+    be re-bound in place: a table was re-registered (the builders close
+    over its predicate columns).  Recovery is a re-prepare; the session API
+    does it transparently."""
+
+
+def _catalog_dep_keys(a: Analysis) -> tuple:
+    """The catalog registration keys a compiled Q1 plan captures — what
+    :meth:`CompiledQuery.ensure_fresh` watches for version bumps."""
+    return (("table", a.table),)
+
+
+# ---------------------------------------------------------------------------
+# plan fingerprinting (the normalized plan-cache key, DESIGN.md §9)
+# ---------------------------------------------------------------------------
+#
+# Two SQL texts that parse to the same logical plan modulo (a) whitespace,
+# (b) parameter names, and (c) the order of commutative AND/OR conjuncts
+# must share one CompiledPlan — plan reuse across requests is the dominant
+# serving cost, and prepared statements arrive in every textual variant.
+#
+# Canonicalization: parameters are renamed positionally (?0, ?1, ... in
+# canonical traversal order) and commutative BoolOp operands are sorted by
+# their *name-erased* serialization (params rendered as a bare "?"), so the
+# operand order and the positional assignment are both stable across
+# variants.  The fingerprint is the canonical serialization; the canonical
+# parameter order is returned alongside so a cache hit can translate the
+# statement's own bind names onto the cached plan's names.
+
+def _param_slot(params: list, name: str) -> int:
+    if name not in params:
+        params.append(name)
+    return params.index(name)
+
+
+def _fp_value(v: Any, params: list | None) -> str:
+    if isinstance(v, (Expr, PlanNode)):
+        return _fp_node(v, params)
+    if isinstance(v, tuple):
+        return "(" + ",".join(_fp_value(x, params) for x in v) + ")"
+    return repr(v)
+
+
+def _fp_node(n: Any, params: list | None) -> str:
+    """Serialize one plan/expr node; ``params is None`` => name-erased mode
+    (every parameter renders as "?" — the commutative-sort key)."""
+    if isinstance(n, Param):
+        return "?" if params is None else f"?{_param_slot(params, n.name)}"
+    parts = []
+    for f in dataclasses.fields(n):
+        v = getattr(n, f.name)
+        # Limit.k (and the rewritten nodes' k) may hold a *param name* string
+        if f.name == "k" and isinstance(v, str):
+            parts.append("?" if params is None
+                         else f"?{_param_slot(params, v)}")
+            continue
+        if (isinstance(n, BoolOp) and f.name == "operands"
+                and n.op in ("and", "or")):
+            erased = [_fp_node(o, None) for o in n.operands]
+            order = sorted(range(len(erased)), key=erased.__getitem__)
+            parts.append("(" + ",".join(
+                _fp_node(n.operands[i], params) for i in order) + ")")
+            continue
+        parts.append(_fp_value(v, params))
+    return type(n).__name__ + "[" + ";".join(parts) + "]"
+
+
+def plan_fingerprint(plan: PlanNode) -> tuple[str, tuple[str, ...]]:
+    """Canonical fingerprint of a logical plan.
+
+    Returns ``(fingerprint, param_order)``: the fingerprint is identical for
+    whitespace / parameter-rename / AND-OR-operand-order variants of the same
+    SQL, and ``param_order[i]`` is THIS plan's original name for canonical
+    parameter slot ``i`` (two variant plans align slot-by-slot)."""
+    params: list[str] = []
+    fp = _fp_node(plan, params)
+    return fp, tuple(params)
+
+
+def fingerprint_digest(fp: str) -> str:
+    """Short stable digest of a plan fingerprint (for explain/report keys)."""
+    return hashlib.sha256(fp.encode()).hexdigest()[:12]
+
+
+@dataclasses.dataclass
+class CompiledPlan:
+    """Shape-independent compilation artifact (one per SQL + options).
+
+    ``batch_fn`` has the uniform signature
+    ``(arrays, binds, qvalid=None, probe_budget=None)``: every value in
+    ``binds`` carries a leading Q axis and ``qvalid`` is an optional (Q,)
+    bool marking size-bucket pad queries (inert: no results, zero
+    counters)."""
+    sql: str
+    analysis: Analysis
+    logical_plan: PlanNode
+    rewritten_plan: PlanNode
+    options: EngineOptions
+    fn: Callable
+    batch_fn: Callable
+    batch_native: bool
+    batch_reason: str
+
+
+def _bucket_for(qn: int) -> int:
+    """Enclosing power-of-two size bucket (1, 2, 4, 8, ...)."""
+    if qn < 1:
+        raise ValueError(f"batch size must be >= 1, got {qn}")
+    return 1 << (qn - 1).bit_length()
+
+
+def _pad_leading(v, bucket: int) -> np.ndarray:
+    """Edge-pad the leading Q axis up to ``bucket`` on the host (pad rows
+    repeat the last real row, so they are well-formed binds; the ``valid``
+    lane makes them inert)."""
+    v = np.asarray(v)
+    pad = bucket - v.shape[0]
+    if pad == 0:
+        return v
+    return np.concatenate(
+        [v, np.broadcast_to(v[-1:], (pad,) + v.shape[1:])])
+
+
+def _host(v) -> np.ndarray:
+    """A bind as a host array (tensors are copied off their device)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class BucketedExecutor:
+    """Lazy per-(plan, bucket) executor cache — the serving execution tier.
+
+    One executor exists per power-of-two bucket actually seen;
+    ``trace_counts[bucket]`` counts the executors built for it (1 after the
+    first batch, and it stays 1).  A batch of Q requests pads to
+    ``_bucket_for(Q)``, executes with ``valid[q] = q < Q``, and slices every
+    output leaf back to Q.  Pad queries are inert by construction, so
+    bucketed results equal an exact-shape ``execute_batch`` bit for bit."""
+
+    def __init__(self, plan: CompiledPlan, arrays: Any):
+        self.plan = plan
+        self.arrays = arrays
+        self._cache: dict[int, Callable] = {}
+        self.trace_counts: dict[int, int] = {}
+
+    def bucket_for(self, qn: int) -> int:
+        """Enclosing power-of-two bucket a batch of ``qn`` queries runs in."""
+        return _bucket_for(qn)
+
+    @property
+    def buckets(self) -> list[int]:
+        """Buckets with a built executor (sorted)."""
+        return sorted(self._cache)
+
+    def executable(self, bucket: int) -> Callable:
+        """The (lazily built) executor for one bucket."""
+        if bucket not in self._cache:
+            self.trace_counts[bucket] = self.trace_counts.get(bucket, 0) + 1
+
+            def run(arrays, binds, qvalid, probe_budget):
+                return self.plan.batch_fn(arrays, binds, qvalid=qvalid,
+                                          probe_budget=probe_budget)
+
+            self._cache[bucket] = run
+        return self._cache[bucket]
+
+    def run_padded(self, binds: dict, qn: int, probe_budget=None):
+        """Execute at bucket granularity WITHOUT slicing outputs back.
+
+        Returns (padded outputs, bucket, valid), so tests can observe that
+        pad rows are inert — empty results, zero counters."""
+        bucket = _bucket_for(qn)
+        padded = {k: _pad_leading(v, bucket) for k, v in binds.items()}
+        valid = np.arange(bucket) < qn
+        out = self.executable(bucket)(self.arrays, padded, valid,
+                                      probe_budget)
+        return out, bucket, valid
+
+    def __call__(self, binds: dict, probe_budget=None):
+        """Bucketed execution: pad -> run the bucket's executor -> slice."""
+        qn = _stacked_qn(binds)
+        out, _bucket, _valid = self.run_padded(binds, qn, probe_budget)
+        return _tree_map(lambda v: v[:qn], out)
+
+
+def _stacked_qn(binds: dict) -> int:
+    dims = [v.shape[0] for v in binds.values()
+            if hasattr(v, "ndim") and v.ndim >= 1]
+    if not dims:
+        raise ValueError("stacked binds carry no leading batch axis")
+    return dims[0]
+
+
+@dataclasses.dataclass
+class CompiledQuery:
+    """User-facing handle: plan artifact + per-bucket executor cache.
+
+    ``__call__`` runs the single-query pipeline; ``execute_batch`` runs the
+    exact-shape batch (the bit-parity reference); ``execute_bucketed`` runs
+    the size-bucketed serving path."""
+    plan: CompiledPlan
+    _arrays: Any
+    executor: BucketedExecutor
+    _catalog: Any = None
+    _dep_keys: tuple = ()
+    _bound_versions: tuple = ()
+
+    @property
+    def sql(self) -> str:
+        """The statement's original SQL text."""
+        return self.plan.sql
+
+    @property
+    def analysis(self) -> Analysis:
+        """Semantic analysis (query class + extracted slots)."""
+        return self.plan.analysis
+
+    @property
+    def logical_plan(self) -> PlanNode:
+        """The parsed (pre-rewrite) logical plan."""
+        return self.plan.logical_plan
+
+    @property
+    def rewritten_plan(self) -> PlanNode:
+        """The CHASE-rewritten logical plan (R1-R3 applied)."""
+        return self.plan.rewritten_plan
+
+    @property
+    def options(self) -> EngineOptions:
+        """The EngineOptions this plan compiled under."""
+        return self.plan.options
+
+    @property
+    def batch_native(self) -> bool:
+        """True when execute_batch lowers natively."""
+        return self.plan.batch_native
+
+    def ensure_fresh(self) -> None:
+        """Check this plan against the catalog's current registrations: a
+        re-registered table raises :class:`StalePlanError` (the builders
+        hold the old table's columns); unchanged versions are a no-op.
+        Table keys are the only ones a catalog of this slice can bump."""
+        if self._catalog is None:
+            return
+        current = self._catalog.version_snapshot(self._dep_keys)
+        if current != self._bound_versions:
+            stale = [k[1] for k, old, new in zip(
+                self._dep_keys, self._bound_versions, current) if old != new]
+            raise StalePlanError(
+                f"table(s) {stale} were re-registered after this plan "
+                f"compiled; the plan's predicate columns are frozen at the "
+                f"old table — re-prepare the statement")
+
+    def __call__(self, **binds):
+        self.ensure_fresh()
+        return self.plan.fn(self._arrays, dict(binds))
+
+    def execute_batch(self, binds_list: list[dict] | None = None, **stacked):
+        """Execute a parameter-only batch at its exact shape: Q bind sets,
+        given as a list of dicts or as keyword binds with a leading Q axis
+        (scalars broadcast).  Every output gains a leading Q axis."""
+        self.ensure_fresh()
+        binds = self._stack_binds(binds_list, stacked)
+        return self.plan.batch_fn(self._arrays, binds)
+
+    def execute_bucketed(self, binds_list: list[dict] | None = None,
+                         probe_budget=None, **stacked):
+        """Size-bucketed batch execution (the serving path): same results as
+        :meth:`execute_batch`, run in the enclosing power-of-two bucket."""
+        self.ensure_fresh()
+        binds = self._stack_binds(binds_list, stacked)
+        return self.executor(binds, probe_budget=probe_budget)
+
+    def _stack_binds(self, binds_list, stacked) -> dict:
+        if binds_list is not None:
+            if stacked:
+                raise TypeError("pass binds_list OR keyword binds, not both")
+            if not binds_list:
+                raise ValueError("binds_list is empty")
+            keys = binds_list[0].keys()
+            for i, b in enumerate(binds_list):
+                missing = keys - b.keys()
+                extra = b.keys() - keys
+                if missing or extra:
+                    offending = sorted(missing | extra)[0]
+                    kind = "missing" if offending in missing else "unexpected"
+                    raise ValueError(
+                        f"ragged binds_list: binds_list[{i}] has {kind} key "
+                        f"{offending!r} (binds_list[0] keys: "
+                        f"{sorted(keys)})")
+            # stacked on the host; the pipeline moves each bind to the
+            # device once
+            return {k: np.stack([_host(b[k]) for b in binds_list])
+                    for k in keys}
+        binds = {k: _host(v) for k, v in stacked.items()}
+        qe = self.analysis.query_expr
+        if isinstance(qe, Param) and qe.name in binds:
+            qv = binds[qe.name]
+            if qv.ndim != 2:
+                raise ValueError(
+                    f"execute_batch needs a stacked (Q, D) query vector for "
+                    f"${{{qe.name}}}, got shape {qv.shape}; pass a single "
+                    f"query through __call__ instead")
+            qn = qv.shape[0]
+        else:
+            dims = [v.shape[0] for v in binds.values() if v.ndim >= 1]
+            if not dims:
+                raise ValueError("cannot infer batch size from scalar binds; "
+                                 "use binds_list")
+            qn = dims[0]
+        bad = {k: v.shape for k, v in binds.items()
+               if v.ndim >= 1 and v.shape[0] != qn}
+        if bad:
+            raise ValueError(f"stacked binds disagree on batch size {qn}: "
+                             f"{bad}")
+        return {k: (np.broadcast_to(v, (qn,)) if v.ndim == 0 else v)
+                for k, v in binds.items()}
+
+    def explain(self) -> str:
+        """Engine/class/lowering summary plus both plan trees, as text."""
+        out = [f"-- engine: {self.options.engine}",
+               f"-- class:  {self.analysis.query_class.value}",
+               f"-- batch:  {self.plan.batch_reason}",
+               "-- logical plan:", self.logical_plan.pretty(),
+               "-- rewritten plan:", self.rewritten_plan.pretty()]
+        return "\n".join(out)
+
+
+def _gather_arrays(a: Analysis, catalog: Catalog) -> dict:
+    """The device tensors a compiled Q1 pipeline reads."""
+    return {"corpus": catalog.table(a.table)[a.vector_column]}
+
+
+def _batch_lowering(a: Analysis, options: EngineOptions):
+    """(batch_builder, batch_native, human-readable reason)."""
+    return (BATCH_BUILDERS[a.query_class], True,
+            "native (query-tiled kernels / multi-cluster probes)")
+
+
+_CLASS_ITEMS = {
+    QueryClass.DR_SF: "6 (Q2 DR-SF)",
+    QueryClass.DIST_JOIN: "7 (joins, Q3-Q6)",
+    QueryClass.KNN_JOIN: "7 (joins, Q3-Q6)",
+    QueryClass.CATEGORY_PARTITION: "7 (joins, Q3-Q6)",
+    QueryClass.CATEGORY_JOIN: "7 (joins, Q3-Q6)",
+}
+
+
+def _validate_slice(a: Analysis, options: EngineOptions) -> None:
+    """Reject what this slice of the port does not lower yet."""
+    if a.query_class == QueryClass.NON_HYBRID:
+        raise NotImplementedError(
+            "plan did not match a hybrid pattern; use the interpreter engine")
+    if a.query_class not in BUILDERS:
+        raise not_ported(f"query class {a.query_class.value}",
+                      _CLASS_ITEMS[a.query_class])
+    if options.engine != "brute":
+        raise not_ported(f"engine {options.engine!r}", "5 (IVF engines)")
+    if options.dist is not None:
+        raise not_ported("EngineOptions.dist (sharded scans)", "13")
+    if options.quant is not None:
+        raise not_ported("EngineOptions.quant (quantized scans)", "8")
+
+
+def compile_query(sql: str, catalog: Catalog,
+                  options: EngineOptions | None = None,
+                  **static_binds) -> CompiledQuery:
+    """Parse, analyze, rewrite and select physical operators.
+
+    ``static_binds`` resolve parameters that shape the computation (K
+    values); runtime parameters are passed at call time.  Each call compiles
+    fresh; the session API (:func:`repro_torch.api.connect`) puts a
+    normalized plan cache in front."""
+    options = options or EngineOptions()
+    plan = parse_sql(sql)
+    return compile_plan(sql, plan, catalog, options, static_binds)
+
+
+def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
+                 options: EngineOptions, static_binds: dict) -> CompiledQuery:
+    """Compile an already-parsed logical plan (the plan-cache entry point)."""
+    a = analyze(plan, catalog)
+    _validate_slice(a, options)
+    rewritten = rewrite(a)
+    arrays = _gather_arrays(a, catalog)
+    batch_builder, batch_native, batch_reason = _batch_lowering(a, options)
+    fn = BUILDERS[a.query_class](a, catalog, options, Bindings(static_binds))
+    bfn = batch_builder(a, catalog, options, Bindings(static_binds))
+    compiled_plan = CompiledPlan(sql, a, plan, rewritten, options, fn, bfn,
+                                 batch_native, batch_reason)
+    executor = BucketedExecutor(compiled_plan, arrays)
+    dep_keys = _catalog_dep_keys(a)
+    return CompiledQuery(compiled_plan, arrays, executor, _catalog=catalog,
+                         _dep_keys=dep_keys,
+                         _bound_versions=catalog.version_snapshot(dep_keys))

@@ -1,0 +1,213 @@
+"""Relational schema with first-class vector columns (PyTorch port).
+
+A :class:`Table` is a columnar batch of torch tensors that all live on one
+device, with a typed :class:`Schema`; vector columns carry their
+dimensionality and metric.  Tables are fixed-capacity: row selection is a
+validity mask, never a physical shrink.
+
+The :class:`Catalog` keeps the reference's versioned registration clock so
+compiled plans can detect a re-registered table.  Index, quantized-twin,
+live-corpus and sharded registrations belong to later slices of the port and
+raise ``NotImplementedError`` until then.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Mapping
+
+import torch
+
+
+class ColumnKind(enum.Enum):
+    """Column type tags for the relational schema."""
+    INT = "int"
+    FLOAT = "float"
+    BOOL = "bool"
+    CATEGORY = "category"  # small-int category codes (dictionary-encoded)
+    VECTOR = "vector"      # dense embedding
+
+
+class Metric(enum.Enum):
+    """Vector distance/similarity metric of a vector column."""
+    L2 = "l2"
+    INNER_PRODUCT = "ip"
+    COSINE = "cosine"
+
+    def is_similarity(self) -> bool:
+        """True when larger values mean *more* similar (IP / cosine)."""
+        return self in (Metric.INNER_PRODUCT, Metric.COSINE)
+
+
+_DEFAULT_DTYPES = {
+    ColumnKind.INT: torch.int32,
+    ColumnKind.FLOAT: torch.float32,
+    ColumnKind.BOOL: torch.bool,
+    ColumnKind.CATEGORY: torch.int32,
+    ColumnKind.VECTOR: torch.float32,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnType:
+    """Typed column declaration (kind, dtype, and vector/category extras)."""
+    kind: ColumnKind
+    dtype: Any = None          # torch dtype; defaulted per kind
+    dim: int | None = None     # vector dimensionality
+    num_categories: int | None = None  # category cardinality (when known)
+    metric: Metric = Metric.INNER_PRODUCT
+
+    def __post_init__(self):
+        if self.dtype is None:
+            object.__setattr__(self, "dtype", _DEFAULT_DTYPES[self.kind])
+        if self.kind == ColumnKind.VECTOR and not self.dim:
+            raise ValueError("vector columns require dim")
+
+
+def int_col(dtype=torch.int32) -> ColumnType:
+    """Integer column declaration."""
+    return ColumnType(ColumnKind.INT, dtype)
+
+
+def float_col(dtype=torch.float32) -> ColumnType:
+    """Float column declaration."""
+    return ColumnType(ColumnKind.FLOAT, dtype)
+
+
+def category_col(num_categories: int | None = None) -> ColumnType:
+    """Dictionary-encoded category column declaration."""
+    return ColumnType(ColumnKind.CATEGORY, num_categories=num_categories)
+
+
+def vector_col(dim: int, metric: Metric = Metric.INNER_PRODUCT,
+               dtype=torch.float32) -> ColumnType:
+    """Dense vector column declaration (first-class: carries dim + metric)."""
+    return ColumnType(ColumnKind.VECTOR, dtype, dim=dim, metric=metric)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schema:
+    """Ordered column-name -> ColumnType mapping for one table."""
+    columns: Mapping[str, ColumnType]
+    primary_key: str | None = None
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.columns
+
+    def __getitem__(self, name: str) -> ColumnType:
+        return self.columns[name]
+
+
+class Table:
+    """Columnar fixed-capacity table: dict of equally-sized tensors on one
+    device.
+
+    ``valid`` marks live rows (static-shape selection)."""
+
+    def __init__(self, schema: Schema, columns: Mapping[str, torch.Tensor],
+                 valid: torch.Tensor | None = None, name: str = "t"):
+        self.schema = schema
+        self.columns = dict(columns)
+        self.name = name
+        sizes = {v.shape[0] for v in self.columns.values()}
+        if len(sizes) != 1:
+            raise ValueError(f"ragged columns: {sizes}")
+        (self.num_rows,) = sizes
+        devices = {v.device for v in self.columns.values()}
+        if len(devices) != 1:
+            raise ValueError(f"columns on several devices: {devices}")
+        (self.device,) = devices
+        for cname, ctype in schema.columns.items():
+            if cname not in self.columns:
+                raise ValueError(f"missing column {cname}")
+            if ctype.kind == ColumnKind.VECTOR:
+                arr = self.columns[cname]
+                if arr.ndim != 2 or arr.shape[1] != ctype.dim:
+                    raise ValueError(
+                        f"vector column {cname}: expected (N,{ctype.dim}), got {tuple(arr.shape)}")
+        if valid is None:
+            valid = torch.ones((self.num_rows,), dtype=torch.bool,
+                               device=self.device)
+        self.valid = valid
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.columns[name]
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error a surface of a later slice of the port raises, naming its
+    ROADMAP.md queue-1 item."""
+    return NotImplementedError(
+        f"{what} is not yet ported, see ROADMAP.md queue 1 item {item}")
+
+
+class Catalog:
+    """Name -> Table registry with the reference's versioned registration
+    clock.
+
+    ``register`` bumps a monotonic catalog clock and stamps the touched key;
+    compiled plans snapshot the versions of the keys they captured and
+    compare at execute time (``CompiledQuery.ensure_fresh``), so a
+    re-registered table raises ``StalePlanError`` instead of serving frozen
+    data."""
+
+    def __init__(self):
+        self._tables: dict[str, Table] = {}
+        self._clock = 0
+        self._versions: dict[tuple, int] = {}
+
+    def _bump(self, key: tuple) -> None:
+        self._clock += 1
+        self._versions[key] = self._clock
+
+    def version(self, key: tuple) -> int:
+        """Monotonic version of one registration key (0 if never
+        registered).  One global clock: equal snapshots mean nothing
+        changed."""
+        return self._versions.get(key, 0)
+
+    def version_snapshot(self, keys: tuple) -> tuple:
+        """Versions of ``keys`` as a tuple."""
+        return tuple(self.version(k) for k in keys)
+
+    def register(self, name: str, table: Table) -> None:
+        """Register (or replace) a table under ``name``; bumps
+        ``("table", name)``."""
+        table.name = name
+        self._tables[name] = table
+        self._bump(("table", name))
+
+    def table(self, name: str) -> Table:
+        """Look up a registered table (KeyError when absent)."""
+        return self._tables[name]
+
+    def has_table(self, name: str) -> bool:
+        """True iff ``name`` is a registered table."""
+        return name in self._tables
+
+    def register_index(self, table: str, column: str, index: Any) -> None:
+        """IVF indexes belong to the next slice of the port."""
+        raise not_ported("Catalog.register_index (IVF)", "5")
+
+    def index_for(self, table: str, column: str):
+        """The ANN index registered for (table, column): always None until
+        the IVF slice lands."""
+        return None
+
+    def register_quantized(self, table: str, column: str, quant: Any,
+                           key: Any = None) -> None:
+        """Quantized twins belong to a later slice of the port."""
+        raise not_ported("Catalog.register_quantized", "8")
+
+    def register_live(self, table: str, column: str, live: Any) -> None:
+        """Live corpora belong to a later slice of the port."""
+        raise not_ported("Catalog.register_live (live corpus)", "10")
+
+    def live_for(self, table: str, column: str):
+        """The live corpus attached to (table, column): always None until
+        the live-corpus slice lands."""
+        return None
+
+    def register_sharded(self, table: str, column: str, sharded: Any) -> None:
+        """Sharded corpora belong to a later slice of the port."""
+        raise not_ported("Catalog.register_sharded", "13")

@@ -1,0 +1,97 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds).  Libraries land in ``build/kernels/`` at the repository root,
+named by a digest of their sources and flags, so an edited source never
+reuses a stale library.  There is no fallback: a missing ``nvcc`` or a
+failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("scan_topk.cu", "scan_topk_batch.cu")
+HEADERS = ("topk_common.cuh",)
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit")
+
+
+def target(source: str) -> Path:
+    """The shared library a source builds into."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in (source,) + HEADERS:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(sources=SOURCES) -> dict[str, float]:
+    """Compile every source whose library is missing, all ``nvcc`` runs
+    started together.  Returns {source: seconds} for the sources built;
+    the compiler's report (registers, shared memory, spills) is kept beside
+    each library as ``.log``."""
+    todo = [s for s in sources if not target(s).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    started = time.perf_counter()
+    procs = {}
+    for s in todo:
+        tmp = target(s).with_suffix(f".tmp{os.getpid()}")
+        procs[s] = (tmp, subprocess.Popen(
+            [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    seconds, failed = {}, []
+    for s, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        seconds[s] = time.perf_counter() - started
+        target(s).with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{s}:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, target(s))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return seconds
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    lib = _loaded.get(source)
+    if lib is None:
+        build((source,))
+        lib = ctypes.CDLL(str(target(source)))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[source] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, what: str, err: int) -> None:
+    """Raise if a launcher returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: cudaError {err} ({msg})")

@@ -1,0 +1,27 @@
+"""Pure-torch oracles of the fused scan kernels (the ``ref.py`` contract):
+the semantic ground truth, written from the expression evaluator rather than
+from the kernels' matmul-plus-epilogue form."""
+from __future__ import annotations
+
+import torch
+
+from ..core.expr import distance_values, order_key
+from ..core.schema import Metric
+from ..index.flat import stable_smallest_k
+
+
+def keys_ref(corpus: torch.Tensor, query: torch.Tensor,
+             metric: Metric) -> torch.Tensor:
+    """(N,) order keys (ascending-better) of corpus rows vs a single query."""
+    return order_key(metric, distance_values(metric, corpus, query))
+
+
+def scan_topk_ref(corpus: torch.Tensor, query: torch.Tensor, k: int,
+                  row_mask: torch.Tensor | None, metric: Metric):
+    """Fused scan+filter+topk oracle. Returns (ids, keys, valid)."""
+    keys = keys_ref(corpus, query, metric)
+    if row_mask is not None:
+        keys = keys.masked_fill(~row_mask, float("inf"))
+    out_keys, idx = stable_smallest_k(keys, k)
+    valid = torch.isfinite(out_keys)
+    return torch.where(valid, idx, -1), out_keys, valid

@@ -1,0 +1,80 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+and its entry points run on the card unless the caller asks for the CPU."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\s|\.|$)",
+                       re.MULTILINE)
+
+
+def _modules() -> list[str]:
+    out = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        out.append(".".join(parts))
+    return out
+
+
+def test_importing_every_module_loads_no_jax_or_reference():
+    mods = _modules()
+    assert "repro_torch.kernels.scan_topk" in mods
+    code = ("import sys\n"
+            f"for m in {mods!r}:\n"
+            "    __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_sources_have_no_jax_or_reference_imports():
+    offenders = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
+                 for p in sorted(PORT.rglob("*.py"))
+                 for m in FORBIDDEN.finditer(p.read_text())]
+    assert offenders == []
+    assert FORBIDDEN.search("from repro.core import x")
+    assert not FORBIDDEN.search("from repro_torch.core import x")
+
+
+def test_entry_points_default_to_cuda():
+    """Without ``device=`` the catalog lands on the card; on a machine
+    without one that raises instead of quietly running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default placement works")
+    from repro_torch.data import catalog_from_numpy, make_laion_catalog
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        make_laion_catalog(n_rows=64, n_queries=2, dim=8, n_modes=2)
+    tables = {"t": {"columns": {"v": np.zeros((4, 8), np.float32)},
+                    "kinds": {"v": ("vector", 8, "ip")}}}
+    with pytest.raises((RuntimeError, AssertionError)):
+        catalog_from_numpy(tables, {"t": "t"})
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from repro_torch.core.schema import Metric
+    from repro_torch.kernels.ops import fused_scan_topk, fused_scan_topk_batch
+
+    corpus = torch.zeros((32, 8), device="meta")
+    with pytest.raises(ValueError, match="runs on cuda"):
+        fused_scan_topk(corpus, torch.zeros(8, device="meta"), 3, None,
+                        Metric.L2)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        fused_scan_topk_batch(corpus, torch.zeros((2, 8), device="meta"), 3,
+                              None, Metric.L2)
