@@ -1,33 +1,51 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-The main path is Q1 VKNN-SF, the paper's filtered vector top-k, from SQL
-text through ``connect -> prepare -> execute`` under
-``engine="brute", use_pallas=True``, on the laion1m shape (1,000,000 rows of
-512-d fp32 vectors, 100 queries, K = 50; configs/chase_laion.py).  Phases,
+Three paths, each from SQL text through ``connect -> prepare -> execute``
+under ``engine="brute", use_pallas=True``, on the laion1m shape
+(1,000,000 rows of 512-d fp32 vectors, 100 queries; configs/chase_laion.py):
+
+  Q1  VKNN-SF, the filtered vector top-k, K = 50, ``price < p`` at
+      selectivity 0.3 (kernels scan_topk, scan_topk_batch);
+  Q2  DR-SF, the filtered range scan ``DISTANCE <= r AND price < p``,
+      result buffer 4096 (the EngineOptions default) (range_scan_batch; the
+      single-dict plan is the reference's kernel-less lowering);
+  Q3  the distance join of the 100 queries with the corpus on
+      ``DISTANCE <= r AND images.capture_date > queries.capture_date``,
+      max_pairs 512 (benchmarks/q3_distjoin.py), under the batch lowering
+      (range_scan_batch) and the perleft one (range_scan, one launch per
+      left row).
+
+The radius is the paper's: the median over the 100 queries of each query's
+120th-best similarity (benchmarks/common.py, range_match_target).  Phases,
 one JSON line each:
 
   env      the card (the nvidia-smi line is also printed as it is), torch
            and CUDA versions, TF32 flags (both off)
   build    nvcc build of every kernel source, all started together
   sweep    each kernel against its plain PyTorch version on small inputs:
-           metrics, mask kinds, pad queries, ragged N and D, k in
-           {1, 10, 50, 200, 1000}, k beyond the live rows, duplicate rows
-  full     each kernel against its plain version at the main path's shapes
-  slice    Q1 through the session API: single dicts, lists of 1/8/64/100
-           (buckets 1/8/64/128), a stacked dict, exact_shape (and the Q = 1
-           fast path); every answer held against use_pallas=False, and both
-           kernels' launch counters must advance
-  times    per kernel: its time, its plain version's, the library yardstick
-           (torch.matmul + torch.topk, timed only), the bound
-  e2e      execute latency and QPS per batch size
+           metrics, mask kinds, pad queries, ragged N and D, D = 512; top-k
+           k in {1, 10, 50, 200, 1000}, k beyond the live rows, duplicate
+           rows; range radii that hit nothing, everything, or lie exactly
+           on duplicate rows, and the compaction below and beyond the count
+  full     each kernel against its plain version at the paths' shapes
+  slice    Q1, Q2 and Q3 through the session API: single dicts, lists,
+           stacked dicts, exact_shape; every answer held against
+           use_pallas=False on the card; each path's kernels' launch
+           counters must advance (counters set to 0 before each path)
+  times    per kernel: its time, its plain version's, the library
+           yardstick (timed only), the bound
+  e2e      execute latency and QPS per batch size (Q1, Q2) and per Q3
+           lowering; for the range paths the kernel's and the stage-2
+           compaction's time at the same shapes, and the peak memory
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero without the last line.
 
-Tolerance: 1e-5 at D <= 130 and 1e-4 at D = 512 on sims and on the key gap
-that may reorder a near-tie (fp32 sums of up to 512 unit-scale products
-taken in a different order).
+Tolerance: 1e-5 at D <= 130 and 1e-4 at D = 512 on sims, on the key gap
+that may reorder a near-tie, and on the distance from the radius within
+which a row may be a hit on one side only (fp32 sums of up to 512
+unit-scale products taken in a different order).
 """
 import json
 import os
@@ -44,11 +62,26 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 N_ROWS, N_QUERIES, DIM, N_MODES, K = 1_000_000, 100, 512, 256, 50
 SELECTIVITY = 0.3
+RANGE_TARGET = 120            # the radius's hit count per query (§7.1)
 BATCHES = (1, 8, 64, 100)
+CAPACITY = 4096               # Q2 result buffer (ProbeConfig.capacity)
+MAX_PAIRS = 512               # Q3 per-left-row buffer
 Q1 = ("SELECT sample_id FROM products WHERE price < ${p} "
       "ORDER BY DISTANCE(embedding, ${qv}) LIMIT ${K}")
 Q1_NOFILTER = ("SELECT sample_id FROM products "
                "ORDER BY DISTANCE(embedding, ${qv}) LIMIT ${K}")
+Q2 = ("SELECT sample_id FROM images WHERE DISTANCE(embedding, ${qv}) <= ${r} "
+      "AND price < ${p}")
+Q3 = ("SELECT queries.id AS qid, images.sample_id AS tid "
+      "FROM queries JOIN images "
+      "ON DISTANCE(queries.embedding, images.embedding) <= ${r} "
+      "AND images.capture_date > queries.capture_date")
+KERNELS = ("scan_topk_batch", "scan_topk", "range_scan_batch", "range_scan")
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in KERNELS}
+REPLACES = {"scan_topk": "src/repro/kernels/scan_topk.py:241",
+            "scan_topk_batch": "src/repro/kernels/scan_topk.py:189",
+            "range_scan": "src/repro/kernels/range_scan.py:50",
+            "range_scan_batch": "src/repro/kernels/range_scan.py:118"}
 # published dense peaks (NVIDIA data sheets): bytes/s, fp32 CUDA-core FLOP/s
 PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12),
          "SXM": (3.35e12, 67.0e12)}
@@ -82,11 +115,62 @@ def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+def latency_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Median host time of one call that ends in a synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def peak_mb(fn) -> float:
+    """Device memory one call needs above what is resident before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
 def slab(keys, ids, k: int) -> dict:
     """A stage-1 output as one top-k row per (query, split): the tie rule
     applies within each split's list."""
     keys, ids = keys.reshape(-1, k), ids.reshape(-1, k)
     return {"ids": ids, "sim": keys, "valid": torch.isfinite(keys)}
+
+
+def range_err(got, want, radius_keys, tol: float, what: str) -> float:
+    """Hold a range kernel's (keys, hits, counts) against its plain
+    version's: hits equal except on rows whose key lies within ``tol`` of
+    the radius key, counts off by at most those rows and equal to the
+    kernel's own hits, keys +inf off the hits and within ``tol`` on the
+    hits both sides hold.  Returns the largest key difference."""
+    gk, gh, gc = got
+    wk, wh, wc = want
+    gh, wh = gh.bool(), wh.bool()
+    rk = radius_keys.reshape(-1, 1) if gk.ndim == 2 else radius_keys.reshape(())
+    flip = gh != wh
+    key = torch.where(gh, gk, wk)
+    if bool((flip & ((key - rk).abs() > tol)).any()):
+        raise AssertionError(f"{what}: a hit on one side only, off the radius")
+    if bool(((gc - wc).abs() > flip.sum(-1)).any()):
+        raise AssertionError(f"{what}: counts {gc.tolist()} vs {wc.tolist()}")
+    if not torch.equal(gc, gh.sum(-1, dtype=torch.int32)):
+        raise AssertionError(f"{what}: the kernel's count is not its hits")
+    if not bool(torch.isinf(gk[~gh]).all()):
+        raise AssertionError(f"{what}: a finite key off the hits")
+    both = gh & wh
+    err = float((gk[both] - wk[both]).abs().max()) if bool(both.any()) else 0.
+    if not err <= tol:
+        raise AssertionError(f"{what}: keys differ by {err} > {tol}")
+    return err
 
 
 def main() -> None:
@@ -96,12 +180,27 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.api import ExecutionHints, connect
-    from repro_torch.core.expr import evaluate, evaluate_batch
+    from repro_torch.core.expr import (evaluate, evaluate_batch, order_key,
+                                       pairwise_order_keys)
     from repro_torch.core.schema import Metric
     from repro_torch.data import make_laion_catalog, selectivity_threshold
-    from repro_torch.kernels import build
+    from repro_torch.index.flat import compact_range
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import range_scan as rs_mod
     from repro_torch.kernels import scan_topk as st_mod
-    from repro_torch.testing import assert_topk_close
+    from repro_torch.testing import assert_range_close, assert_topk_close
+
+    wrappers = {"scan_topk": st_mod.scan_topk,
+                "scan_topk_batch": st_mod.scan_topk_batch,
+                "range_scan": rs_mod.range_scan,
+                "range_scan_batch": rs_mod.range_scan_batch}
+
+    def reset_counts() -> None:
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts() -> dict:
+        return {name: fn.launches for name, fn in wrappers.items()}
 
     # -- env ---------------------------------------------------------------
     smi = subprocess.run(
@@ -132,8 +231,8 @@ def main() -> None:
           "per_source_s": built, "ptxas": ptxas})
 
     # -- sweep: each kernel against its plain version ------------------------
-    max_err = {"scan_topk": 0.0, "scan_topk_batch": 0.0}
-    cases = {"scan_topk": 0, "scan_topk_batch": 0}
+    max_err = {kname: 0.0 for kname in KERNELS}
+    cases = {kname: 0 for kname in KERNELS}
     rng = np.random.default_rng(0)
 
     def unit(shape):
@@ -141,28 +240,52 @@ def main() -> None:
         x /= np.linalg.norm(x, axis=-1, keepdims=True)
         return torch.from_numpy(x).to(dev)
 
+    def record(kname: str, err: float) -> None:
+        max_err[kname] = max(max_err[kname], err)
+        cases[kname] += 1
+
     def check_single(corpus, q, mask, k, metric, tol, what):
         got = st_mod.scan_topk(corpus, q, mask, k, metric)
         want = st_mod.scan_topk_plain(corpus, q, mask, k, metric)
         torch.cuda.synchronize()
-        err = assert_topk_close(slab(*got, k), slab(*want, k), atol=tol,
-                                tie_tol=tol, what=what)
-        max_err["scan_topk"] = max(max_err["scan_topk"], err)
-        cases["scan_topk"] += 1
+        record("scan_topk", assert_topk_close(
+            slab(*got, k), slab(*want, k), atol=tol, tie_tol=tol, what=what))
 
     def check_batch(corpus, qs, mask, qvalid, k, metric, tol, what):
         got = st_mod.scan_topk_batch(corpus, qs, mask, qvalid, k, metric)
         want = st_mod.scan_topk_batch_plain(corpus, qs, mask, qvalid, k,
                                             metric)
         torch.cuda.synchronize()
-        err = assert_topk_close(slab(*got, k), slab(*want, k), atol=tol,
-                                tie_tol=tol, what=what)
-        max_err["scan_topk_batch"] = max(max_err["scan_topk_batch"], err)
-        cases["scan_topk_batch"] += 1
+        record("scan_topk_batch", assert_topk_close(
+            slab(*got, k), slab(*want, k), atol=tol, tie_tol=tol, what=what))
+
+    def check_range_single(corpus, q, rk, mask, metric, tol, what):
+        got = rs_mod.range_scan(corpus, q, rk, mask, metric)
+        want = rs_mod.range_scan_plain(corpus, q, rk, mask, metric)
+        torch.cuda.synchronize()
+        record("range_scan", range_err(got, want, rk, tol, what))
+        return got
+
+    def check_range_batch(corpus, qs, rk, mask, qvalid, metric, tol, what):
+        got = rs_mod.range_scan_batch(corpus, qs, rk, mask, qvalid, metric)
+        want = rs_mod.range_scan_batch_plain(corpus, qs, rk, mask, qvalid,
+                                             metric)
+        torch.cuda.synchronize()
+        record("range_scan_batch", range_err(got, want, rk, tol, what))
+        return got
+
+    def raw_of(rk, metric):
+        return -rk if metric.is_similarity() else rk
+
+    def radius_at(keys, rank: int):
+        """Per query, the order key of its ``rank``-th best row."""
+        return torch.sort(keys, dim=-1).values[..., rank].contiguous()
 
     for n, d in ((5003, 130), (4099, 64), (3001, 512)):
         tol = 1e-4 if d > 130 else 1e-5
         corpus = unit((n, d))
+        dups = torch.cat([torch.tensor([7]),
+                          torch.arange(n // 3, n // 3 + 40)]).to(dev)
         corpus[n // 3: n // 3 + 40] = corpus[7]          # exact duplicates
         for metric in Metric:
             for k in (1, 10, 50):
@@ -188,6 +311,68 @@ def main() -> None:
                                     metric, tol,
                                     f"batch {metric.value} n={n} d={d} k={k} "
                                     f"q={qn} {mname}")
+            # range scans: radii at rank 100, hitting nothing, everything,
+            # and exactly on the duplicates' key
+            q = corpus[7].clone()
+            keys = pairwise_order_keys(metric, corpus, q[None])[0]
+            radii = {"rank100": radius_at(keys, 100),
+                     "nothing": keys.min() - 1, "everything": keys.max() + 1,
+                     "on_duplicates": keys[7]}
+            for mname, mask in (("none", None),
+                                ("shared", torch.rand(n, device=dev) < 0.5)):
+                m8 = None if mask is None else mask.to(torch.int8)
+                for rname, rk in radii.items():
+                    hits = check_range_single(
+                        corpus, q, rk.reshape(1).contiguous(), m8, metric,
+                        tol, f"range single {metric.value} n={n} d={d} "
+                        f"{mname} {rname}")[1]
+                    live = dups if mask is None else dups[mask[dups]]
+                    if len(set(hits[live].tolist())) > 1:
+                        raise AssertionError("duplicate rows split by the "
+                                             "radius")
+            for qn in (1, 8, 37):
+                qs = unit((qn, d))
+                qs[0] = corpus[7]
+                keys = pairwise_order_keys(metric, corpus, qs)
+                rk = radius_at(keys, 100)
+                rk[0] = keys[0, 7]                      # on the duplicates
+                qv = (torch.arange(qn, device=dev) < max(1, qn - 3))
+                for mname in ("none", "shared", "per_query"):
+                    mask = {"none": None,
+                            "shared": torch.rand(n, device=dev) < 0.5,
+                            "per_query": torch.rand((qn, n), device=dev)
+                            < 0.3}[mname]
+                    m8 = None if mask is None else mask.to(torch.int8)
+                    what = (f"range batch {metric.value} n={n} d={d} q={qn} "
+                            f"{mname}")
+                    hits = check_range_batch(corpus, qs, rk, m8,
+                                             qv.to(torch.int8), metric, tol,
+                                             what)[1]
+                    live = dups if mask is None else dups[
+                        (mask if mask.ndim == 1 else mask[0])[dups]]
+                    if len(set(hits[0, live].tolist())) > 1:
+                        raise AssertionError(f"{what}: duplicate rows split")
+                    if qn < 37:
+                        continue
+                    # the compaction: capacity below and beyond the counts
+                    pk, _ph, pc = rs_mod.range_scan_batch_plain(
+                        corpus, qs, rk, m8, qv.to(torch.int8), metric)
+                    live = qv[:, None] if mask is None else (
+                        qv[:, None] & (mask if mask.ndim == 2
+                                       else mask[None]))
+                    near = (((keys - rk[:, None]).abs() <= tol) & live).sum(1)
+                    for cap in (16, n):
+                        got = ops.fused_range_topk_batch(
+                            corpus, qs, raw_of(rk, metric), mask, metric,
+                            cap, qvalid=qv)
+                        want = compact_range(pk, cap, metric) + (pc,)
+                        keys_out = ("ids", "sim", "valid", "count")
+                        assert_range_close(
+                            dict(zip(keys_out, got)),
+                            dict(zip(keys_out, want)),
+                            radius=raw_of(rk, metric), atol=tol,
+                            tie_tol=tol, near=near,
+                            what=f"{what} compaction cap={cap}")
     # k beyond the live rows, and the large-k block shapes (16 and 4 queries)
     corpus = unit((2500, 96))
     sparse = torch.zeros(2500, dtype=torch.int8, device=dev)
@@ -209,13 +394,24 @@ def main() -> None:
                              n_modes=N_MODES, seed=0, device="cuda")
     torch.cuda.synchronize()
     table = cat.table("products")
+    qtable = cat.table("queries")
     corpus = table["embedding"]
     price = table["price"]
     p = np.float32(selectivity_threshold(price, SELECTIVITY))
-    qv = cat.table("queries")["embedding"].cpu().numpy()
+    qv = qtable["embedding"].cpu().numpy()
+    # the paper's radius: median over the queries of the 120th-best sim
+    sims = qtable["embedding"] @ corpus.T                  # (100, N)
+    kth = torch.topk(sims, RANGE_TARGET, dim=1).values[:, -1]
+    r = np.float32(np.median(kth.cpu().numpy()))
     setup_s = time.perf_counter() - t0
 
-    # -- full: each kernel at the main path's shapes ---------------------------
+    def near(radius, tol: float = 1e-4) -> torch.Tensor:
+        """Per query, the rows whose sim lies within ``tol`` of
+        ``radius``."""
+        return ((sims - float(radius)).abs() <= tol).sum(1).cpu()
+
+    # -- full: each kernel at the paths' shapes ------------------------------
+    metric = Metric.INNER_PRODUCT
     db = connect(cat, engine="brute", use_pallas=True)
     stmt = db.prepare(Q1, K=K)
     pred = stmt.compiled.analysis.structured_predicate
@@ -229,62 +425,166 @@ def main() -> None:
                                 bucket).contiguous().view(torch.int8)
     batch_qvalid = (torch.arange(bucket, device=dev)
                     < N_QUERIES).to(torch.int8)
-    metric = Metric.INNER_PRODUCT
     check_single(corpus, single_q, single_mask, K, metric, 1e-4,
                  "single full shape")
     check_batch(corpus, batch_q, batch_mask, batch_qvalid, K, metric, 1e-4,
                 "batch full shape")
-    emit({"phase": "full", "n": N_ROWS, "d": DIM, "k": K,
+    # Q2 at bucket 128 (100 live) and Q3 at its 100 left rows
+    rk = order_key(metric, torch.tensor(r, device=dev))
+    q2_rk = rk.expand(bucket).contiguous()
+    left = qtable["embedding"]
+    date_mask = (table["capture_date"][None, :]
+                 > qtable["capture_date"][:, None]).view(torch.int8)
+    q3_rk = rk.expand(N_QUERIES).contiguous()
+    check_range_batch(corpus, batch_q, q2_rk, batch_mask, batch_qvalid,
+                      metric, 1e-4, "range batch full shape (Q2)")
+    check_range_batch(corpus, left, q3_rk, date_mask, None, metric, 1e-4,
+                      "range batch full shape (Q3)")
+    check_range_single(corpus, left[0], rk.reshape(1), date_mask[0], metric,
+                       1e-4, "range single full shape (Q3 perleft row)")
+    emit({"phase": "full", "n": N_ROWS, "d": DIM, "k": K, "radius": float(r),
           "catalog_setup_s": setup_s,
           "single_blocks": st_mod.single_plan(N_ROWS)[0],
           "batch_plan": list(st_mod.batch_plan(N_ROWS, bucket, K)),
+          "range_batch_plan": list(rs_mod.batch_plan(N_ROWS, bucket)),
           "max_abs_err": max_err})
 
-    # -- slice: Q1 through the session API -----------------------------------
+    # -- slice: Q1, Q2, Q3 through the session API ---------------------------
+    exact = ExecutionHints(exact_shape=True)
+    perleft = ExecutionHints(join_lowering="perleft")
+    plain_db = connect(cat, engine="brute", use_pallas=False)
+    price_np = price.cpu().numpy()
+    launches = {}
+
+    def drive(path: str, runs: list) -> list:
+        """Run one path's executions with every counter at 0 before and
+        read after; ``runs`` holds (label, statement, binds, hints)."""
+        reset_counts()
+        results = [(label, s, b, h, s.execute(b, hints=h))
+                   for label, s, b, h in runs]
+        torch.cuda.synchronize()
+        launches[path] = counts()
+        return results
+
+    # Q1
     nofilter = db.prepare(Q1_NOFILTER, K=K)
     binds = [{"qv": qv[i], "p": p} for i in range(N_QUERIES)]
     stacked = {"qv": qv, "p": np.full(N_QUERIES, p, np.float32)}
-    exact = ExecutionHints(exact_shape=True)
-    runs = []
-    st_mod.scan_topk.launches = 0
-    st_mod.scan_topk_batch.launches = 0
-    for i in range(3):
-        runs.append(("single", binds[i], None, stmt))
-    for qn in BATCHES:
-        runs.append((f"list{qn}", binds[:qn], None, stmt))
-    runs.append(("stacked", stacked, None, stmt))
-    runs.append(("exact_shape", stacked, exact, stmt))
-    runs.append(("fast_path", {"qv": qv[:1]}, exact, nofilter))
-    results = [(label, b, h, s, s.execute(b, hints=h))
-               for label, b, h, s in runs]
-    torch.cuda.synchronize()
-    launches = {"scan_topk": st_mod.scan_topk.launches,
-                "scan_topk_batch": st_mod.scan_topk_batch.launches}
-    for kname, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"main path never launched {kname}")
-    plain_db = connect(cat, engine="brute", use_pallas=False)
-    checked = {}
-    price_np = price.cpu().numpy()
-    for label, b, h, s, res in results:
+    runs = [("single", stmt, binds[i], None) for i in range(3)]
+    runs += [(f"list{qn}", stmt, binds[:qn], None) for qn in BATCHES]
+    runs += [("stacked", stmt, stacked, None),
+             ("exact_shape", stmt, stacked, exact),
+             ("fast_path", nofilter, {"qv": qv[:1]}, exact)]
+    results = drive("q1", runs)
+    checked = {"q1": {}, "q2": {}, "q3": {}}
+    for label, s, b, h, res in results:
         want = plain_db.prepare(s.sql, K=K).execute(b, hints=h)
         torch.cuda.synchronize()
         err = assert_topk_close(res.data, want.data, atol=1e-4, tie_tol=1e-4,
-                                what=f"slice {label}")
+                                what=f"slice q1 {label}")
         ids = res["ids"].cpu().numpy().reshape(-1, K)
         valid = res["valid"].cpu().numpy().reshape(-1, K)
-        sims = res["sim"].cpu().numpy().reshape(-1, K)
-        if not np.isfinite(sims).all() or not valid.all():
+        sims_k = res["sim"].cpu().numpy().reshape(-1, K)
+        if not np.isfinite(sims_k).all() or not valid.all():
             raise AssertionError(f"slice {label}: non-finite or short result")
         if s is stmt and not (price_np[ids[valid]] < p).all():
             raise AssertionError(f"slice {label}: a row fails price < p")
-        if (np.diff(sims, axis=1) > 0).any():
+        if (np.diff(sims_k, axis=1) > 0).any():
             raise AssertionError(f"slice {label}: sims not descending")
-        checked[label] = {"shape": list(res["ids"].shape),
-                          "max_abs_err": err,
-                          "path": res.explain().path,
-                          "bucket": res.explain().bucket}
-    emit({"phase": "slice", "launches": launches, "runs": checked,
+        checked["q1"][label] = {"shape": list(res["ids"].shape),
+                                "max_abs_err": err,
+                                "path": res.explain().path,
+                                "bucket": res.explain().bucket}
+
+    def check_range_answers(path: str, results, radius_of, near_of,
+                            extra) -> None:
+        """Hold every answer against use_pallas=False on the card, and
+        check the radius, the ordering and ``extra`` on every hit."""
+        for label, s, b, h, res in results:
+            want = plain_db.prepare(s.sql, hints=s.hints).execute(b, hints=h)
+            torch.cuda.synchronize()
+            err = assert_range_close(res.data, want.data,
+                                     radius=radius_of(label), atol=1e-4,
+                                     tie_tol=1e-4, near=near_of(label),
+                                     what=f"slice {path} {label}")
+            ids = res.ids.cpu().numpy()
+            valid = res["valid"].cpu().numpy()
+            sims_r = res["sim"].cpu().numpy()
+            if (sims_r[valid] < np.min(radius_of(label)) - 1e-4).any():
+                raise AssertionError(f"slice {path} {label}: a hit below r")
+            if ((np.diff(sims_r, axis=-1) > 0) & valid[..., 1:]).any():
+                raise AssertionError(f"slice {path} {label}: not best-first")
+            extra(label, ids, valid)
+            counts_np = res["count"].cpu().numpy()
+            rep = res.explain()
+            checked[path][label] = {
+                "shape": list(res.ids.shape), "max_abs_err": err,
+                "path": rep.path, "bucket": rep.bucket,
+                "lowering": rep.batch_lowering,
+                "hits_median": float(np.median(counts_np)),
+                "hits_max": int(counts_np.max()),
+                "truncated_rows": int((counts_np > ids.shape[-1]).sum())}
+
+    # Q2
+    q2 = db.prepare(Q2)
+    q2_binds = [{"qv": qv[i], "r": r, "p": p} for i in range(N_QUERIES)]
+    q2_stacked = {"qv": qv, "r": np.full(N_QUERIES, r, np.float32),
+                  "p": np.full(N_QUERIES, p, np.float32)}
+    runs = [(f"single{i}", q2, q2_binds[i], None) for i in range(3)]
+    runs += [(f"list{qn}", q2, q2_binds[:qn], None) for qn in BATCHES]
+    runs += [("stacked", q2, q2_stacked, None),
+             ("exact_shape", q2, q2_stacked, exact)]
+    near_q = near(r)
+
+    def q2_rows(label: str):
+        if label.startswith("single"):
+            return int(label[6:])
+        return slice(int(label[4:])) if label.startswith("list") else \
+            slice(None)
+
+    def price_ok(label, ids, valid):
+        if not (price_np[ids[valid]] < p).all():
+            raise AssertionError(f"slice q2 {label}: a row fails price < p")
+
+    check_range_answers("q2", drive("q2", runs), lambda label: r,
+                        lambda label: near_q[q2_rows(label)], price_ok)
+    for i in range(3):
+        checked["q2"][f"single{i}"]["kernel"] = "none (reference lowering)"
+
+    # Q3
+    q3 = db.prepare(Q3)
+    q3_perleft = db.prepare(Q3, hints=perleft)
+    if q3.compiled.options.max_pairs != MAX_PAIRS:
+        raise AssertionError("Q3 runs with the EngineOptions max_pairs")
+    radii = np.array([r - 0.01, r, r + 0.01, r + 0.02], np.float32)
+    runs = [("batch", q3, {"r": r}, None),
+            ("perleft", q3_perleft, {"r": r}, None),
+            ("list4", q3, [{"r": x} for x in radii], None)]
+    near_list = torch.stack([near(x) for x in radii])
+    qdate = qtable["capture_date"].cpu().numpy()
+    cdate = table["capture_date"].cpu().numpy()
+
+    def date_ok(label, ids, valid):
+        ids, valid = ids.reshape(-1, N_QUERIES, MAX_PAIRS), valid.reshape(
+            -1, N_QUERIES, MAX_PAIRS)
+        for i in range(N_QUERIES):
+            if not (cdate[ids[:, i][valid[:, i]]] > qdate[i]).all():
+                raise AssertionError(f"slice q3 {label}: a pair fails the "
+                                     f"date predicate")
+
+    check_range_answers(
+        "q3", drive("q3", runs),
+        lambda label: radii[:, None] if label == "list4" else r,
+        lambda label: near_list if label == "list4" else near_q, date_ok)
+    need = {"q1": ("scan_topk", "scan_topk_batch"),
+            "q2": ("range_scan_batch",),
+            "q3": ("range_scan", "range_scan_batch")}
+    for path, kernels in need.items():
+        for kname in kernels:
+            if launches[path][kname] < 1:
+                raise AssertionError(f"path {path} never launched {kname}")
+    emit({"phase": "slice", "radius": float(r), "launches": launches,
+          "runs": checked,
           "trace_counts": {str(b): c for b, c in
                            stmt.explain().trace_counts.items()},
           "cache": list(map(int, (db.cache_info().hits,
@@ -299,9 +599,14 @@ def main() -> None:
     batch_bytes = (N_ROWS * DIM * 4 + live_q * DIM * 4 + live_q * N_ROWS
                    + bucket + live_q * splits * K * 8)
     batch_ops = 2 * N_ROWS * DIM * live_q
+    # range scans: corpus and query in; mask in, keys and hits out per
+    # (live) row; radius keys, qvalid and counts per query
+    range_single_bytes = N_ROWS * DIM * 4 + DIM * 4 + 4 + N_ROWS * 6 + 4
+    range_batch_bytes = (N_ROWS * DIM * 4 + live_q * DIM * 4
+                         + live_q * N_ROWS * 6 + bucket * 9)
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+    def bound(nbytes, ops_):
+        t_bytes, t_ops = nbytes / bw * 1e3, ops_ / flops * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
             "operations"
 
@@ -316,62 +621,155 @@ def main() -> None:
         keys = keys.masked_fill((batch_qvalid == 0)[:, None], float("inf"))
         return torch.topk(keys, K, dim=1, largest=False)
 
+    def lib_range_single():
+        keys = -(corpus @ left[0])
+        hit = (keys <= rk) & (date_mask[0] != 0)
+        return keys.masked_fill(~hit, float("inf")), hit
+
+    def lib_range_batch():
+        keys = -(batch_q @ corpus.T)
+        hit = ((keys <= q2_rk[:, None]) & (batch_mask != 0)
+               & (batch_qvalid != 0)[:, None])
+        return keys.masked_fill(~hit, float("inf")), hit
+
+    calls = {
+        "scan_topk": (lambda: st_mod.scan_topk(corpus, single_q, single_mask,
+                                               K, metric),
+                      lambda: st_mod.scan_topk_plain(
+                          corpus, single_q, single_mask, K, metric),
+                      lib_single, bound(single_bytes, single_ops)),
+        "scan_topk_batch": (lambda: st_mod.scan_topk_batch(
+            corpus, batch_q, batch_mask, batch_qvalid, K, metric),
+            lambda: st_mod.scan_topk_batch_plain(
+                corpus, batch_q, batch_mask, batch_qvalid, K, metric),
+            lib_batch, bound(batch_bytes, batch_ops)),
+        "range_scan": (lambda: rs_mod.range_scan(
+            corpus, left[0], rk.reshape(1), date_mask[0], metric),
+            lambda: rs_mod.range_scan_plain(
+                corpus, left[0], rk.reshape(1), date_mask[0], metric),
+            lib_range_single, bound(range_single_bytes, single_ops)),
+        "range_scan_batch": (lambda: rs_mod.range_scan_batch(
+            corpus, batch_q, q2_rk, batch_mask, batch_qvalid, metric),
+            lambda: rs_mod.range_scan_batch_plain(
+                corpus, batch_q, q2_rk, batch_mask, batch_qvalid, metric),
+            lib_range_batch, bound(range_batch_bytes, batch_ops)),
+    }
     times = {}
-    t_single = time_ms(lambda: st_mod.scan_topk(corpus, single_q,
-                                                single_mask, K, metric))
-    t_batch = time_ms(lambda: st_mod.scan_topk_batch(
-        corpus, batch_q, batch_mask, batch_qvalid, K, metric))
-    b_single, by_single = bound(single_bytes, single_ops)
-    b_batch, by_batch = bound(batch_bytes, batch_ops)
-    times["scan_topk"] = {
-        "ms": t_single,
-        "plain_ms": time_ms(lambda: st_mod.scan_topk_plain(
-            corpus, single_q, single_mask, K, metric)),
-        "library_ms": time_ms(lib_single),
-        "bound_ms": b_single, "bound_by": by_single}
-    times["scan_topk_batch"] = {
-        "ms": t_batch,
-        "plain_ms": time_ms(lambda: st_mod.scan_topk_batch_plain(
-            corpus, batch_q, batch_mask, batch_qvalid, K, metric), 2, 5),
-        "library_ms": time_ms(lib_batch, 2, 5),
-        "bound_ms": b_batch, "bound_by": by_batch}
+    for kname, (kernel, plain, lib, (b_ms, b_by)) in calls.items():
+        heavy = kname.endswith("batch")
+        reps = (2, 5) if heavy else (3, 10)
+        times[kname] = {"ms": time_ms(kernel),
+                        "plain_ms": time_ms(plain, *reps),
+                        "library_ms": time_ms(lib, *reps),
+                        "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "times", "device": name, "nvidia_smi": smi,
           "shapes": {"n": N_ROWS, "d": DIM, "k": K, "bucket": bucket,
                      "live_queries": live_q, "qt": qt, "splits": splits,
-                     "single_blocks": nb},
+                     "single_blocks": nb,
+                     "range_batch_plan": list(rs_mod.batch_plan(N_ROWS,
+                                                                bucket))},
           "kernels": times})
 
     # -- e2e -------------------------------------------------------------------
-    def latency_ms(b, iters: int = 10) -> float:
-        for _ in range(2):
-            stmt.execute(b)
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(iters):
-            t = time.perf_counter()
-            stmt.execute(b)
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(out)
-
-    e2e = {"single": latency_ms(binds[0])}
+    e2e = {"single": latency_ms(lambda: stmt.execute(binds[0]))}
     for qn in BATCHES:
-        e2e[f"batch{qn}"] = latency_ms(binds[:qn])
-    emit({"phase": "e2e", "device": name, "nvidia_smi": smi,
+        e2e[f"batch{qn}"] = latency_ms(lambda: stmt.execute(binds[:qn]))
+    emit({"phase": "e2e", "path": "q1", "device": name, "nvidia_smi": smi,
           "latency_ms": e2e,
           "qps": {key: (1 if key == "single" else int(key[5:])) * 1e3 / v
                   for key, v in e2e.items()}})
 
-    sources = {"scan_topk": "src/repro_torch/kernels/csrc/scan_topk.cu",
-               "scan_topk_batch":
-                   "src/repro_torch/kernels/csrc/scan_topk_batch.cu"}
-    replaces = {"scan_topk": "src/repro/kernels/scan_topk.py:241",
-                "scan_topk_batch": "src/repro/kernels/scan_topk.py:189"}
+    def q2_inputs(qn: int):
+        """The batched kernel's inputs for a Q2 list of ``qn`` binds, as
+        the bucketed executor builds them (edge-padded to the bucket)."""
+        b = 1 << (qn - 1).bit_length()
+        idx = np.minimum(np.arange(b), qn - 1)
+        qs = torch.from_numpy(qv[idx]).to(dev)
+        mask = evaluate_batch(pred, table, {"p": np.full(b, p, np.float32)},
+                              b).contiguous().view(torch.int8)
+        valid = (torch.arange(b, device=dev) < qn).to(torch.int8)
+        return qs, rk.expand(b).contiguous(), mask, valid
+
+    def stage_ms(kernel_fn, cap: int, loops: int = 1) -> tuple:
+        """(kernel ms, stage-2 compaction ms) at one path's shapes."""
+        keys = kernel_fn()[0]
+        reps = (1, 3) if loops > 1 or keys.numel() > 2e8 else (2, 5)
+        return (time_ms(lambda: [kernel_fn() for _ in range(loops)], *reps),
+                time_ms(lambda: [compact_range(keys, cap, metric)
+                                 for _ in range(loops)], *reps))
+
+    q2_e2e = {}
+    single_keys = torch.where(
+        (sims[0] >= float(r)) & (price < float(p)), -sims[0], float("inf"))
+    q2_e2e["single"] = {
+        "latency_ms": latency_ms(lambda: q2.execute(q2_binds[0])),
+        "kernel": "none (reference lowering)", "kernel_ms": 0.0,
+        "stage2_ms": time_ms(lambda: compact_range(single_keys, CAPACITY,
+                                                   metric)),
+        "peak_mb": peak_mb(lambda: q2.execute(q2_binds[0])), "queries": 1}
+    for qn in BATCHES:
+        inputs = q2_inputs(qn)
+        k_ms, s_ms = stage_ms(
+            lambda: rs_mod.range_scan_batch(corpus, *inputs, metric),
+            CAPACITY)
+        q2_e2e[f"batch{qn}"] = {
+            "latency_ms": latency_ms(lambda: q2.execute(q2_binds[:qn]),
+                                     iters=5),
+            "kernel": "range_scan_batch", "kernel_ms": k_ms,
+            "stage2_ms": s_ms,
+            "peak_mb": peak_mb(lambda: q2.execute(q2_binds[:qn])),
+            "queries": qn, "bucket": inputs[0].shape[0]}
+    q3_e2e = {}
+    k_ms, s_ms = stage_ms(lambda: rs_mod.range_scan_batch(
+        corpus, left, q3_rk, date_mask, None, metric), MAX_PAIRS)
+    q3_e2e["batch"] = {"latency_ms": latency_ms(lambda: q3.execute({"r": r}),
+                                                iters=5),
+                       "kernel": "range_scan_batch", "kernel_ms": k_ms,
+                       "stage2_ms": s_ms,
+                       "peak_mb": peak_mb(lambda: q3.execute({"r": r}))}
+    row_masks = [date_mask[i] for i in range(N_QUERIES)]
+    k_ms = time_ms(lambda: [rs_mod.range_scan(corpus, left[i], rk.reshape(1),
+                                              row_masks[i], metric)
+                            for i in range(N_QUERIES)], 1, 3)
+    row_keys = rs_mod.range_scan(corpus, left[0], rk.reshape(1),
+                                 row_masks[0], metric)[0]
+    s_ms = time_ms(lambda: [compact_range(row_keys, MAX_PAIRS, metric)
+                            for _ in range(N_QUERIES)], 1, 3)
+    q3_e2e["perleft"] = {
+        "latency_ms": latency_ms(lambda: q3_perleft.execute({"r": r}),
+                                 iters=3),
+        "kernel": f"range_scan x {N_QUERIES}", "kernel_ms": k_ms,
+        "stage2_ms": s_ms,
+        "peak_mb": peak_mb(lambda: q3_perleft.execute({"r": r}))}
+    list4 = [{"r": x} for x in radii]
+    left4 = left.repeat(4, 1)
+    mask4 = date_mask.repeat(4, 1)
+    rk4 = order_key(metric, torch.from_numpy(radii).to(dev)
+                    ).repeat_interleave(N_QUERIES).contiguous()
+    k_ms, s_ms = stage_ms(lambda: rs_mod.range_scan_batch(
+        corpus, left4, rk4, mask4, None, metric), MAX_PAIRS)
+    q3_e2e["list4"] = {"latency_ms": latency_ms(lambda: q3.execute(list4),
+                                                iters=3),
+                       "kernel": "range_scan_batch", "kernel_ms": k_ms,
+                       "stage2_ms": s_ms,
+                       "peak_mb": peak_mb(lambda: q3.execute(list4))}
+    for key, row in list(q2_e2e.items()) + list(q3_e2e.items()):
+        row["kernel_share"] = row["kernel_ms"] / row["latency_ms"]
+        row["stage2_share"] = row["stage2_ms"] / row["latency_ms"]
+    for key, row in q2_e2e.items():
+        row["qps"] = row["queries"] * 1e3 / row["latency_ms"]
+    emit({"phase": "e2e", "path": "q2", "device": name, "nvidia_smi": smi,
+          "resident_mb": torch.cuda.memory_allocated() / 2**20,
+          "runs": q2_e2e})
+    emit({"phase": "e2e", "path": "q3", "device": name, "nvidia_smi": smi,
+          "left_rows": N_QUERIES, "runs": q3_e2e})
+
     emit({"kernels": [
-        {"name": kname, "route": "cuda", "source": sources[kname],
-         "replaces": replaces[kname], "launches": launches[kname],
+        {"name": kname, "route": "cuda", "source": SOURCES[kname],
+         "replaces": REPLACES[kname],
+         "launches": sum(path[kname] for path in launches.values()),
          "max_abs_err": max_err[kname], **times[kname]}
-        for kname in ("scan_topk_batch", "scan_topk")]})
+        for kname in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
 

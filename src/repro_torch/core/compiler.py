@@ -15,10 +15,10 @@ a plain closure over the plan, and ``trace_counts[bucket]`` counts the
 executor objects built for that bucket.  "Compiled once per bucket" keeps
 its meaning — a second batch in the same bucket builds nothing.
 
-This slice compiles Q1 (VKNN-SF) under ``engine="brute"``; every other
-query class and engine, and the dist / quant options, raise
-``NotImplementedError`` naming their ROADMAP.md item (live corpora cannot
-be registered yet).
+The port compiles Q1 (VKNN-SF), Q2 (DR-SF) and Q3 (distance join) under
+``engine="brute"``; every other query class and engine, and the dist /
+quant options, raise ``NotImplementedError`` naming their ROADMAP.md item
+(live corpora cannot be registered yet).
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from .expr import BoolOp, Bindings, Expr, Param
-from .physical import BATCH_BUILDERS, BUILDERS, EngineOptions
+from .physical import (BATCH_BUILDERS, BUILDERS, JOIN_LOWERING_FAMILIES,
+                       EngineOptions, _stacked_qn)
 from .plan import PlanNode
 from .rewriter import rewrite
 from .schema import Catalog, not_ported
@@ -45,10 +46,25 @@ class StalePlanError(RuntimeError):
     does it transparently."""
 
 
+_SINGLE_TABLE = (QueryClass.VKNN_SF, QueryClass.DR_SF,
+                 QueryClass.CATEGORY_PARTITION)
+
+
+def _scan_of(a: Analysis) -> tuple[str, str]:
+    """The (table, vector column) pair a plan's corpus scan reads — the
+    pair index / live / sharded registrations key on."""
+    if a.query_class in _SINGLE_TABLE:
+        return a.table, a.vector_column
+    return a.right_table, a.right_vector
+
+
 def _catalog_dep_keys(a: Analysis) -> tuple:
-    """The catalog registration keys a compiled Q1 plan captures — what
-    :meth:`CompiledQuery.ensure_fresh` watches for version bumps."""
-    return (("table", a.table),)
+    """The catalog registration keys a compiled plan captures — what
+    :meth:`CompiledQuery.ensure_fresh` watches for version bumps: the
+    scanned table, and both tables of a join."""
+    if a.query_class in _SINGLE_TABLE:
+        return (("table", a.table),)
+    return (("table", a.left_table), ("table", a.right_table))
 
 
 # ---------------------------------------------------------------------------
@@ -231,14 +247,6 @@ class BucketedExecutor:
         return _tree_map(lambda v: v[:qn], out)
 
 
-def _stacked_qn(binds: dict) -> int:
-    dims = [v.shape[0] for v in binds.values()
-            if hasattr(v, "ndim") and v.ndim >= 1]
-    if not dims:
-        raise ValueError("stacked binds carry no leading batch axis")
-    return dims[0]
-
-
 @dataclasses.dataclass
 class CompiledQuery:
     """User-facing handle: plan artifact + per-bucket executor cache.
@@ -287,7 +295,7 @@ class CompiledQuery:
         """Check this plan against the catalog's current registrations: a
         re-registered table raises :class:`StalePlanError` (the builders
         hold the old table's columns); unchanged versions are a no-op.
-        Table keys are the only ones a catalog of this slice can bump."""
+        Table keys are the only ones the port's catalog can bump yet."""
         if self._catalog is None:
             return
         current = self._catalog.version_snapshot(self._dep_keys)
@@ -375,22 +383,74 @@ class CompiledQuery:
 
 
 def _gather_arrays(a: Analysis, catalog: Catalog) -> dict:
-    """The device tensors a compiled Q1 pipeline reads."""
-    return {"corpus": catalog.table(a.table)[a.vector_column]}
+    """The device tensors a compiled pipeline reads: the scanned corpus,
+    and a join's left embeddings."""
+    if a.query_class in _SINGLE_TABLE:
+        return {"corpus": catalog.table(a.table)[a.vector_column]}
+    return {"left": catalog.table(a.left_table)[a.left_vector],
+            "corpus": catalog.table(a.right_table)[a.right_vector]}
+
+
+def _tree_stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _vmap_fallback(fn: Callable) -> Callable:
+    """Loop-of-singles batch fallback with the uniform batch_fn signature
+    (the torch form of the reference's vmap-of-scalar fallback): the
+    single-query pipeline runs once per bind set and every output leaf is
+    stacked.
+
+    Pad queries cannot be skipped here (the scalar pipeline has no valid
+    lane), so inertness is enforced on the way out: invalid queries report
+    zero counters and all-False validity.  ``probe_budget`` has no lane
+    either and is ignored."""
+
+    def bfn(arrs, binds, qvalid=None, probe_budget=None):
+        qn = _stacked_qn(binds)
+        out = _tree_stack([fn(arrs, {k: v[i] for k, v in binds.items()})
+                           for i in range(qn)])
+        if qvalid is None:
+            return out
+        dev = out["valid"].device
+        qv = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
+
+        def lane(v):
+            return qv.reshape((-1,) + (1,) * (v.ndim - 1))
+
+        masked = {}
+        for key, v in out.items():
+            if key in ("stats", "count"):
+                masked[key] = _tree_map(
+                    lambda s: torch.where(lane(s), s, 0), v)
+            elif v.dtype == torch.bool:
+                masked[key] = v & lane(v)
+            else:
+                masked[key] = v
+        return masked
+
+    return bfn
 
 
 def _batch_lowering(a: Analysis, options: EngineOptions):
-    """(batch_builder, batch_native, human-readable reason)."""
-    return (BATCH_BUILDERS[a.query_class], True,
+    """(batch_builder | None, batch_native, human-readable reason)."""
+    qc = a.query_class
+    if options.join_lowering == "perleft" and qc in JOIN_LOWERING_FAMILIES:
+        return None, False, "vmap-of-scalar fallback (perleft join lowering)"
+    if qc in JOIN_LOWERING_FAMILIES:
+        return BATCH_BUILDERS[qc], True, ("native (bind sets x left rows "
+                                          "flattened into one kernel-level "
+                                          "query batch)")
+    return (BATCH_BUILDERS[qc], True,
             "native (query-tiled kernels / multi-cluster probes)")
 
 
 _CLASS_ITEMS = {
-    QueryClass.DR_SF: "6 (Q2 DR-SF)",
-    QueryClass.DIST_JOIN: "7 (joins, Q3-Q6)",
-    QueryClass.KNN_JOIN: "7 (joins, Q3-Q6)",
-    QueryClass.CATEGORY_PARTITION: "7 (joins, Q3-Q6)",
-    QueryClass.CATEGORY_JOIN: "7 (joins, Q3-Q6)",
+    QueryClass.KNN_JOIN: "7 (joins, Q4-Q6)",
+    QueryClass.CATEGORY_PARTITION: "7 (joins, Q4-Q6)",
+    QueryClass.CATEGORY_JOIN: "7 (joins, Q4-Q6)",
 }
 
 
@@ -433,7 +493,8 @@ def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
     arrays = _gather_arrays(a, catalog)
     batch_builder, batch_native, batch_reason = _batch_lowering(a, options)
     fn = BUILDERS[a.query_class](a, catalog, options, Bindings(static_binds))
-    bfn = batch_builder(a, catalog, options, Bindings(static_binds))
+    bfn = (batch_builder(a, catalog, options, Bindings(static_binds))
+           if batch_native else _vmap_fallback(fn))
     compiled_plan = CompiledPlan(sql, a, plan, rewritten, options, fn, bfn,
                                  batch_native, batch_reason)
     executor = BucketedExecutor(compiled_plan, arrays)

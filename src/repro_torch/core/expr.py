@@ -225,10 +225,12 @@ _CMP = {"<": torch.lt, "<=": torch.le, ">": torch.gt, ">=": torch.ge,
 _ARITH = {"+": torch.add, "-": torch.sub, "*": torch.mul, "/": torch.div}
 
 
-def _evaluate(expr: Expr, column, param, device) -> torch.Tensor:
+def evaluate_expr(expr: Expr, column, param, device) -> torch.Tensor:
+    """The one expression interpreter: ``column(Column node)`` and
+    ``param(name)`` decide the shapes the leaves take."""
     def ev(e: Expr) -> torch.Tensor:
         if isinstance(e, Column):
-            return column(e.name)
+            return column(e)
         if isinstance(e, Const):
             return as_tensor(e.value, device)
         if isinstance(e, Param):
@@ -261,8 +263,8 @@ def evaluate(expr: Expr, table: Table, binds: Bindings,
     ``prefix_cols`` supplies extra computed columns (e.g. the map operator's
     ``__sim``) that shadow schema columns."""
     pc = prefix_cols or {}
-    return _evaluate(
-        expr, lambda name: pc[name] if name in pc else table[name],
+    return evaluate_expr(
+        expr, lambda c: pc[c.name] if c.name in pc else table[c.name],
         lambda name: as_tensor(binds[name], table.device), table.device)
 
 
@@ -274,18 +276,27 @@ def evaluate_batch(expr: Expr, table: Table, binds: Bindings,
     column against ``(1, N, ...)`` table columns, so broadcasting yields the
     per-query (Q, N) mask layout the batched kernels consume (the torch form
     of the reference's ``jax.vmap`` over the single-query evaluator)."""
-    def column(name: str) -> torch.Tensor:
-        return table[name].unsqueeze(0)
+    def column(c: Column) -> torch.Tensor:
+        return table[c.name].unsqueeze(0)
 
+    out = evaluate_expr(expr, column,
+                        stacked_param(binds, qn, 1, table.device),
+                        table.device)
+    return out.expand(qn, table.num_rows)
+
+
+def stacked_param(binds: Bindings, qn: int, trailing: int, device):
+    """``param`` for :func:`evaluate_expr` over stacked binds: each bind's
+    leading Q axis, followed by ``trailing`` unit axes that broadcast
+    against the table columns."""
     def param(name: str) -> torch.Tensor:
-        v = as_tensor(binds[name], table.device)
+        v = as_tensor(binds[name], device)
         if v.ndim == 0 or v.shape[0] != qn:
             raise ValueError(f"bind {name!r} lacks the leading Q={qn} axis: "
                              f"shape {tuple(v.shape)}")
-        return v.reshape((qn, 1) + tuple(v.shape[1:]))
+        return v.reshape((qn,) + (1,) * trailing + tuple(v.shape[1:]))
 
-    out = _evaluate(expr, column, param, table.device)
-    return out.expand(qn, table.num_rows)
+    return param
 
 
 # -- structural helpers used by the semantic analyzer -----------------------

@@ -5,13 +5,14 @@ tensors on the catalog's device; the batched builders take
 ``(arrays, binds, qvalid=None, probe_budget=None)`` with every bind carrying
 a leading Q axis.
 
-This slice of the port lowers Q1 (VKNN-SF) under ``engine="brute"``: the
-compiled, fused, index-less full scan, which the reference's parity suites
-treat as ground truth.  With ``use_pallas`` the scan runs on the fused CUDA
-kernels (the option keeps the reference's name); without it, on the plain
-torch :class:`~repro_torch.index.flat.FlatIndex`.  The other engines and
-query classes are later slices (ROADMAP.md queue 1) and are rejected at
-compile time.
+The port lowers Q1 (VKNN-SF), Q2 (DR-SF) and Q3 (distance join) under
+``engine="brute"``: the compiled, fused, index-less full scan, which the
+reference's parity suites treat as ground truth.  With ``use_pallas`` the
+scans run on the fused CUDA kernels (the option keeps the reference's
+name); without it, on the plain torch
+:class:`~repro_torch.index.flat.FlatIndex`.  The other engines and query
+classes are later slices (ROADMAP.md queue 1) and are rejected at compile
+time.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ from typing import Any, Callable
 
 import torch
 
-from ..index.flat import FlatIndex
-from .expr import Bindings, Expr, Param, as_tensor, evaluate, evaluate_batch
+from ..index.flat import FlatIndex, compact_range
+from .expr import (Bindings, Column, Expr, Param, as_tensor, evaluate,
+                   evaluate_batch, evaluate_expr, order_key, stacked_param)
 from .schema import Catalog, Metric, Table
 from .semantics import Analysis, QueryClass
 
@@ -101,6 +103,82 @@ def _row_mask_batch_fn(pred: Expr | None, table: Table):
     return fn
 
 
+def _owner_fn(ltab: Table, rtab: Table, lalias: str | None,
+              ralias: str | None):
+    def owner(col: Column) -> str:
+        if col.table in (lalias, ltab.name):
+            return "l"
+        if col.table in (ralias, rtab.name):
+            return "r"
+        inl = col.name in ltab.schema
+        inr = col.name in rtab.schema
+        if inl and inr:
+            raise ValueError(f"ambiguous column {col.name}")
+        return "l" if inl else "r"
+
+    return owner
+
+
+def _eval_join_pred(pred: Expr, owner, ev_left, ev_right, param,
+                    device) -> torch.Tensor:
+    """One interpreter for both join-mask lowerings; ``ev_left`` /
+    ``ev_right`` / ``param`` decide the leaf shapes (scalar-at-lidx vs
+    (L, 1) / (N,) vs (1, N), with a leading bind-set axis when batched)."""
+    return evaluate_expr(
+        pred, lambda c: ev_left(c.name) if owner(c) == "l"
+        else ev_right(c.name), param, device)
+
+
+def _join_mask_fn(pred: Expr | None, ltab: Table, rtab: Table,
+                  lalias: str | None, ralias: str | None):
+    """Residual join predicate -> (left_row_idx, binds) -> (Nright,) bool.
+
+    Left columns resolve to scalars at ``left_row_idx``, right columns to
+    full columns — the per-left-row filter of the perleft loop."""
+    if pred is None:
+        return None
+    owner = _owner_fn(ltab, rtab, lalias, ralias)
+
+    def fn(lidx: int, binds: Bindings) -> torch.Tensor:
+        m = _eval_join_pred(pred, owner, lambda name: ltab[name][lidx],
+                            lambda name: rtab[name],
+                            lambda name: as_tensor(binds[name], rtab.device),
+                            rtab.device)
+        return m.expand(rtab.num_rows)
+
+    return fn
+
+
+def _join_mask_batch_fn(pred: Expr | None, ltab: Table, rtab: Table,
+                        lalias: str | None, ralias: str | None):
+    """Residual join predicate -> (binds, qn=None) -> (L, Nright) bool, ALL
+    left rows at once.
+
+    Left columns evaluate as (L, 1) and right columns as (1, N), so
+    broadcasting gives every (left row, right row) pair's mask in one
+    columnar pass, the left rows playing Q.  With ``qn`` stacked bind sets
+    everything gains a leading axis — binds (Q, 1, 1), left (1, L, 1),
+    right (1, 1, N) — and the mask is (Q, L, N) (the reference's
+    ``jax.vmap`` over the same function)."""
+    if pred is None:
+        return None
+    owner = _owner_fn(ltab, rtab, lalias, ralias)
+    dev = rtab.device
+
+    def fn(binds: Bindings, qn: int | None = None) -> torch.Tensor:
+        lead = () if qn is None else (1,)
+        param = (stacked_param(binds, qn, 2, dev) if qn is not None
+                 else lambda name: as_tensor(binds[name], dev))
+        m = _eval_join_pred(
+            pred, owner,
+            lambda name: ltab[name].reshape(lead + (-1, 1)),
+            lambda name: rtab[name].reshape(lead + (1, -1)), param, dev)
+        shape = (ltab.num_rows, rtab.num_rows)
+        return m.expand(shape if qn is None else (qn,) + shape)
+
+    return fn
+
+
 def _flat_topk(opts: EngineOptions, flat: FlatIndex, q, k, row_mask):
     if opts.use_pallas:
         from ..kernels.ops import fused_scan_topk
@@ -121,6 +199,101 @@ def _flat_evals(qvalid, m: int, n: int, device) -> torch.Tensor:
     (qvalid False) contribute zero."""
     evals = torch.full((m,), n, dtype=torch.int32, device=device)
     return evals if qvalid is None else torch.where(qvalid, evals, 0)
+
+
+def _compact(hit: torch.Tensor, raw: torch.Tensor, metric: Metric,
+             capacity: int):
+    """(..., N) hits and raw values -> (ids, sims, valid) of the best
+    ``capacity`` hits of each row (``index.flat.compact_range``)."""
+    keys = torch.where(hit, order_key(metric, raw), float("inf"))
+    return compact_range(keys, capacity, metric)
+
+
+def _flat_range_topk_batch(opts: EngineOptions, metric: Metric, corpus, qs,
+                           radius, row_mask, capacity: int, qvalid=None):
+    """Flat range scan over an (M, d) query batch, compacted to
+    ``capacity``.
+
+    The query-batched range kernel (``use_pallas``) or the exact plain scan,
+    one query at a time (the torch form of the reference's ``jax.vmap``
+    over ``FlatIndex.range_mask``).  ``radius`` is a scalar or (M,);
+    ``row_mask`` None, shared (N,) or per-query (M, N); ``qvalid`` None or
+    (M,) bool (size-bucket pad queries register no hits and zero counters).
+    Results are ordered best-first.  Returns (ids (M, P), sims, valid,
+    count (M,), per-row stats) with P = min(capacity, N)."""
+    m, n = qs.shape[0], corpus.shape[0]
+    dev = corpus.device
+    cap = min(int(capacity), n)
+    radius = torch.as_tensor(radius, dtype=torch.float32,
+                             device=dev).expand(m)
+    if opts.use_pallas:
+        from ..kernels.ops import fused_range_topk_batch
+        ids, sims, valid, count = fused_range_topk_batch(
+            corpus, qs, radius, row_mask, metric, cap, qvalid=qvalid)
+    else:
+        flat = FlatIndex(metric, corpus)
+        rows = [flat.range_mask(
+            qs[i], radius[i],
+            row_mask if row_mask is None or row_mask.ndim == 1
+            else row_mask[i]) for i in range(m)]
+        hit = torch.stack([h for h, _ in rows])
+        raw = torch.stack([r for _, r in rows])
+        if qvalid is not None:
+            hit = hit & qvalid[:, None]
+        ids, sims, valid = _compact(hit, raw, metric, cap)
+        count = hit.sum(1, dtype=torch.int32)
+    stats = {"probes": torch.zeros((m,), dtype=torch.int32, device=dev),
+             "distance_evals": _flat_evals(qvalid, m, n, dev)}
+    return ids, sims, valid, count, stats
+
+
+def _stacked_qn(binds: dict) -> int:
+    """Leading Q axis of stacked binds."""
+    dims = [v.shape[0] for v in binds.values()
+            if hasattr(v, "ndim") and v.ndim >= 1]
+    if not dims:
+        raise ValueError("stacked binds carry no leading batch axis; use "
+                         "binds_list")
+    return dims[0]
+
+
+def _flatten_left_batch(lvec: torch.Tensor, binds: dict, mask_b):
+    """(Q bind sets x L left rows) -> ONE kernel query batch.
+
+    Replicates the (L, d) left block per bind set and evaluates the
+    per-bind join masks into the flattened (Q·L, N) layout (q-major,
+    matching ``reshape`` on the outputs).  The replication recomputes the
+    (L, N) distances Q-fold — bind sets only vary radius and masks, applied
+    after the product — as the reference does."""
+    nleft, d = lvec.shape
+    qn = _stacked_qn(binds)
+    qs = lvec.unsqueeze(0).expand(qn, nleft, d).reshape(-1, d)
+    rm = mask_b(binds, qn).reshape(qn * nleft, -1) if mask_b else None
+    return qn, nleft, qs, rm
+
+
+def _flatten_valid_budget(qvalid, probe_budget, qn: int, nleft: int,
+                          device):
+    """Expand per-bind-set ``qvalid`` (Q,) and ``probe_budget`` (scalar |
+    (Q,) | (Q, L)) to the flattened (Q·L,) query-batch layout."""
+    fq = (None if qvalid is None else torch.as_tensor(
+        qvalid, dtype=torch.bool, device=device).repeat_interleave(nleft))
+    if probe_budget is None:
+        fb = None
+    else:
+        b = torch.as_tensor(probe_budget, dtype=torch.int32, device=device)
+        if b.ndim == 1:
+            b = b[:, None]
+        fb = b.expand(qn, nleft).reshape(-1)
+    return fq, fb
+
+
+def _radius_batch(radius_expr: Expr, table: Table, binds: dict,
+                  qn: int) -> torch.Tensor:
+    """The radius of each of ``qn`` stacked bind sets -> (Q,) fp32 (a
+    parameter evaluates to its stacked values, a constant broadcasts)."""
+    r = evaluate(radius_expr, table, binds).to(torch.float32)
+    return r.expand(qn)
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +373,213 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
     return fn
 
 
+# ---------------------------------------------------------------------------
+# Q2 — DR-SF
+# ---------------------------------------------------------------------------
+
+def build_dr_sf(a: Analysis, catalog: Catalog, opts: EngineOptions,
+                binds_static: Bindings) -> Callable:
+    """Q2 (DR-SF) single-query pipeline: the filtered range scan.  As in
+    the reference, the single-query brute plan runs the exact plain scan
+    (``FlatIndex.range_mask``) whatever ``use_pallas`` says: the reference
+    lowers it without a kernel."""
+    table = catalog.table(a.table)
+    metric = _metric_of(catalog, a.table, a.vector_column)
+    mask_fn = _row_mask_fn(a.structured_predicate, table)
+    qparam = a.query_expr
+    capacity = opts.probe.capacity
+    radius_expr = a.radius
+
+    def fn(arrays, binds):
+        corpus = arrays["corpus"]
+        dev = corpus.device
+        n = corpus.shape[0]
+        q = as_tensor(binds[qparam.name], dev)
+        radius = evaluate(radius_expr, table, binds)
+        row_mask = mask_fn(binds) if mask_fn else None
+        hit, raw = FlatIndex(metric, corpus).range_mask(q, radius, row_mask)
+        ids, sims, valid = _compact(hit, raw, metric, min(capacity, n))
+        stats = {"probes": torch.tensor(0, dtype=torch.int32, device=dev),
+                 "distance_evals": torch.tensor(n, dtype=torch.int32,
+                                                device=dev)}
+        return {"ids": ids, "sim": sims, "valid": valid,
+                "count": hit.sum(dtype=torch.int32), "stats": stats}
+
+    return fn
+
+
+def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
+                      binds_static: Bindings) -> Callable:
+    """Q2 batched: Q bind sets on the query-batched range kernel."""
+    table = catalog.table(a.table)
+    metric = _metric_of(catalog, a.table, a.vector_column)
+    mask_fn = _row_mask_batch_fn(a.structured_predicate, table)
+    qparam = a.query_expr
+    capacity = opts.probe.capacity
+    radius_expr = a.radius
+
+    def fn(arrays, binds, qvalid=None, probe_budget=None):
+        corpus = arrays["corpus"]
+        dev = corpus.device
+        qs = as_tensor(binds[qparam.name], dev)                  # (Q, D)
+        qn = qs.shape[0]
+        radius = _radius_batch(radius_expr, table, binds, qn)
+        if qvalid is not None:
+            qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
+        row_mask = mask_fn(binds, qn) if mask_fn else None       # (Q, N)
+        ids, sims, valid, count, stats = _flat_range_topk_batch(
+            opts, metric, corpus, qs, radius, row_mask, capacity,
+            qvalid=qvalid)
+        return {"ids": ids, "sim": sims, "valid": valid, "count": count,
+                "stats": stats}
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Q3 — distance join
+# ---------------------------------------------------------------------------
+#
+# Batch-native lowering (the default): the left side of a vector join IS a
+# query batch, so the left embeddings ride one (L, d) batch through the
+# query-tiled range kernel — per-left-row join predicates become the (L, N)
+# mask it consumes, and stats come back as per-left (L,) arrays.  The
+# per-left-row loop survives behind join_lowering='perleft' as the measured
+# baseline: one single-query range kernel launch per left row.  Flat plans
+# emit best-first per left row in both lowerings.
+
+
+def _dist_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions):
+    """(arrays, qs (M, d), radius, rm (M, N) | None) -> Q3 result batch."""
+    metric = _metric_of(catalog, a.right_table, a.right_vector)
+
+    def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None):
+        # probe_budget: the flat scan has no probe lane (ignored)
+        return _flat_range_topk_batch(opts, metric, arrays["corpus"], qs,
+                                      radius, rm, opts.max_pairs,
+                                      qvalid=qvalid)
+
+    return core
+
+
+def _join_output(ids, sims, valid, counts, stats) -> dict:
+    nleft = ids.shape[0]
+    qid = torch.arange(nleft, dtype=torch.int32, device=ids.device)
+    return {"qid": qid[:, None].expand(ids.shape), "tid": ids, "sim": sims,
+            "valid": valid, "count": counts, "stats": stats}
+
+
+def build_dist_join(a: Analysis, catalog: Catalog, opts: EngineOptions,
+                    binds_static: Bindings) -> Callable:
+    """Q3 (distance join): the left rows ride ONE query batch (see the
+    section comment; ``join_lowering='perleft'`` keeps the loop)."""
+    if opts.join_lowering == "perleft":
+        return _build_dist_join_perleft(a, catalog, opts, binds_static)
+    ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
+    mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
+                                 a.right_alias)
+    core = _dist_join_core(a, catalog, opts)
+    radius_expr = a.radius
+
+    def fn(arrays, binds):
+        radius = evaluate(radius_expr, rtab, binds)
+        rm = mask_b(binds) if mask_b else None                  # (L, N)
+        return _join_output(*core(arrays, arrays["left"], radius, rm))
+
+    return fn
+
+
+def build_dist_join_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
+                          binds_static: Bindings) -> Callable:
+    """Q bind sets x L left rows, flattened into ONE kernel query batch."""
+    ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
+    mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
+                                 a.right_alias)
+    core = _dist_join_core(a, catalog, opts)
+    radius_expr = a.radius
+
+    def fn(arrays, binds, qvalid=None, probe_budget=None):
+        lvec = arrays["left"]
+        qn, nleft, qs, rm = _flatten_left_batch(lvec, binds, mask_b)
+        fq, fb = _flatten_valid_budget(qvalid, probe_budget, qn, nleft,
+                                       lvec.device)
+        radius = _radius_batch(radius_expr, rtab, binds, qn)
+        ids, sims, valid, counts, stats = core(
+            arrays, qs, radius.repeat_interleave(nleft), rm, qvalid=fq,
+            probe_budget=fb)
+        shape = (qn, nleft, ids.shape[1])
+        qid = torch.arange(nleft, dtype=torch.int32, device=ids.device)
+        return {"qid": qid[None, :, None].expand(shape),
+                "tid": ids.reshape(shape), "sim": sims.reshape(shape),
+                "valid": valid.reshape(shape),
+                "count": counts.reshape(qn, nleft),
+                "stats": {k: v.reshape(qn, nleft) for k, v in stats.items()}}
+
+    return fn
+
+
+def _build_dist_join_perleft(a: Analysis, catalog: Catalog,
+                             opts: EngineOptions,
+                             binds_static: Bindings) -> Callable:
+    """The per-left-row baseline: one scan per left row — with
+    ``use_pallas``, one launch of the single-query range kernel each (the
+    matvec-shaped loop the query-tiled lowering replaces; it is not
+    batched on purpose)."""
+    ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
+    metric = _metric_of(catalog, a.right_table, a.right_vector)
+    pair_mask = _join_mask_fn(a.join_predicate, ltab, rtab, a.left_alias,
+                              a.right_alias)
+    radius_expr = a.radius
+
+    def fn(arrays, binds):
+        lvec = arrays["left"]
+        corpus = arrays["corpus"]
+        dev = corpus.device
+        n = corpus.shape[0]
+        radius = evaluate(radius_expr, rtab, binds)
+        cap = min(opts.max_pairs, n)
+        rows = []
+        for i in range(lvec.shape[0]):
+            rm = pair_mask(i, binds) if pair_mask else None
+            if opts.use_pallas:
+                from ..kernels.ops import fused_range_scan
+                hit, raw, count = fused_range_scan(corpus, lvec[i], radius,
+                                                   rm, metric)
+            else:
+                hit, raw = FlatIndex(metric, corpus).range_mask(
+                    lvec[i], radius, rm)
+                count = hit.sum(dtype=torch.int32)
+            rows.append(_compact(hit, raw, metric, cap) + (count,))
+        ids, sims, valid, counts = (torch.stack(c) for c in zip(*rows))
+        nleft = ids.shape[0]
+        stats = {"probes": torch.zeros(nleft, dtype=torch.int32, device=dev),
+                 "distance_evals": torch.full((nleft,), n, dtype=torch.int32,
+                                              device=dev)}
+        return _join_output(ids, sims, valid, counts, stats)
+
+    return fn
+
+
 BUILDERS = {
     QueryClass.VKNN_SF: build_vknn_sf,
+    QueryClass.DR_SF: build_dr_sf,
+    QueryClass.DIST_JOIN: build_dist_join,
 }
 
+# Every ported class has a NATIVE batched lowering; the join families
+# flatten (bind sets x left rows) into one kernel-level query batch.  The
+# loop-of-singles fallback remains only for join_lowering='perleft'
+# (core/compiler.py gates it — the measured baseline).
 BATCH_BUILDERS = {
     QueryClass.VKNN_SF: build_vknn_sf_batch,
+    QueryClass.DR_SF: build_dr_sf_batch,
+    QueryClass.DIST_JOIN: build_dist_join_batch,
 }
+
+# the join classes whose lowering obeys opts.join_lowering: 'perleft' swaps
+# their single-call builder for the per-left loop AND forces the
+# loop-of-singles execute_batch fallback (the reference's set; Q4 and Q6
+# are later slices).
+JOIN_LOWERING_FAMILIES = frozenset({
+    QueryClass.DIST_JOIN, QueryClass.KNN_JOIN, QueryClass.CATEGORY_JOIN,
+})

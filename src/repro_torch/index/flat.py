@@ -1,6 +1,7 @@
 """Brute-force (exact) index: the plain-torch flat scan taken when
-``EngineOptions.use_pallas`` is False, and the stable smallest-k every top-k
-in the port goes through.
+``EngineOptions.use_pallas`` is False (and by the single-query Q2 plan,
+which the reference lowers without a kernel), and the stable smallest-k
+every top-k and range compaction in the port goes through.
 
 ``torch.topk`` does not keep ``lax.top_k``'s order among equal keys (lowest
 index first), so the port selects with a stable sort instead.
@@ -11,7 +12,7 @@ import dataclasses
 
 import torch
 
-from ..core.expr import pairwise_order_keys
+from ..core.expr import distance_values, in_range, pairwise_order_keys
 from ..core.schema import Metric
 
 
@@ -28,6 +29,19 @@ def stable_smallest_k(keys: torch.Tensor,
         vals = torch.cat([vals, vals.new_full(pad, float("inf"))], dim=-1)
         idx = torch.cat([idx, idx.new_full(pad, -1)], dim=-1)
     return vals, idx
+
+
+def compact_range(keys: torch.Tensor, capacity: int, metric: Metric):
+    """The best ``capacity`` hits of each row of (..., N) order keys that
+    are +inf off the hits: ascending by key, equal keys lowest id first.
+    Returns (ids, raw sims, valid), each (..., capacity); empty slots hold
+    id -1 and sim 0.  The sims are the keys turned back into raw values,
+    which is exact (a negation or the identity)."""
+    vals, sel = stable_smallest_k(keys, capacity)
+    valid = torch.isfinite(vals)
+    ids = torch.where(valid, sel, -1)
+    sims = torch.where(valid, -vals if metric.is_similarity() else vals, 0.0)
+    return ids, sims, valid
 
 
 def masked_topk(keys: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
@@ -72,3 +86,15 @@ class FlatIndex:
         if single:
             return sel_ids[0], sims[0], valid[0]
         return sel_ids, sims, valid
+
+    def range_mask(self, query: torch.Tensor, radius,
+                   row_mask: torch.Tensor | None = None):
+        """Exact range query for one (d,) query: the reference's rowwise
+        distance (Σ(x−q)² for L2, not the kernels' expanded form) and the
+        paper's ``DISTANCE <= radius`` convention.  Returns ((N,) hit mask,
+        (N,) raw sims)."""
+        raw = distance_values(self.metric, self.vectors, query)
+        hit = in_range(self.metric, raw, radius)
+        if row_mask is not None:
+            hit = hit & row_mask
+        return hit, raw

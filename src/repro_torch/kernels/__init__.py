@@ -3,10 +3,17 @@ PyTorch version beside it.
 
 * ``scan_topk.py`` — wrappers of the two fused scan + top-k kernels of the
   Q1 main path (``csrc/``), their plain versions, launch geometry;
-* ``ops.py`` — public contracts: mask layout and the stage-2 merges;
+* ``range_scan.py`` — wrappers of the two fused range-scan kernels of the
+  Q2 and Q3 flat lowerings, their plain versions, launch geometry;
+* ``ops.py`` — public contracts: mask layout, the stage-2 merges and the
+  range compaction;
 * ``ref.py`` — pure-torch oracles;
 * ``build.py`` — nvcc build at first use, ctypes loading.
 """
-from .ops import fused_scan_topk, fused_scan_topk_batch
+from .ops import (fused_range_scan, fused_range_scan_batch,
+                  fused_range_topk_batch, fused_scan_topk,
+                  fused_scan_topk_batch)
 
-__all__ = ["fused_scan_topk", "fused_scan_topk_batch"]
+__all__ = ["fused_range_scan", "fused_range_scan_batch",
+           "fused_range_topk_batch", "fused_scan_topk",
+           "fused_scan_topk_batch"]

@@ -2,7 +2,9 @@
 
 Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds).  Libraries land in ``build/kernels/`` at the repository root,
+takes seconds).  The helpers at the end are what every kernel wrapper needs
+around a launch: input checks, raw pointers, the current stream, and the C
+launcher with its ctypes signature.  Libraries land in ``build/kernels/`` at the repository root,
 named by a digest of their sources and flags, so an edited source never
 reuses a stale library.  There is no fallback: a missing ``nvcc`` or a
 failed build raises.
@@ -17,10 +19,15 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
+from ..core.schema import Metric
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("scan_topk.cu", "scan_topk_batch.cu")
-HEADERS = ("topk_common.cuh",)
+SOURCES = ("scan_topk.cu", "scan_topk_batch.cu", "range_scan.cu",
+           "range_scan_batch.cu")
+HEADERS = ("topk_common.cuh", "fp32_tile.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -95,3 +102,43 @@ def check(lib: ctypes.CDLL, what: str, err: int) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: cudaError {err} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# around a launch
+# ---------------------------------------------------------------------------
+
+METRIC_CODES = {Metric.INNER_PRODUCT: 0, Metric.L2: 1, Metric.COSINE: 2}
+P, I = ctypes.c_void_p, ctypes.c_int   # pointer / int launcher arguments
+
+
+def launcher(source: str, name: str, argtypes: list):
+    """(library, C launcher with its ctypes signature) of one kernel."""
+    lib = library(source)
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def check_tensor(t: torch.Tensor | None, name: str, shape: tuple, dtype,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` (None passes) has this shape, dtype and device and
+    is contiguous."""
+    if t is None:
+        return
+    if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name}: expected {shape} {dtype} on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device address for a launcher (None for a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev``, as the launchers take it."""
+    return torch.cuda.current_stream(dev).cuda_stream

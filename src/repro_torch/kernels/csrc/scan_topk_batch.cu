@@ -24,14 +24,14 @@
 //     batched predicate evaluation produces it.
 // Output: per query, splits·k candidates with global row ids; the stage-2
 // merge is plain torch (kernels/ops.py).
-#include "topk_common.cuh"
+#include "fp32_tile.cuh"
 
 namespace {
 
 using namespace repro_topk;
-
-constexpr int kRows = 64;   // corpus rows per tile
-constexpr int kDepth = 32;  // columns of D staged in shared memory at once
+using repro_tile::kDepth;
+using repro_tile::kRows;
+using repro_tile::TileShape;
 
 enum MaskMode : int { kNoMask = 0, kSharedMask = 1, kPerQueryMask = 2 };
 
@@ -42,18 +42,16 @@ __global__ void __launch_bounds__(kThreads) scan_topk_batch_kernel(
     const int8_t* __restrict__ qvalid, float* __restrict__ out_keys,
     int* __restrict__ out_ids, int n, int d, int qn, int k, int kp,
     int rows_per_split, int splits) {
-  constexpr int TQ = kThreads / TR;
-  constexpr int RPT = kRows / TR;  // rows per thread
-  constexpr int QPT = QT / TQ;     // queries per thread
-  static_assert(RPT >= 1 && QPT >= 1, "tile does not cover the block");
-  constexpr int RS = kRows + 1;    // padded strides: conflict-free stores
-  constexpr int QS = QT + 1;
+  using S = TileShape<QT, TR>;
+  constexpr int TQ = S::TQ;
+  constexpr int RPT = S::RPT;
+  constexpr int QPT = S::QPT;
   const int seg = 2 * kp;
 
   extern __shared__ float smem[];
-  float* r_s = smem;                                 // [kDepth][RS]
-  float* q_s = r_s + kDepth * RS;                    // [kDepth][QS]
-  float* l_keys = q_s + kDepth * QS;                 // [QT][seg]
+  float* r_s = smem;                                 // tile staging
+  float* q_s = r_s + kDepth * S::RS;
+  float* l_keys = smem + S::kStageFloats;            // [QT][seg]
   int* l_ids = reinterpret_cast<int*>(l_keys + QT * seg);
   __shared__ int s_cnt[QT];
   __shared__ int s_need[QT];
@@ -64,8 +62,6 @@ __global__ void __launch_bounds__(kThreads) scan_topk_batch_kernel(
   __shared__ int s_any;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int tr = tid % TR;
   const int tq = tid / TR;
   const int q0 = blockIdx.x * QT;
@@ -84,56 +80,14 @@ __global__ void __launch_bounds__(kThreads) scan_topk_batch_kernel(
     s_thr[qi] = pos_inf();
     s_live[qi] = q < qn && (qvalid == nullptr || qvalid[q] != 0);
   }
-  for (int qi = warp; qi < QT; qi += kThreads / 32) {
-    float qq = 0.f;
-    if (q0 + qi < qn) {
-      const float* qp = queries + static_cast<size_t>(q0 + qi) * d;
-      for (int i = lane; i < d; i += 32) qq = fmaf(qp[i], qp[i], qq);
-    }
-    for (int o = 16; o > 0; o >>= 1) qq += __shfl_xor_sync(0xffffffffu, qq, o);
-    if (lane == 0) s_qq[qi] = qq;
-  }
+  repro_tile::query_norms<QT>(queries, q0, qn, d, s_qq);
   __syncthreads();
 
   for (int t0 = row0; t0 < row_end; t0 += kRows) {
     float acc[RPT][QPT];
     float xx[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      xx[i] = 0.f;
-#pragma unroll
-      for (int j = 0; j < QPT; ++j) acc[i][j] = 0.f;
-    }
-    for (int d0 = 0; d0 < d; d0 += kDepth) {
-      __syncthreads();  // the previous chunk's readers are done
-      for (int e = tid; e < kRows * kDepth; e += kThreads) {
-        const int row = e / kDepth, c = e % kDepth;
-        const int gr = t0 + row, gc = d0 + c;
-        r_s[c * RS + row] = (gr < row_end && gc < d)
-            ? __ldg(corpus + static_cast<size_t>(gr) * d + gc) : 0.f;
-      }
-      for (int e = tid; e < QT * kDepth; e += kThreads) {
-        const int qi = e / kDepth, c = e % kDepth;
-        const int gq = q0 + qi, gc = d0 + c;
-        q_s[c * QS + qi] = (gq < qn && gc < d)
-            ? __ldg(queries + static_cast<size_t>(gq) * d + gc) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < kDepth; ++c) {
-        float a[RPT], b[QPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) a[i] = r_s[c * RS + tr + TR * i];
-#pragma unroll
-        for (int j = 0; j < QPT; ++j) b[j] = q_s[c * QS + tq + TQ * j];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          if (METRIC != kInnerProduct) xx[i] = fmaf(a[i], a[i], xx[i]);
-#pragma unroll
-          for (int j = 0; j < QPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-    }
+    repro_tile::tile_product<QT, TR, METRIC>(corpus, queries, t0, row_end, q0,
+                                             qn, d, r_s, q_s, acc, xx);
     // epilogue: keys, masks, and the count of candidates per query
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -210,7 +164,7 @@ cudaError_t launch(const float* corpus, const float* queries,
                    int rows_per_split, int splits, cudaStream_t stream) {
   const int kp = next_pow2(k < kRows ? kRows : k);
   const size_t smem = sizeof(float) *
-      (static_cast<size_t>(kDepth) * (kRows + 1 + QT + 1) +
+      (static_cast<size_t>(TileShape<QT, TR>::kStageFloats) +
        static_cast<size_t>(2) * QT * 2 * kp);
   auto kernel = scan_topk_batch_kernel<QT, TR, METRIC>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,17 +1,19 @@
 """Public contracts of the fused scans: mask layout, the kernels' stage 1,
-and the stage-2 merge in plain torch.
+and the stage-2 merges and compactions in plain torch.
 
 The kernels take ragged N, D and Q and mask the edge themselves, so none of
 the reference's padding helpers is needed: the only layout work left is
-viewing a bool mask as the int8 the kernels read (no copy) and the per-query
-valid lane.
+viewing a bool mask as the int8 the kernels read (no copy), the per-query
+valid lane, and the radius as an fp32 order key.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.expr import order_key
 from ..core.schema import Metric
-from ..index.flat import stable_smallest_k
+from ..index.flat import compact_range, stable_smallest_k
+from .range_scan import range_scan, range_scan_batch
 from .scan_topk import scan_topk, scan_topk_batch
 
 
@@ -64,3 +66,75 @@ def fused_scan_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
                                 queries.to(torch.float32).contiguous(),
                                 _mask_i8(row_mask), qv, k, metric)
     return _merge(keys, ids, k, metric)
+
+
+def _radius_keys(radius, metric: Metric, qn: int,
+                 device: torch.device) -> torch.Tensor:
+    """A raw radius (scalar or (Q,)) as (Q,) fp32 order keys on ``device``
+    (rounded to fp32 first, as the reference does)."""
+    r = torch.as_tensor(radius, dtype=torch.float32, device=device)
+    return order_key(metric, r.expand(qn)).contiguous()
+
+
+def _raw(keys: torch.Tensor, hit: torch.Tensor, metric: Metric):
+    """Raw metric values on the hits, 0 elsewhere."""
+    return torch.where(hit, -keys if metric.is_similarity() else keys, 0.0)
+
+
+def fused_range_scan(corpus: torch.Tensor, query: torch.Tensor, radius,
+                     row_mask: torch.Tensor | None, metric: Metric):
+    """Fused single-query range scan (drop-in for ``FlatIndex.range_mask``).
+    ``radius`` is a raw metric value (a number or a 0-d tensor).  Returns
+    (hit (N,), raw sims (N,), count, a 0-d int32)."""
+    corpus = corpus.to(torch.float32).contiguous()
+    keys, hits, count = range_scan(
+        corpus, query.to(torch.float32).reshape(-1).contiguous(),
+        _radius_keys(radius, metric, 1, corpus.device),
+        _mask_i8(row_mask), metric)
+    hit = hits.view(torch.bool)
+    return hit, _raw(keys, hit, metric), count
+
+
+def _range_batch(corpus: torch.Tensor, queries: torch.Tensor, radius,
+                 row_mask: torch.Tensor | None, metric: Metric,
+                 qvalid: torch.Tensor | None):
+    """The batched kernel on the public inputs: (keys, hit, counts)."""
+    corpus = corpus.to(torch.float32).contiguous()
+    queries = queries.to(torch.float32).contiguous()
+    qv = None if qvalid is None else _mask_i8(qvalid)
+    keys, hits, counts = range_scan_batch(
+        corpus, queries,
+        _radius_keys(radius, metric, queries.shape[0], corpus.device),
+        _mask_i8(row_mask), qv, metric)
+    return keys, hits.view(torch.bool), counts
+
+
+def fused_range_scan_batch(corpus: torch.Tensor, queries: torch.Tensor,
+                           radius, row_mask: torch.Tensor | None,
+                           metric: Metric,
+                           qvalid: torch.Tensor | None = None):
+    """Batched fused range scan.  ``radius`` is a scalar or (Q,) raw values;
+    ``row_mask`` None, shared (N,) or per-query (Q, N); ``qvalid``
+    (None | (Q,) bool) marks size-bucket pad queries, which register no hits
+    and a zero count.  Returns (hit (Q, N), raw sims (Q, N), counts (Q,))."""
+    keys, hit, counts = _range_batch(corpus, queries, radius, row_mask,
+                                     metric, qvalid)
+    return hit, _raw(keys, hit, metric), counts
+
+
+def fused_range_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
+                           radius, row_mask: torch.Tensor | None,
+                           metric: Metric, capacity: int,
+                           qvalid: torch.Tensor | None = None):
+    """Fused range scan + per-query compaction to a fixed result buffer: the
+    best ``capacity`` hits of each query, ascending by order key, equal keys
+    lowest id first.  Inputs as :func:`fused_range_scan_batch`.  Returns
+    (ids (Q, capacity), sims raw-metric, valid (Q, capacity), count (Q,)
+    total hits before truncation).
+
+    The kernel's keys are already +inf off the hits, and on a hit they equal
+    the reference's ``order_key(raw)`` bit for bit, so the compaction sorts
+    them directly instead of rebuilding them from the raw values."""
+    keys, _hit, counts = _range_batch(corpus, queries, radius, row_mask,
+                                      metric, qvalid)
+    return compact_range(keys, capacity, metric) + (counts,)

@@ -1,0 +1,154 @@
+"""Fused distance + radius + predicate range scans: the two range kernels of
+the Q2 and Q3 flat lowerings.
+
+Each wrapper launches a hand-written CUDA kernel (``csrc/range_scan.cu``,
+``csrc/range_scan_batch.cu``) on a CUDA tensor and runs its plain PyTorch
+version beside it on a CPU tensor, and only then.  Both produce the
+reference's outputs without its padding: the order keys with +inf off the
+hits, the hits as int8, and the hit count (one per query).  Keys and hits are
+query-major, (N,) or (Q, N).  The compaction to a fixed result buffer is in
+``ops.py``.
+
+A wrapper counts its kernel launches in a plain integer attribute
+(``range_scan.launches``, ``range_scan_batch.launches``), so a run can show
+that a path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.expr import pairwise_order_keys
+from ..core.schema import Metric
+from . import build
+from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
+from .scan_topk import BATCH_QTILES, split_plan
+
+
+def batch_plan(n: int, qn: int) -> tuple[int, int, int]:
+    """(queries per block, splits, rows per split) of the batched kernel:
+    the smallest query tile that holds all Q (64 at most), about
+    ``scan_topk.BATCH_BLOCKS`` blocks."""
+    qt = next((t for t in BATCH_QTILES if t >= qn), BATCH_QTILES[-1])
+    return (qt,) + split_plan(n, qn, qt)
+
+
+def _hits(keys: torch.Tensor, radius_keys: torch.Tensor,
+          live: torch.Tensor | None):
+    """(masked keys, int8 hits, int32 counts) from (..., N) keys."""
+    hit = keys <= radius_keys
+    if live is not None:
+        hit = hit & live
+    return (keys.masked_fill(~hit, float("inf")), hit.to(torch.int8),
+            hit.sum(-1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# single query: replaces range_scan_pallas (src/repro/kernels/range_scan.py)
+# ---------------------------------------------------------------------------
+
+def range_scan_plain(corpus: torch.Tensor, query: torch.Tensor,
+                     radius_key: torch.Tensor, mask_i8: torch.Tensor | None,
+                     metric: Metric):
+    """Plain PyTorch version of the single-query kernel."""
+    keys = pairwise_order_keys(metric, corpus, query[None])[0]      # (N,)
+    live = None if mask_i8 is None else mask_i8 != 0
+    return _hits(keys, radius_key.reshape(()), live)
+
+
+def range_scan(corpus: torch.Tensor, query: torch.Tensor,
+               radius_key: torch.Tensor, mask_i8: torch.Tensor | None,
+               metric: Metric):
+    """Single-query fused range scan: corpus (N, D) fp32, query (D,) fp32,
+    radius_key a one-element fp32 order key (it stays on the device: no
+    host sync), mask None or (N,) int8.  Returns (keys (N,) fp32, +inf off
+    the hits; hits (N,) int8; count, a 0-d int32)."""
+    n, d = corpus.shape
+    dev = corpus.device
+    check_tensor(corpus, "corpus", (n, d), torch.float32, dev)
+    check_tensor(query, "query", (d,), torch.float32, dev)
+    check_tensor(radius_key.reshape(1), "radius_key", (1,), torch.float32,
+                 dev)
+    check_tensor(mask_i8, "mask", (n,), torch.int8, dev)
+    if dev.type == "cpu":
+        return range_scan_plain(corpus, query, radius_key, mask_i8, metric)
+    if dev.type != "cuda":
+        raise ValueError(f"range_scan runs on cuda (or cpu), not {dev}")
+    keys = torch.empty(n, dtype=torch.float32, device=dev)
+    hits = torch.empty(n, dtype=torch.int8, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    vec4 = d % 4 == 0 and corpus.data_ptr() % 16 == 0
+    lib, launch = build.launcher("range_scan.cu", "range_scan_launch",
+                                 [P] * 7 + [I] * 4 + [P])
+    err = launch(
+        ptr(corpus), ptr(query), ptr(radius_key), ptr(mask_i8), ptr(keys),
+        ptr(hits), ptr(count), n, d, METRIC_CODES[metric], int(vec4),
+        stream(dev))
+    build.check(lib, "range_scan", err)
+    range_scan.launches += 1
+    return keys, hits, count.reshape(())
+
+
+range_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# query batch: replaces range_scan_batch_pallas
+# (src/repro/kernels/range_scan.py)
+# ---------------------------------------------------------------------------
+
+def range_scan_batch_plain(corpus: torch.Tensor, queries: torch.Tensor,
+                           radius_keys: torch.Tensor,
+                           mask_i8: torch.Tensor | None,
+                           qvalid_i8: torch.Tensor | None, metric: Metric):
+    """Plain PyTorch version of the batched kernel."""
+    keys = pairwise_order_keys(metric, corpus, queries)              # (Q, N)
+    live = None
+    if mask_i8 is not None:
+        live = mask_i8 != 0 if mask_i8.ndim == 2 else (mask_i8 != 0)[None]
+    if qvalid_i8 is not None:
+        qlive = (qvalid_i8 != 0)[:, None]
+        live = qlive if live is None else live & qlive
+    return _hits(keys, radius_keys[:, None], live)
+
+
+def range_scan_batch(corpus: torch.Tensor, queries: torch.Tensor,
+                     radius_keys: torch.Tensor, mask_i8: torch.Tensor | None,
+                     qvalid_i8: torch.Tensor | None, metric: Metric):
+    """Batched fused range scan: corpus (N, D) fp32, queries (Q, D) fp32,
+    radius_keys (Q,) fp32 order keys, mask None, shared (N,) or query-major
+    (Q, N) int8, qvalid None or (Q,) int8 (a 0 lane is a size-bucket pad
+    query: no hits, count 0).  Returns (keys (Q, N) fp32, +inf off the hits;
+    hits (Q, N) int8; counts (Q,) int32)."""
+    n, d = corpus.shape
+    qn = queries.shape[0]
+    dev = corpus.device
+    check_tensor(corpus, "corpus", (n, d), torch.float32, dev)
+    check_tensor(queries, "queries", (qn, d), torch.float32, dev)
+    check_tensor(radius_keys, "radius_keys", (qn,), torch.float32, dev)
+    if mask_i8 is not None:
+        check_tensor(mask_i8, "mask", (qn, n) if mask_i8.ndim == 2 else (n,),
+                     torch.int8, dev)
+    check_tensor(qvalid_i8, "qvalid", (qn,), torch.int8, dev)
+    if dev.type == "cpu":
+        return range_scan_batch_plain(corpus, queries, radius_keys, mask_i8,
+                                      qvalid_i8, metric)
+    if dev.type != "cuda":
+        raise ValueError(f"range_scan_batch runs on cuda (or cpu), not {dev}")
+    qt, splits, rows = batch_plan(n, qn)
+    keys = torch.empty((qn, n), dtype=torch.float32, device=dev)
+    hits = torch.empty((qn, n), dtype=torch.int8, device=dev)
+    counts = torch.zeros(qn, dtype=torch.int32, device=dev)
+    mask_mode = 0 if mask_i8 is None else 1 if mask_i8.ndim == 1 else 2
+    lib, launch = build.launcher("range_scan_batch.cu",
+                                 "range_scan_batch_launch",
+                                 [P] * 4 + [I] + [P] * 4 + [I] * 7 + [P])
+    err = launch(
+        ptr(corpus), ptr(queries), ptr(radius_keys), ptr(mask_i8), mask_mode,
+        ptr(qvalid_i8), ptr(keys), ptr(hits), ptr(counts), n, d, qn,
+        METRIC_CODES[metric], qt, rows, splits, stream(dev))
+    build.check(lib, "range_scan_batch", err)
+    range_scan_batch.launches += 1
+    return keys, hits, counts
+
+
+range_scan_batch.launches = 0

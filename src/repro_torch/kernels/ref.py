@@ -25,3 +25,13 @@ def scan_topk_ref(corpus: torch.Tensor, query: torch.Tensor, k: int,
     out_keys, idx = stable_smallest_k(keys, k)
     valid = torch.isfinite(out_keys)
     return torch.where(valid, idx, -1), out_keys, valid
+
+
+def range_scan_ref(corpus: torch.Tensor, query: torch.Tensor, radius_key,
+                   row_mask: torch.Tensor | None, metric: Metric):
+    """Fused range scan oracle. Returns (hit mask (N,), keys (N,))."""
+    keys = keys_ref(corpus, query, metric)
+    hit = keys <= radius_key
+    if row_mask is not None:
+        hit = hit & row_mask
+    return hit, keys

@@ -13,17 +13,15 @@ that the main path went through the kernels.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..core.expr import pairwise_order_keys
 from ..core.schema import Metric
 from ..index.flat import stable_smallest_k
 from . import build
+from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 
 MAX_K = 1024                 # the reference's BLOCK_N cap on k
-METRIC_CODES = {Metric.INNER_PRODUCT: 0, Metric.L2: 1, Metric.COSINE: 2}
 
 # Launch geometry (H100: 132 SMs).  The plain versions cut the corpus the
 # same way, so kernel and plain outputs compare entry by entry.
@@ -58,51 +56,23 @@ def batch_plan(n: int, qn: int, k: int) -> tuple[int, int, int]:
     kp = _next_pow2(max(k, BATCH_TILE))
     cap = 64 if kp <= 64 else 16 if kp <= 256 else 4
     qt = next((t for t in BATCH_QTILES if t >= qn and t <= cap), cap)
-    tiles = _cdiv(n, BATCH_TILE)
+    return (qt,) + split_plan(n, qn, qt)
+
+
+def split_plan(n: int, qn: int, qt: int) -> tuple[int, int]:
+    """(splits, rows per split) of a query-batched kernel whose blocks take
+    ``qt`` queries each: about BATCH_BLOCKS blocks in all, each split a
+    whole number of BATCH_TILE-row tiles."""
+    tiles = max(1, _cdiv(n, BATCH_TILE))
     want = max(1, _cdiv(BATCH_BLOCKS, _cdiv(qn, qt)))
     rows = _cdiv(tiles, min(tiles, want)) * BATCH_TILE
-    return qt, _cdiv(n, rows), rows
+    return _cdiv(n, rows), rows
 
 
 def _check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}] for the fused scan "
                          f"kernels, got {k}")
-
-
-def _check(t: torch.Tensor | None, name: str, shape: tuple, dtype,
-           device: torch.device) -> None:
-    if t is None:
-        return
-    if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
-        raise ValueError(f"{name}: expected {shape} {dtype} on {device}, got "
-                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
-
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "scan_topk_launch": [_P] * 5 + [_I] * 7 + [_P],
-    "scan_topk_batch_launch": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 8 + [_P],
-}
-
-
-def _launcher(source: str, name: str):
-    """(library, C launcher with its ctypes signature) of one kernel."""
-    lib = build.library(source)
-    fn = getattr(lib, name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _split_topk(keys: torch.Tensor, k: int, splits: int,
@@ -144,9 +114,9 @@ def scan_topk(corpus: torch.Tensor, query: torch.Tensor,
     _check_k(k)
     n, d = corpus.shape
     dev = corpus.device
-    _check(corpus, "corpus", (n, d), torch.float32, dev)
-    _check(query, "query", (d,), torch.float32, dev)
-    _check(mask_i8, "mask", (n,), torch.int8, dev)
+    check_tensor(corpus, "corpus", (n, d), torch.float32, dev)
+    check_tensor(query, "query", (d,), torch.float32, dev)
+    check_tensor(mask_i8, "mask", (n,), torch.int8, dev)
     if dev.type == "cpu":
         return scan_topk_plain(corpus, query, mask_i8, k, metric)
     if dev.type != "cuda":
@@ -155,11 +125,12 @@ def scan_topk(corpus: torch.Tensor, query: torch.Tensor,
     keys = torch.empty((blocks, k), dtype=torch.float32, device=dev)
     ids = torch.empty((blocks, k), dtype=torch.int32, device=dev)
     vec4 = d % 4 == 0 and corpus.data_ptr() % 16 == 0
-    lib, launch = _launcher("scan_topk.cu", "scan_topk_launch")
+    lib, launch = build.launcher("scan_topk.cu", "scan_topk_launch",
+                                 [P] * 5 + [I] * 7 + [P])
     err = launch(
-        _ptr(corpus), _ptr(query), _ptr(mask_i8), _ptr(keys), _ptr(ids),
+        ptr(corpus), ptr(query), ptr(mask_i8), ptr(keys), ptr(ids),
         n, d, k, METRIC_CODES[metric], int(vec4), rows, blocks,
-        _stream(dev))
+        stream(dev))
     build.check(lib, "scan_topk", err)
     scan_topk.launches += 1
     return keys, ids
@@ -200,12 +171,12 @@ def scan_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
     n, d = corpus.shape
     qn = queries.shape[0]
     dev = corpus.device
-    _check(corpus, "corpus", (n, d), torch.float32, dev)
-    _check(queries, "queries", (qn, d), torch.float32, dev)
+    check_tensor(corpus, "corpus", (n, d), torch.float32, dev)
+    check_tensor(queries, "queries", (qn, d), torch.float32, dev)
     if mask_i8 is not None:
-        _check(mask_i8, "mask", (qn, n) if mask_i8.ndim == 2 else (n,),
+        check_tensor(mask_i8, "mask", (qn, n) if mask_i8.ndim == 2 else (n,),
                torch.int8, dev)
-    _check(qvalid_i8, "qvalid", (qn,), torch.int8, dev)
+    check_tensor(qvalid_i8, "qvalid", (qn,), torch.int8, dev)
     if dev.type == "cpu":
         return scan_topk_batch_plain(corpus, queries, mask_i8, qvalid_i8, k,
                                      metric)
@@ -215,12 +186,14 @@ def scan_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
     keys = torch.empty((qn, splits * k), dtype=torch.float32, device=dev)
     ids = torch.empty((qn, splits * k), dtype=torch.int32, device=dev)
     mask_mode = 0 if mask_i8 is None else 1 if mask_i8.ndim == 1 else 2
-    lib, launch = _launcher("scan_topk_batch.cu", "scan_topk_batch_launch")
+    lib, launch = build.launcher("scan_topk_batch.cu",
+                                 "scan_topk_batch_launch",
+                                 [P] * 3 + [I] + [P] * 3 + [I] * 8 + [P])
     err = launch(
-        _ptr(corpus), _ptr(queries), _ptr(mask_i8), mask_mode,
-        _ptr(qvalid_i8), _ptr(keys), _ptr(ids), n, d, qn, k,
+        ptr(corpus), ptr(queries), ptr(mask_i8), mask_mode,
+        ptr(qvalid_i8), ptr(keys), ptr(ids), n, d, qn, k,
         METRIC_CODES[metric], qt, rows, splits,
-        _stream(dev))
+        stream(dev))
     build.check(lib, "scan_topk_batch", err)
     scan_topk_batch.launches += 1
     return keys, ids

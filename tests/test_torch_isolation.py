@@ -69,7 +69,10 @@ def test_entry_points_default_to_cuda():
 
 def test_kernel_wrappers_refuse_other_devices():
     from repro_torch.core.schema import Metric
-    from repro_torch.kernels.ops import fused_scan_topk, fused_scan_topk_batch
+    from repro_torch.kernels.ops import (fused_range_scan,
+                                         fused_range_scan_batch,
+                                         fused_range_topk_batch,
+                                         fused_scan_topk, fused_scan_topk_batch)
 
     corpus = torch.zeros((32, 8), device="meta")
     with pytest.raises(ValueError, match="runs on cuda"):
@@ -78,3 +81,11 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="runs on cuda"):
         fused_scan_topk_batch(corpus, torch.zeros((2, 8), device="meta"), 3,
                               None, Metric.L2)
+    with pytest.raises(ValueError, match="range_scan runs on cuda"):
+        fused_range_scan(corpus, torch.zeros(8, device="meta"), 0.5, None,
+                         Metric.L2)
+    for batch in (fused_range_scan_batch,
+                  lambda *a: fused_range_topk_batch(*a, capacity=4)):
+        with pytest.raises(ValueError, match="range_scan_batch runs on cuda"):
+            batch(corpus, torch.zeros((2, 8), device="meta"), 0.5, None,
+                  Metric.L2)

@@ -197,10 +197,13 @@ def test_unported_surfaces_raise(env):
     _, cat = env
     with pytest.raises(NotImplementedError, match="item 5"):
         connect(cat).prepare(Q1, K=K)            # default engine: chase
-    with pytest.raises(NotImplementedError, match="item 6"):
-        connect(cat, engine="brute").prepare(
-            "SELECT sample_id FROM images WHERE DISTANCE(embedding, ${qv}) "
-            "<= ${r}")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        connect(cat, engine="brute").prepare(          # Q4, a KNN join
+            "SELECT qid, tid FROM (SELECT users.id AS qid, "
+            "movies.sample_id AS tid, RANK() OVER (PARTITION BY users.id "
+            "ORDER BY DISTANCE(users.embedding, movies.embedding)) AS rank "
+            "FROM users JOIN movies ON users.preferred_rating = movies.rating"
+            ") AS ranked WHERE ranked.rank <= 5")
     with pytest.raises(NotImplementedError, match="item 8"):
         connect(cat, engine="brute", use_pallas=True,
                 quant="int8").prepare(Q1, K=K)

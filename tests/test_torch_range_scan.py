@@ -1,0 +1,264 @@
+"""The port's fused range scans (plain versions on the CPU) against the
+reference's Pallas range kernels in interpret mode, on the same numpy
+inputs.
+
+The single-query form is held against the reference's ``fused_range_scan``,
+the batched form against ``fused_range_scan_batch`` (``block_n=128``,
+``block_q=8``, as the reference's own tests run them) and the compaction
+against ``fused_range_topk_batch``.  Radii lie strictly inside the widest
+gap between adjacent keys near the target rank, so fp32 summation order
+cannot flip a hit: hits and counts must be exactly equal, raw sims on the
+hits agree to 1e-5 (unit-scale fp32 data at D <= 130).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.schema import Metric as RefMetric
+from repro.kernels import ops as ref_ops
+from repro_torch.core.schema import Metric
+from repro_torch.kernels import ops
+from repro_torch.kernels.range_scan import (batch_plan, range_scan,
+                                            range_scan_batch)
+
+TOL = 1e-5
+METRICS = ["ip", "l2", "cosine"]
+MASKS = ["none", "shared", "per_query"]
+# (N, D, Q): ragged N and D, Q off every tile size
+SHAPES = [(2000, 32, 8), (1531, 130, 5), (777, 16, 3)]
+REF_BLOCKS = dict(block_q=8, block_n=128)
+
+
+def _inputs(seed: int, n: int, d: int, qn: int):
+    rng = np.random.default_rng(seed)
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    queries = rng.standard_normal((qn, d)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    return rng, corpus, queries
+
+
+def _mask(rng, kind: str, qn: int, n: int):
+    if kind == "none":
+        return None
+    if kind == "shared":
+        return rng.random(n) < 0.4
+    return rng.random((qn, n)) < 0.4
+
+
+def _keys(corpus: np.ndarray, queries: np.ndarray, metric: str):
+    """(Q, N) order keys in float64, the reference's formulas."""
+    c, q = corpus.astype(np.float64), queries.astype(np.float64)
+    ip = q @ c.T
+    if metric == "ip":
+        return -ip
+    if metric == "l2":
+        return ((q[:, None, :] - c[None]) ** 2).sum(-1)
+    return -ip / (np.linalg.norm(q, axis=1)[:, None]
+                  * np.linalg.norm(c, axis=1)[None] + 1e-12)
+
+
+def _tie_safe_radius(keys: np.ndarray, metric: str, rank: int) -> np.ndarray:
+    """Per query, a raw radius in the middle of the widest gap between
+    adjacent sorted keys around ``rank`` (so about ``rank`` rows hit)."""
+    srt = np.sort(keys, axis=1)
+    lo = max(0, rank - 15)
+    window = srt[:, lo:rank + 15]
+    j = np.argmax(np.diff(window, axis=1), axis=1)
+    rows = np.arange(srt.shape[0])
+    rk = (window[rows, j] + window[rows, j + 1]) / 2.0
+    return (-rk if metric != "l2" else rk).astype(np.float32)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.asarray(x))
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _assert_same_hits(got, ref, what: str) -> None:
+    hit, raw, cnt = (np.asarray(v) for v in got)
+    r_hit, r_raw, r_cnt = (np.asarray(v) for v in ref)
+    np.testing.assert_array_equal(hit, r_hit, err_msg=f"{what}: hits")
+    np.testing.assert_array_equal(cnt, r_cnt, err_msg=f"{what}: counts")
+    np.testing.assert_allclose(raw[hit], r_raw[r_hit], rtol=0, atol=TOL,
+                               err_msg=f"{what}: raw sims on hits")
+    assert (raw[~hit] == 0).all()
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("mask", MASKS)
+def test_batch_matches_reference(metric, mask):
+    case = METRICS.index(metric) * len(MASKS) + MASKS.index(mask)
+    n, d, qn = SHAPES[case % len(SHAPES)]
+    rng, corpus, queries = _inputs(case, n, d, qn)
+    rm = _mask(rng, mask, qn, n)
+    radius = _tie_safe_radius(_keys(corpus, queries, metric), metric,
+                              rank=60 + 40 * (case % 3))
+    qvalid = None if case % 2 else np.arange(qn) < qn - 1   # one pad query
+    ref = ref_ops.fused_range_scan_batch(
+        jnp.asarray(corpus), jnp.asarray(queries), jnp.asarray(radius),
+        _j(rm), RefMetric(metric), qvalid=_j(qvalid), **REF_BLOCKS)
+    got = ops.fused_range_scan_batch(_t(corpus), _t(queries), _t(radius),
+                                     _t(rm), Metric(metric),
+                                     qvalid=_t(qvalid))
+    assert got[0].dtype == torch.bool and got[2].dtype == torch.int32
+    _assert_same_hits(got, ref, f"batch {metric} {mask}")
+    assert int(got[2].min()) > 0 or qvalid is not None
+    if qvalid is not None:
+        assert not got[0][-1].any() and int(got[2][-1]) == 0
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("mask", ["none", "shared"])
+def test_single_matches_reference(metric, mask):
+    case = METRICS.index(metric) * 2 + (mask == "shared")
+    n, d, _ = SHAPES[case % len(SHAPES)]
+    rng, corpus, queries = _inputs(100 + case, n, d, 1)
+    rm = _mask(rng, mask, 1, n)
+    radius = _tie_safe_radius(_keys(corpus, queries, metric), metric,
+                              rank=80)[0]
+    ref = ref_ops.fused_range_scan(jnp.asarray(corpus),
+                                   jnp.asarray(queries[0]), float(radius),
+                                   _j(rm), RefMetric(metric), block_n=128)
+    got = ops.fused_range_scan(_t(corpus), _t(queries[0]), float(radius),
+                               _t(rm), Metric(metric))
+    assert got[2].shape == () and got[2].dtype == torch.int32
+    _assert_same_hits(got, ref, f"single {metric} {mask}")
+
+
+@pytest.mark.parametrize("form", ["single", "batch"])
+@pytest.mark.parametrize("extreme", ["nothing", "everything"])
+def test_radius_hitting_nothing_or_everything(form, extreme):
+    """Radii beyond every key: no hit at all, or every (masked) row."""
+    rng, corpus, queries = _inputs(31, 900, 20, 4)
+    rm = _mask(rng, "shared", 4, 900)
+    radius = 3.0 if extreme == "nothing" else -3.0      # IP: sim >= radius
+    if form == "single":
+        ref = ref_ops.fused_range_scan(jnp.asarray(corpus),
+                                       jnp.asarray(queries[0]), radius,
+                                       jnp.asarray(rm),
+                                       RefMetric.INNER_PRODUCT, block_n=128)
+        got = ops.fused_range_scan(_t(corpus), _t(queries[0]), radius,
+                                   _t(rm), Metric.INNER_PRODUCT)
+    else:
+        ref = ref_ops.fused_range_scan_batch(
+            jnp.asarray(corpus), jnp.asarray(queries), radius,
+            jnp.asarray(rm), RefMetric.INNER_PRODUCT, **REF_BLOCKS)
+        got = ops.fused_range_scan_batch(_t(corpus), _t(queries), radius,
+                                         _t(rm), Metric.INNER_PRODUCT)
+    _assert_same_hits(got, ref, f"{form} hits {extreme}")
+    want = 0 if extreme == "nothing" else int(rm.sum())
+    assert (np.asarray(got[2]) == want).all()
+
+
+@pytest.mark.parametrize("capacity,mask", [(16, "per_query"), (40, "none"),
+                                           (700, "shared")])
+def test_range_topk_batch_matches_reference(capacity, mask):
+    """Compaction to a fixed buffer: best hits first, lowest id on equal
+    keys, and the count before truncation (capacity 16 < every count,
+    700 > every count)."""
+    rng, corpus, queries = _inputs(41, 777, 24, 5)
+    corpus[100:130] = corpus[7]                    # exact duplicates: ties
+    queries[0] = corpus[7]
+    rm = _mask(rng, mask, 5, 777)
+    radius = _tie_safe_radius(_keys(corpus, queries, "ip"), "ip", rank=90)
+    qvalid = np.arange(5) != 2
+    ref = ref_ops.fused_range_topk_batch(
+        jnp.asarray(corpus), jnp.asarray(queries), jnp.asarray(radius),
+        _j(rm), RefMetric.INNER_PRODUCT, capacity, qvalid=jnp.asarray(qvalid),
+        **REF_BLOCKS)
+    got = ops.fused_range_topk_batch(_t(corpus), _t(queries), _t(radius),
+                                     _t(rm), Metric.INNER_PRODUCT, capacity,
+                                     qvalid=_t(qvalid))
+    ids, sims, valid, count = (np.asarray(v) for v in got)
+    r_ids, r_sims, r_valid, r_count = (np.asarray(v) for v in ref)
+    assert got[0].dtype == torch.int32 and ids.shape == (5, capacity)
+    np.testing.assert_array_equal(count, r_count)
+    np.testing.assert_array_equal(valid, r_valid)
+    np.testing.assert_array_equal(ids, r_ids)
+    np.testing.assert_allclose(sims, r_sims, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(valid.sum(1), np.minimum(count, capacity))
+    if capacity == 16:
+        assert (count[qvalid] > capacity).all()
+    if capacity == 700:
+        assert (count < capacity).all()
+    assert count[2] == 0 and (ids[2] == -1).all()
+
+
+def test_batch_rows_equal_single_query_scans():
+    """Each query of the batched scan equals the single-query scan of that
+    query alone (the reference's test_range_scan_batch_matches_single)."""
+    rng, corpus, queries = _inputs(51, 700, 40, 5)
+    per_q = _mask(rng, "per_query", 5, 700)
+    radius = _tie_safe_radius(_keys(corpus, queries, "l2"), "l2", rank=100)
+    hit, raw, cnt = ops.fused_range_scan_batch(
+        _t(corpus), _t(queries), _t(radius), _t(per_q), Metric.L2)
+    for qi in range(5):
+        shit, sraw, scnt = ops.fused_range_scan(
+            _t(corpus), _t(queries[qi]), float(radius[qi]), _t(per_q[qi]),
+            Metric.L2)
+        assert torch.equal(hit[qi], shit) and int(cnt[qi]) == int(scnt)
+        np.testing.assert_allclose(raw[qi][hit[qi]], sraw[shit], rtol=0,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_oracle_matches_reference(metric):
+    """``kernels/ref.py`` ``range_scan_ref`` against the reference's
+    oracle, and the fused scan against the port's own oracle."""
+    from repro.kernels import ref as ref_oracle
+    from repro_torch.kernels import ref
+
+    rng, corpus, queries = _inputs(61, 1200, 40, 1)
+    rm = _mask(rng, "shared", 1, 1200)
+    radius = _tie_safe_radius(_keys(corpus, queries, metric), metric,
+                              rank=70)[0]
+    rk = float(-radius if metric != "l2" else radius)
+    w_hit, w_keys = ref_oracle.range_scan_ref(
+        jnp.asarray(corpus), jnp.asarray(queries[0]), rk, jnp.asarray(rm),
+        RefMetric(metric))
+    hit, keys = ref.range_scan_ref(_t(corpus), _t(queries[0]), rk, _t(rm),
+                                   Metric(metric))
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(w_hit))
+    np.testing.assert_allclose(keys.numpy(), np.asarray(w_keys), rtol=0,
+                               atol=TOL)
+    f_hit, _raw, f_cnt = ops.fused_range_scan(_t(corpus), _t(queries[0]),
+                                              float(radius), _t(rm),
+                                              Metric(metric))
+    assert torch.equal(f_hit, hit) and int(f_cnt) == int(hit.sum())
+
+
+def test_launch_geometry_covers_the_corpus():
+    for n, qn in ((1_000_000, 128), (1_000_000, 100), (5003, 3), (64, 1),
+                  (1_000_000, 400)):
+        qt, splits, rows = batch_plan(n, qn)
+        assert qt in (4, 16, 64) and (qt >= qn or qt == 64)
+        assert splits * rows >= n > (splits - 1) * rows and rows % 64 == 0
+    assert batch_plan(1_000_000, 128)[:2] == (64, 132)
+
+
+def test_wrappers_reject_bad_inputs():
+    corpus = torch.zeros((64, 8))
+    q = torch.zeros(8)
+    rk = torch.zeros(1)
+    with pytest.raises(ValueError, match="radius_key"):
+        range_scan(corpus, q, rk.double(), None, Metric.L2)
+    with pytest.raises(ValueError, match="radius_keys"):
+        range_scan_batch(corpus, q[None], torch.zeros(2), None, None,
+                         Metric.L2)
+    with pytest.raises(ValueError, match="mask"):
+        range_scan_batch(corpus, q[None], rk, torch.ones((2, 64),
+                                                         dtype=torch.int8),
+                         None, Metric.L2)
+    with pytest.raises(ValueError, match="qvalid"):
+        range_scan_batch(corpus, q[None], rk, None,
+                         torch.ones(1, dtype=torch.bool), Metric.L2)
+    with pytest.raises(ValueError, match="contiguous"):
+        range_scan(torch.zeros((8, 64)).T, q, rk, None, Metric.L2)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        range_scan_batch(corpus.to("meta"), q[None].to("meta"),
+                         rk.to("meta"), None, None, Metric.L2)
