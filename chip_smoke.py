@@ -15,7 +15,14 @@ under ``engine="brute", use_pallas=True``, on the laion1m shape
       ``DISTANCE <= r AND images.capture_date > queries.capture_date``,
       max_pairs 512 (benchmarks/q3_distjoin.py), under the batch lowering
       (range_scan_batch) and the perleft one (range_scan, one launch per
-      left row).
+      left row);
+
+and each again under ``EngineOptions(quant="int8")`` and ``quant="bf16"``:
+the batched scans stream the corpus's int8 or bf16 twin and re-rank their
+candidates with exact fp32 keys (quant_scan_topk_batch for Q1,
+quant_keys_batch for Q2 and Q3, replay_keys for both; a Q2 band wider than
+the replay budget runs range_scan_batch itself).  Every quantized answer
+must equal the fp32 ``use_pallas=True`` answer of the same call bit for bit.
 
 The radius is the paper's: the median over the 100 queries of each query's
 120th-best similarity (benchmarks/common.py, range_match_target).  Phases,
@@ -28,17 +35,26 @@ one JSON line each:
            metrics, mask kinds, pad queries, ragged N and D, D = 512; top-k
            k in {1, 10, 50, 200, 1000}, k beyond the live rows, duplicate
            rows; range radii that hit nothing, everything, or lie exactly
-           on duplicate rows, and the compaction below and beyond the count
+           on duplicate rows, and the compaction below and beyond the count;
+           the quantized kernels in int8 and bf16, N % 8 != 0, segment
+           counts c·k for k in {1, 10, 50, 512} and c in {1, 2}
+  replay   replay_keys against the fp32 batched kernels' own keys, bit for
+           bit, at 4, 16 and 64 queries per block and every metric
   full     each kernel against its plain version at the paths' shapes
   slice    Q1, Q2 and Q3 through the session API: single dicts, lists,
            stacked dicts, exact_shape; every answer held against
            use_pallas=False on the card; each path's kernels' launch
            counters must advance (counters set to 0 before each path)
+  slice_quant  the same paths under int8 and bf16, every answer equal bit
+           for bit to the fp32 use_pallas=True answer; a Q2 call forced
+           into the full branch; Q1's coverage (queries whose fp32 top-K
+           has a row outside the quantized candidates)
   times    per kernel: its time, its plain version's, the library
            yardstick (timed only), the bound
   e2e      execute latency and QPS per batch size (Q1, Q2) and per Q3
            lowering; for the range paths the kernel's and the stage-2
-           compaction's time at the same shapes, and the peak memory
+           compaction's time at the same shapes, and the peak memory; the
+           quantized paths' beside the fp32 ones
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero without the last line.
 
@@ -76,12 +92,18 @@ Q3 = ("SELECT queries.id AS qid, images.sample_id AS tid "
       "FROM queries JOIN images "
       "ON DISTANCE(queries.embedding, images.embedding) <= ${r} "
       "AND images.capture_date > queries.capture_date")
-KERNELS = ("scan_topk_batch", "scan_topk", "range_scan_batch", "range_scan")
+KERNELS = ("scan_topk_batch", "scan_topk", "range_scan_batch", "range_scan",
+           "quant_scan_topk_batch", "quant_keys_batch", "replay_keys")
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in KERNELS}
 REPLACES = {"scan_topk": "src/repro/kernels/scan_topk.py:241",
             "scan_topk_batch": "src/repro/kernels/scan_topk.py:189",
             "range_scan": "src/repro/kernels/range_scan.py:50",
-            "range_scan_batch": "src/repro/kernels/range_scan.py:118"}
+            "range_scan_batch": "src/repro/kernels/range_scan.py:118",
+            "quant_scan_topk_batch": "src/repro/kernels/quant.py:132",
+            "quant_keys_batch": "src/repro/kernels/quant.py:187",
+            "replay_keys": "src/repro/kernels/quant.py:208"}
+MODES = ("int8", "bf16")
+RESCORE = (2, 3, 4, 6, 8)     # Q1 candidate multiples tried, smallest first
 # published dense peaks (NVIDIA data sheets): bytes/s, fp32 CUDA-core FLOP/s
 PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12),
          "SXM": (3.35e12, 67.0e12)}
@@ -184,8 +206,10 @@ def main() -> None:
                                        pairwise_order_keys)
     from repro_torch.core.schema import Metric
     from repro_torch.data import make_laion_catalog, selectivity_threshold
+    from repro_torch.data.quantized import quantize_corpus
     from repro_torch.index.flat import compact_range
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import quant as qt_mod
     from repro_torch.kernels import range_scan as rs_mod
     from repro_torch.kernels import scan_topk as st_mod
     from repro_torch.testing import assert_range_close, assert_topk_close
@@ -193,7 +217,10 @@ def main() -> None:
     wrappers = {"scan_topk": st_mod.scan_topk,
                 "scan_topk_batch": st_mod.scan_topk_batch,
                 "range_scan": rs_mod.range_scan,
-                "range_scan_batch": rs_mod.range_scan_batch}
+                "range_scan_batch": rs_mod.range_scan_batch,
+                "quant_scan_topk_batch": qt_mod.quant_scan_topk_batch,
+                "quant_keys_batch": qt_mod.quant_keys_batch,
+                "replay_keys": qt_mod.replay_keys}
 
     def reset_counts() -> None:
         for fn in wrappers.values():
@@ -386,7 +413,99 @@ def main() -> None:
                     1e-5, f"batch k={k}")
         check_single(corpus, unit((96,)), None, k, Metric.COSINE, 1e-5,
                      f"single k={k}")
+    # the quantized kernels: int8 and bf16 twins, every metric and mask
+    # kind, pad lanes, ragged N (N % 8 != 0) and D, duplicate rows,
+    # c·k segments for k in {1, 10, 50, 512} and c in {1, 2}
+    def mask8(kind: str, qn: int, n: int):
+        mask = {"none": None, "shared": torch.rand(n, device=dev) < 0.5,
+                "per_query": torch.rand((qn, n), device=dev) < 0.3}[kind]
+        return None if mask is None else mask.to(torch.int8)
+
+    def keys_err(got, want, tol: float, what: str) -> float:
+        """Two masked key matrices: +inf in the same places, the finite
+        keys within ``tol``.  Returns the largest difference."""
+        if not torch.equal(torch.isinf(got), torch.isinf(want)):
+            raise AssertionError(f"{what}: dead lanes differ")
+        live = torch.isfinite(want)
+        err = float((got[live] - want[live]).abs().max()) \
+            if bool(live.any()) else 0.
+        if not err <= tol:
+            raise AssertionError(f"{what}: keys differ by {err} > {tol}")
+        return err
+
+    for n, d in ((5003, 130), (4099, 64), (3001, 512)):
+        tol = 1e-4 if d > 130 else 1e-5
+        corpus = unit((n, d))
+        corpus[n // 3: n // 3 + 40] = corpus[7]          # exact duplicates
+        for mode in MODES:
+            qc = quantize_corpus(corpus, mode)
+            for metric in Metric:
+                for qn in (1, 37):
+                    qs = unit((qn, d))
+                    qs[0] = corpus[7]
+                    qv8 = (torch.arange(qn, device=dev)
+                           < max(1, qn - 3)).to(torch.int8)
+                    for mname in ("none", "shared", "per_query"):
+                        m8 = mask8(mname, qn, n)
+                        what = (f"quant {mode} {metric.value} n={n} d={d} "
+                                f"q={qn} {mname}")
+                        args = (qc.qvecs, qc.scales, qs, m8, qv8)
+                        got = qt_mod.quant_keys_batch(*args, metric)
+                        want = qt_mod.quant_keys_batch_plain(*args, metric)
+                        torch.cuda.synchronize()
+                        record("quant_keys_batch",
+                               keys_err(got, want, tol, what + " keys"))
+                        for k in (1, 10, 50, 512):
+                            for c in (1, 2):
+                                s = qt_mod.quant_plan(n, qn, c * k)[3]
+                                got = qt_mod.quant_scan_topk_batch(
+                                    *args, c * k, metric)
+                                want = qt_mod.quant_scan_topk_batch_plain(
+                                    *args, c * k, metric)
+                                torch.cuda.synchronize()
+                                record("quant_scan_topk_batch",
+                                       assert_topk_close(
+                                           slab(*got, s), slab(*want, s),
+                                           atol=tol, tie_tol=tol,
+                                           what=f"{what} k={k} c={c}"))
     emit({"phase": "sweep", "cases": cases, "max_abs_err": max_err})
+
+    # -- replay: bit for bit the fp32 batched kernels' keys ------------------
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    replay_pairs = 0
+    for n, d in ((5003, 130), (4099, 64), (3001, 512)):
+        corpus = unit((n, d))
+        all_rows = torch.arange(n, dtype=torch.int32, device=dev)
+        for metric in Metric:
+            for qn in (3, 16, 37):                  # 4, 16, 64 per block
+                qs = unit((qn, d))
+                what = f"replay {metric.value} n={n} d={d} q={qn}"
+                keys, ids = st_mod.scan_topk_batch(corpus, qs, None, None,
+                                                   10, metric)
+                rows = torch.where(ids >= 0, ids, qt_mod.I32_MAX)
+                rep = qt_mod.replay_keys(corpus, qs, rows, metric)
+                found = ids >= 0
+                if not torch.equal(bits(rep[found]), bits(keys[found])):
+                    raise AssertionError(f"{what}: not scan_topk_batch's keys")
+                if not bool(torch.isinf(rep[~found]).all()):
+                    raise AssertionError(f"{what}: an empty slot replayed")
+                inf = torch.full((qn,), float("inf"), device=dev)
+                rkeys, hits, _ = rs_mod.range_scan_batch(corpus, qs, inf,
+                                                         None, None, metric)
+                rows = all_rows.expand(qn, n).contiguous()
+                rep = qt_mod.replay_keys(corpus, qs, rows, metric)
+                hit = hits.bool()
+                if not torch.equal(bits(rep[hit]), bits(rkeys[hit])):
+                    raise AssertionError(f"{what}: not range_scan_batch's keys")
+                want = qt_mod.replay_keys_plain(corpus, qs, rows, metric)
+                torch.cuda.synchronize()
+                record("replay_keys", keys_err(rep, want, 1e-4, what))
+                replay_pairs += int(found.sum()) + int(hit.sum())
+    emit({"phase": "replay", "bitwise_pairs": replay_pairs,
+          "cases": cases["replay_keys"],
+          "max_abs_err_vs_plain": max_err["replay_keys"]})
 
     # -- the catalog at full width -------------------------------------------
     t0 = time.perf_counter()
@@ -442,7 +561,41 @@ def main() -> None:
                       "range batch full shape (Q3)")
     check_range_single(corpus, left[0], rk.reshape(1), date_mask[0], metric,
                        1e-4, "range single full shape (Q3 perleft row)")
+    # the quantized kernels at the paths' shapes (Q1's c·K segments, Q2's
+    # keys); the twins are registered under both table names the paths
+    # scan, so the session reuses them
+    twins = {}
+    for mode in MODES:
+        qc = quantize_corpus(corpus, mode)
+        for tname in ("products", "images"):
+            cat.register_quantized(tname, "embedding", qc)
+        twins[mode] = qc
+        args = (qc.qvecs, qc.scales, batch_q, batch_mask, batch_qvalid)
+        s = qt_mod.quant_plan(N_ROWS, bucket, 2 * K)[3]
+        got = qt_mod.quant_scan_topk_batch(*args, 2 * K, metric)
+        want = qt_mod.quant_scan_topk_batch_plain(*args, 2 * K, metric)
+        torch.cuda.synchronize()
+        record("quant_scan_topk_batch", assert_topk_close(
+            slab(*got, s), slab(*want, s), atol=1e-4, tie_tol=1e-4,
+            what=f"quant {mode} full shape"))
+        rows = qt_mod.candidate_rows(*got, 2 * K)
+        rep = qt_mod.replay_keys(corpus, batch_q, rows, metric)
+        want = qt_mod.replay_keys_plain(corpus, batch_q, rows, metric)
+        torch.cuda.synchronize()
+        record("replay_keys", keys_err(rep, want, 1e-4,
+                                       f"replay {mode} full shape"))
+        got = qt_mod.quant_keys_batch(*args, metric)
+        want = qt_mod.quant_keys_batch_plain(*args, metric)
+        torch.cuda.synchronize()
+        record("quant_keys_batch", keys_err(got, want, 1e-4,
+                                            f"quant keys {mode} full shape"))
+        del got, want, rep
+    twin_mb = {mode: {"qvecs": qc.qvecs.numel() * qc.qvecs.element_size()
+                      / 1e6, "per_row": 4 * 4 * N_ROWS / 1e6}
+               for mode, qc in twins.items()}
     emit({"phase": "full", "n": N_ROWS, "d": DIM, "k": K, "radius": float(r),
+          "twin_mb": twin_mb,
+          "quant_plan": list(qt_mod.quant_plan(N_ROWS, bucket, 2 * K)),
           "catalog_setup_s": setup_s,
           "single_blocks": st_mod.single_plan(N_ROWS)[0],
           "batch_plan": list(st_mod.batch_plan(N_ROWS, bucket, K)),
@@ -590,6 +743,132 @@ def main() -> None:
           "cache": list(map(int, (db.cache_info().hits,
                                   db.cache_info().misses)))})
 
+    # -- slice_quant: the same paths under int8 and bf16 ----------------------
+    def bitwise(a, b, what: str) -> None:
+        for key, v in a.items():
+            if isinstance(v, dict):
+                bitwise(v, b[key], what)
+            elif not torch.equal(v, b[key]):
+                raise AssertionError(f"{what}: {key} differs from fp32")
+
+    def first(tree):
+        return {key: first(v) if isinstance(v, dict) else v[0]
+                for key, v in tree.items()}
+
+    fp32_top = ops.fused_scan_topk_batch(
+        corpus, batch_q, K, batch_mask.view(torch.bool), metric,
+        qvalid=batch_qvalid.bool())[0][:N_QUERIES]
+
+    def missing(qc, c: int) -> int:
+        """Queries whose fp32 top-K holds a row outside the rows of the
+        quantized top-(c·K) segments (Q1 at bucket 128)."""
+        got = qt_mod.quant_scan_topk_batch(qc.qvecs, qc.scales, batch_q,
+                                           batch_mask, batch_qvalid, c * K,
+                                           metric)
+        rows = qt_mod.candidate_rows(*got, c * K)[:N_QUERIES]
+        inside = ((fp32_top[:, :, None] == rows[:, None, :]).any(-1)
+                  | (fp32_top < 0))
+        return int((~inside.all(1)).sum())
+
+    # every row hits: the maybe band is the corpus, wider than the replay
+    # budget of 2·CAPACITY rows
+    def band(qc, qs, rks, mask, valid) -> dict:
+        """Per query, the rows the range path classifies as maybe hits
+        (quantized key within the slack of the radius, or below it) and as
+        certain hits: the replay budget is max_pairs (or the capacity)
+        times the rescore factor, and a wider band takes the full branch."""
+        qkeys = qt_mod.quant_keys_batch(qc.qvecs, qc.scales, qs, mask, valid,
+                                        metric)
+        slack = qt_mod._range_slack(metric, qc.half_step, qc.row_l1,
+                                    qc.row_l2, qs, DIM)
+        maybe = (qkeys <= rks[:, None] + slack).sum(1)
+        certain = (qkeys <= rks[:, None] - slack).sum(1)
+        return {"maybe_max": int(maybe.max()),
+                "maybe_median": float(maybe.float().median()),
+                "certain_median": float(certain.float().median())}
+
+    q2_full_binds = [{"qv": qv[i], "r": np.float32(-2.0),
+                      "p": np.float32(3e38)} for i in range(8)]
+    fp32_of = {"q1": stmt, "q2": q2, "q2_full": q2, "q3": q3,
+               "q3_budget": q3}
+    need_q = {"q1": ("quant_scan_topk_batch", "replay_keys"),
+              "q2": ("quant_keys_batch",),
+              "q2_full": ("quant_keys_batch", "range_scan_batch"),
+              "q3": ("quant_keys_batch",),
+              "q3_budget": ("quant_keys_batch", "replay_keys")}
+    coverage, bands, qchecked, qstmts = {}, {}, {}, {}
+    for mode in MODES:
+        miss = {2: missing(twins[mode], 2)}
+        c1 = 2
+        if miss[2]:
+            for c in RESCORE[1:]:
+                miss[c] = missing(twins[mode], c)
+                if miss[c] == 0:
+                    c1 = c
+                    break
+            else:
+                raise AssertionError(f"{mode}: no rescore factor in "
+                                     f"{RESCORE} covers the fp32 top-K")
+        coverage[mode] = {"missing_queries": miss, "rescore_factor": c1}
+        qdb = connect(cat, engine="brute", use_pallas=True, quant=mode)
+        q1s = connect(cat, engine="brute", use_pallas=True, quant=mode,
+                      rescore_factor=c1).prepare(Q1, K=K)
+        q2s, q3s = qdb.prepare(Q2), qdb.prepare(Q3)
+        qstmts[mode] = (q1s, q2s, q3s)
+        results = {}
+        runs = [(f"single{i}", q1s, binds[i], None) for i in range(3)]
+        runs += [(f"list{qn}", q1s, binds[:qn], None) for qn in BATCHES]
+        runs += [("stacked", q1s, stacked, None),
+                 ("exact_shape", q1s, stacked, exact)]
+        results["q1"] = drive(f"q1_{mode}", runs)
+        runs = [(f"single{i}", q2s, q2_binds[i], None) for i in range(3)]
+        runs += [(f"list{qn}", q2s, q2_binds[:qn], None) for qn in BATCHES]
+        runs += [("stacked", q2s, q2_stacked, None),
+                 ("exact_shape", q2s, q2_stacked, exact)]
+        results["q2"] = drive(f"q2_{mode}", runs)
+        results["q2_full"] = drive(f"q2_full_{mode}", [
+            ("list8_r_everything", q2s, q2_full_binds, None)])
+        results["q3"] = drive(f"q3_{mode}", [
+            ("single", q3s, {"r": r}, None),
+            ("list4", q3s, [{"r": x} for x in radii], None)])
+        # Q3 again with a replay budget that holds its band: the budgeted
+        # branch (replay, no fp32 kernel) on the join
+        bands[mode] = {
+            "q2": band(twins[mode], batch_q, q2_rk, batch_mask,
+                       batch_qvalid),
+            "q3": band(twins[mode], left, q3_rk, date_mask, None)}
+        c3 = max(2, -(-bands[mode]["q3"]["maybe_max"] // MAX_PAIRS))
+        bands[mode]["q3_budget_rescore_factor"] = c3
+        q3b = connect(cat, engine="brute", use_pallas=True, quant=mode,
+                      rescore_factor=c3).prepare(Q3)
+        results["q3_budget"] = drive(f"q3_budget_{mode}", [
+            ("single", q3b, {"r": r}, None)])
+        for path, res in results.items():
+            for label, _s, b, h, out in res:
+                if label.startswith("single"):
+                    want = first(fp32_of[path].execute([b], hints=exact).data)
+                else:
+                    want = fp32_of[path].execute(b, hints=h).data
+                torch.cuda.synchronize()
+                bitwise(out.data, want, f"slice_quant {path} {mode} {label}")
+                rep = out.explain()
+                qchecked[f"{path}_{mode}_{label}"] = {
+                    "shape": list(out.data["valid"].shape), "path": rep.path,
+                    "bucket": rep.bucket, "bitwise_fp32": True}
+            for kname in need_q[path]:
+                if launches[f"{path}_{mode}"][kname] < 1:
+                    raise AssertionError(f"path {path}_{mode} never launched "
+                                         f"{kname}")
+        for kname in ("scan_topk", "scan_topk_batch"):
+            if launches[f"q1_{mode}"][kname]:
+                raise AssertionError(f"q1_{mode} launched fp32 {kname}")
+        if launches[f"q3_budget_{mode}"]["range_scan_batch"]:
+            raise AssertionError(f"q3_budget_{mode} took the full branch")
+    emit({"phase": "slice_quant", "coverage": coverage, "bands": bands,
+          "launches": {key: v for key, v in launches.items()
+                       if key.endswith(MODES)},
+          "runs": qchecked})
+
     # -- times ----------------------------------------------------------------
     nb, _rows = st_mod.single_plan(N_ROWS)
     qt, splits, _ = st_mod.batch_plan(N_ROWS, bucket, K)
@@ -632,6 +911,60 @@ def main() -> None:
                & (batch_qvalid != 0)[:, None])
         return keys.masked_fill(~hit, float("inf")), hit
 
+    # quantized kernels at the Q1 / Q2 bucket-128 shapes; the replay at the
+    # Q1 path's candidate rows (only rows < N are read: pad queries and
+    # empty slots cost nothing)
+    q_plan = qt_mod.quant_plan(N_ROWS, bucket, 2 * K)
+
+    def qargs(qc):
+        return qc.qvecs, qc.scales, batch_q, batch_mask, batch_qvalid
+
+    def twin_bytes(qc):
+        return (qc.qvecs.numel() * qc.qvecs.element_size()
+                + (N_ROWS * 4 if qc.mode == "int8" else 0))
+
+    def quant_topk_bytes(qc):
+        return (twin_bytes(qc) + live_q * DIM * 4 + live_q * N_ROWS + bucket
+                + live_q * q_plan[1] * q_plan[3] * 8)
+
+    def quant_keys_bytes(qc):
+        return (twin_bytes(qc) + live_q * DIM * 4 + live_q * N_ROWS + bucket
+                + live_q * N_ROWS * 4)
+
+    replay_rows = qt_mod.candidate_rows(*qt_mod.quant_scan_topk_batch(
+        *qargs(twins["int8"]), 2 * K, metric), 2 * K)
+    replay_pairs = int((replay_rows < N_ROWS).sum())
+    replay_bytes = (replay_pairs * DIM * 4 + live_q * DIM * 4
+                    + 2 * replay_rows.numel() * 4)
+
+    def dequantized_keys(qc):
+        keys = -(batch_q @ (qc.qvecs.to(torch.float32) * qc.scales).T)
+        keys = keys.masked_fill(batch_mask == 0, float("inf"))
+        return keys.masked_fill((batch_qvalid == 0)[:, None], float("inf"))
+
+    def lib_quant_topk(qc):
+        seg = dequantized_keys(qc).view(bucket, -1, qt_mod.SEG).amin(-1)
+        return torch.topk(seg, 2 * K, dim=1, largest=False)
+
+    def lib_replay():
+        rows = replay_rows.clamp(max=N_ROWS - 1).long()
+        return -torch.bmm(corpus[rows], batch_q[:, :, None])[..., 0]
+
+    def quant_calls(qc) -> dict:
+        return {
+            "quant_scan_topk_batch": (
+                lambda: qt_mod.quant_scan_topk_batch(*qargs(qc), 2 * K,
+                                                     metric),
+                lambda: qt_mod.quant_scan_topk_batch_plain(
+                    *qargs(qc), 2 * K, metric),
+                lambda: lib_quant_topk(qc),
+                bound(quant_topk_bytes(qc), batch_ops)),
+            "quant_keys_batch": (
+                lambda: qt_mod.quant_keys_batch(*qargs(qc), metric),
+                lambda: qt_mod.quant_keys_batch_plain(*qargs(qc), metric),
+                lambda: dequantized_keys(qc),
+                bound(quant_keys_bytes(qc), batch_ops))}
+
     calls = {
         "scan_topk": (lambda: st_mod.scan_topk(corpus, single_q, single_mask,
                                                K, metric),
@@ -653,22 +986,48 @@ def main() -> None:
             lambda: rs_mod.range_scan_batch_plain(
                 corpus, batch_q, q2_rk, batch_mask, batch_qvalid, metric),
             lib_range_batch, bound(range_batch_bytes, batch_ops)),
+        **quant_calls(twins["int8"]),
+        "replay_keys": (
+            lambda: qt_mod.replay_keys(corpus, batch_q, replay_rows, metric),
+            lambda: qt_mod.replay_keys_plain(corpus, batch_q, replay_rows,
+                                             metric),
+            lib_replay, bound(replay_bytes, 2 * DIM * replay_pairs)),
     }
-    times = {}
-    for kname, (kernel, plain, lib, (b_ms, b_by)) in calls.items():
-        heavy = kname.endswith("batch")
-        reps = (2, 5) if heavy else (3, 10)
-        times[kname] = {"ms": time_ms(kernel),
-                        "plain_ms": time_ms(plain, *reps),
-                        "library_ms": time_ms(lib, *reps),
-                        "bound_ms": b_ms, "bound_by": b_by}
+
+    def timed(table: dict) -> dict:
+        out = {}
+        for kname, (kernel, plain, lib, (b_ms, b_by)) in table.items():
+            reps = (2, 5) if kname.endswith("batch") else (3, 10)
+            out[kname] = {"ms": time_ms(kernel),
+                          "plain_ms": time_ms(plain, *reps),
+                          "library_ms": time_ms(lib, *reps),
+                          "bound_ms": b_ms, "bound_by": b_by}
+        return out
+
+    times = timed(calls)
+    times_bf16 = timed(quant_calls(twins["bf16"]))
+    # a few queries, where the bytes bound: bucket 8, the fp32 kernel
+    # against its quantized twins (each at its own stage-1 count)
+    q8, m8, v8 = batch_q[:8], batch_mask[:8], batch_qvalid[:8]
+    bucket8 = {"fp32_scan_topk_batch": {
+        "ms": time_ms(lambda: st_mod.scan_topk_batch(corpus, q8, m8, v8, K,
+                                                     metric)),
+        "bytes_bound_ms": (N_ROWS * DIM * 4 + 8 * N_ROWS) / bw * 1e3}}
+    for mode, qc in twins.items():
+        bucket8[f"quant_scan_topk_batch_{mode}"] = {
+            "ms": time_ms(lambda: qt_mod.quant_scan_topk_batch(
+                qc.qvecs, qc.scales, q8, m8, v8, 2 * K, metric)),
+            "bytes_bound_ms": (twin_bytes(qc) + 8 * N_ROWS) / bw * 1e3}
     emit({"phase": "times", "device": name, "nvidia_smi": smi,
           "shapes": {"n": N_ROWS, "d": DIM, "k": K, "bucket": bucket,
                      "live_queries": live_q, "qt": qt, "splits": splits,
                      "single_blocks": nb,
                      "range_batch_plan": list(rs_mod.batch_plan(N_ROWS,
-                                                                bucket))},
-          "kernels": times})
+                                                                bucket)),
+                     "quant_plan": list(q_plan),
+                     "replay_pairs": replay_pairs},
+          "kernels": times, "kernels_bf16": times_bf16,
+          "bucket8": bucket8})
 
     # -- e2e -------------------------------------------------------------------
     e2e = {"single": latency_ms(lambda: stmt.execute(binds[0]))}
@@ -763,6 +1122,43 @@ def main() -> None:
           "runs": q2_e2e})
     emit({"phase": "e2e", "path": "q3", "device": name, "nvidia_smi": smi,
           "left_rows": N_QUERIES, "runs": q3_e2e})
+
+    # the quantized paths, each beside the fp32 number measured above
+    for mode in MODES:
+        q1s, q2s, q3s = qstmts[mode]
+        lat = {"single": latency_ms(lambda: q1s.execute(binds[0]))}
+        for qn in BATCHES:
+            lat[f"batch{qn}"] = latency_ms(lambda: q1s.execute(binds[:qn]))
+        emit({"phase": "e2e", "path": f"q1_{mode}", "device": name,
+              "nvidia_smi": smi, "latency_ms": lat,
+              "qps": {key: (1 if key == "single" else int(key[5:])) * 1e3 / v
+                      for key, v in lat.items()},
+              "fp32_latency_ms": e2e})
+        runs = {}
+        qc = twins[mode]
+        # (label, binds, queries, the quantized key kernel's inputs)
+        q2_calls = [("single", q2_binds[0], 1, q2_inputs(1))] + [
+            (f"batch{qn}", q2_binds[:qn], qn, q2_inputs(qn))
+            for qn in BATCHES]
+        q3_calls = [("batch", {"r": r}, N_QUERIES,
+                     (left, None, date_mask, None)),
+                    ("list4", list4, 4 * N_QUERIES,
+                     (left4, None, mask4, None))]
+        for path, st, calls_, fp32 in (("q2", q2s, q2_calls, q2_e2e),
+                                       ("q3", q3s, q3_calls, q3_e2e)):
+            runs[path] = {}
+            for key, b, nq, (qs_, _rk, mask_, valid_) in calls_:
+                ms = latency_ms(lambda: st.execute(b), iters=5)
+                k_ms = time_ms(lambda: qt_mod.quant_keys_batch(
+                    qc.qvecs, qc.scales, qs_, mask_, valid_, metric), 2, 5)
+                runs[path][key] = {
+                    "latency_ms": ms, "qps": nq * 1e3 / ms,
+                    "kernel_ms": k_ms, "kernel_share": k_ms / ms,
+                    "peak_mb": peak_mb(lambda: st.execute(b)),
+                    "fp32_latency_ms": fp32[key]["latency_ms"],
+                    "fp32_peak_mb": fp32[key]["peak_mb"]}
+        emit({"phase": "e2e", "path": f"q2_q3_{mode}", "device": name,
+              "nvidia_smi": smi, "runs": runs})
 
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": SOURCES[kname],

@@ -16,9 +16,9 @@ executor objects built for that bucket.  "Compiled once per bucket" keeps
 its meaning — a second batch in the same bucket builds nothing.
 
 The port compiles Q1 (VKNN-SF), Q2 (DR-SF) and Q3 (distance join) under
-``engine="brute"``; every other query class and engine, and the dist /
-quant options, raise ``NotImplementedError`` naming their ROADMAP.md item
-(live corpora cannot be registered yet).
+``engine="brute"``, with or without ``EngineOptions.quant``; every other
+query class and engine, and the dist option, raise ``NotImplementedError``
+naming their ROADMAP.md item (live corpora cannot be registered yet).
 """
 from __future__ import annotations
 
@@ -58,13 +58,18 @@ def _scan_of(a: Analysis) -> tuple[str, str]:
     return a.right_table, a.right_vector
 
 
-def _catalog_dep_keys(a: Analysis) -> tuple:
+def _catalog_dep_keys(a: Analysis, options: EngineOptions) -> tuple:
     """The catalog registration keys a compiled plan captures — what
     :meth:`CompiledQuery.ensure_fresh` watches for version bumps: the
-    scanned table, and both tables of a join."""
+    scanned table, both tables of a join, and under ``quant`` the scanned
+    column's quantized twin."""
     if a.query_class in _SINGLE_TABLE:
-        return (("table", a.table),)
-    return (("table", a.left_table), ("table", a.right_table))
+        keys = (("table", a.table),)
+    else:
+        keys = (("table", a.left_table), ("table", a.right_table))
+    if options.quant is not None:
+        keys += (("quantized",) + _scan_of(a),)
+    return keys
 
 
 # ---------------------------------------------------------------------------
@@ -260,6 +265,7 @@ class CompiledQuery:
     _catalog: Any = None
     _dep_keys: tuple = ()
     _bound_versions: tuple = ()
+    rebinds: int = 0
 
     @property
     def sql(self) -> str:
@@ -291,21 +297,35 @@ class CompiledQuery:
         """True when execute_batch lowers natively."""
         return self.plan.batch_native
 
-    def ensure_fresh(self) -> None:
-        """Check this plan against the catalog's current registrations: a
-        re-registered table raises :class:`StalePlanError` (the builders
-        hold the old table's columns); unchanged versions are a no-op.
-        Table keys are the only ones the port's catalog can bump yet."""
+    def ensure_fresh(self) -> bool:
+        """Re-bind this plan to the catalog's current registrations.
+
+        * unchanged versions — no-op, returns False;
+        * a re-registered quantized twin — re-gathers the plan's tensors
+          into the same ``arrays`` dict (the executor holds that very
+          object), counts it in ``rebinds`` and returns True;
+        * a re-registered table — raises :class:`StalePlanError` (the
+          builders hold the old table's columns; only a re-prepare fixes
+          it)."""
         if self._catalog is None:
-            return
+            return False
         current = self._catalog.version_snapshot(self._dep_keys)
-        if current != self._bound_versions:
-            stale = [k[1] for k, old, new in zip(
-                self._dep_keys, self._bound_versions, current) if old != new]
+        if current == self._bound_versions:
+            return False
+        stale = [k[1] for k, old, new in zip(
+            self._dep_keys, self._bound_versions, current)
+            if old != new and k[0] == "table"]
+        if stale:
             raise StalePlanError(
                 f"table(s) {stale} were re-registered after this plan "
                 f"compiled; the plan's predicate columns are frozen at the "
                 f"old table — re-prepare the statement")
+        self._arrays.clear()
+        self._arrays.update(_gather_arrays(self.analysis, self._catalog,
+                                           self.options))
+        self._bound_versions = self._catalog.version_snapshot(self._dep_keys)
+        self.rebinds += 1
+        return True
 
     def __call__(self, **binds):
         self.ensure_fresh()
@@ -382,13 +402,26 @@ class CompiledQuery:
         return "\n".join(out)
 
 
-def _gather_arrays(a: Analysis, catalog: Catalog) -> dict:
-    """The device tensors a compiled pipeline reads: the scanned corpus,
-    and a join's left embeddings."""
+def _gather_arrays(a: Analysis, catalog: Catalog,
+                   options: EngineOptions) -> dict:
+    """The device tensors a compiled pipeline reads: the scanned corpus, a
+    join's left embeddings, and under ``quant`` the scanned column's
+    quantized twin — built and registered on the catalog at the first
+    prepare that needs it, shared by every later one."""
     if a.query_class in _SINGLE_TABLE:
-        return {"corpus": catalog.table(a.table)[a.vector_column]}
-    return {"left": catalog.table(a.left_table)[a.left_vector],
-            "corpus": catalog.table(a.right_table)[a.right_vector]}
+        arrays = {"corpus": catalog.table(a.table)[a.vector_column]}
+    else:
+        arrays = {"left": catalog.table(a.left_table)[a.left_vector],
+                  "corpus": catalog.table(a.right_table)[a.right_vector]}
+    if options.quant is not None:
+        from ..data.quantized import quantize_corpus
+        table, column = _scan_of(a)
+        quant = catalog.quantized_for(table, column, options.quant)
+        if quant is None:
+            quant = quantize_corpus(arrays["corpus"], options.quant)
+            catalog.register_quantized(table, column, quant)
+        arrays.update(quant.plan_arrays())
+    return arrays
 
 
 def _tree_stack(trees: list):
@@ -454,6 +487,60 @@ _CLASS_ITEMS = {
 }
 
 
+def _validate_quant(options: EngineOptions) -> None:
+    """Reject option combinations the quantized lowering cannot honor (the
+    reference's checks and messages).
+
+    The quantized scan IS the fused batched kernel path: it has no plain
+    twin, and the comparison engines' plan-structural inefficiencies would
+    be silently bypassed.  IVF probes stay fp32-exact under quant, so
+    engine 'chase' composes in the reference (the port's IVF engines are a
+    later slice)."""
+    if options.quant is None:
+        if options.rescore_factor < 1:
+            raise ValueError(
+                f"EngineOptions.rescore_factor must be >= 1, got "
+                f"{options.rescore_factor}")
+        return
+    from ..data.quantized import MODES
+    if options.quant not in MODES:
+        raise ValueError(
+            f"EngineOptions.quant must be one of {MODES} (or None), got "
+            f"{options.quant!r}")
+    if not options.use_pallas:
+        raise ValueError(
+            "EngineOptions.quant requires use_pallas=True: the quantized "
+            "lowering IS the fused kernel path (no plain twin)")
+    if options.engine not in ("chase", "brute"):
+        raise ValueError(
+            f"EngineOptions.quant is exact (fused fp32 rescore) and only "
+            f"composes with engine 'chase' or 'brute', not "
+            f"{options.engine!r}")
+    if options.join_lowering != "batch":
+        raise ValueError(
+            "EngineOptions.quant requires join_lowering='batch': the "
+            "quantized kernels are query-batched; the perleft loop has no "
+            "quantized twin")
+    if options.rescore_factor < 1:
+        raise ValueError(
+            f"EngineOptions.rescore_factor must be >= 1, got "
+            f"{options.rescore_factor}")
+
+
+def _single_via_batch(bfn: Callable) -> Callable:
+    """Single-query front for quantized plans: they have ONE lowering, the
+    query-batched scan, so the single-query pipeline runs it at Q = 1 and
+    slices the leading axis off every output leaf (bitwise a one-element
+    exact-shape batch)."""
+
+    def fn(arrays, binds):
+        stacked = {k: v[None] if isinstance(v, torch.Tensor)
+                   else np.asarray(v)[None] for k, v in binds.items()}
+        return _tree_map(lambda v: v[0], bfn(arrays, stacked))
+
+    return fn
+
+
 def _validate_slice(a: Analysis, options: EngineOptions) -> None:
     """Reject what this slice of the port does not lower yet."""
     if a.query_class == QueryClass.NON_HYBRID:
@@ -466,8 +553,6 @@ def _validate_slice(a: Analysis, options: EngineOptions) -> None:
         raise not_ported(f"engine {options.engine!r}", "5 (IVF engines)")
     if options.dist is not None:
         raise not_ported("EngineOptions.dist (sharded scans)", "13")
-    if options.quant is not None:
-        raise not_ported("EngineOptions.quant (quantized scans)", "8")
 
 
 def compile_query(sql: str, catalog: Catalog,
@@ -488,17 +573,27 @@ def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
                  options: EngineOptions, static_binds: dict) -> CompiledQuery:
     """Compile an already-parsed logical plan (the plan-cache entry point)."""
     a = analyze(plan, catalog)
+    _validate_quant(options)
     _validate_slice(a, options)
     rewritten = rewrite(a)
-    arrays = _gather_arrays(a, catalog)
+    arrays = _gather_arrays(a, catalog, options)
     batch_builder, batch_native, batch_reason = _batch_lowering(a, options)
-    fn = BUILDERS[a.query_class](a, catalog, options, Bindings(static_binds))
-    bfn = (batch_builder(a, catalog, options, Bindings(static_binds))
-           if batch_native else _vmap_fallback(fn))
+    if options.quant is not None:
+        # one lowering per quant plan: the batched pipeline (which carries
+        # the quantized rescore) serves the single query at Q = 1
+        bfn = batch_builder(a, catalog, options, Bindings(static_binds))
+        fn = _single_via_batch(bfn)
+    else:
+        fn = BUILDERS[a.query_class](a, catalog, options,
+                                     Bindings(static_binds))
+        bfn = (batch_builder(a, catalog, options, Bindings(static_binds))
+               if batch_native else _vmap_fallback(fn))
     compiled_plan = CompiledPlan(sql, a, plan, rewritten, options, fn, bfn,
                                  batch_native, batch_reason)
     executor = BucketedExecutor(compiled_plan, arrays)
-    dep_keys = _catalog_dep_keys(a)
+    # snapshot after _gather_arrays: registering a new twin bumps a key this
+    # plan must not see as a change on its first execute
+    dep_keys = _catalog_dep_keys(a, options)
     return CompiledQuery(compiled_plan, arrays, executor, _catalog=catalog,
                          _dep_keys=dep_keys,
                          _bound_versions=catalog.version_snapshot(dep_keys))

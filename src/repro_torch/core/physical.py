@@ -10,9 +10,11 @@ The port lowers Q1 (VKNN-SF), Q2 (DR-SF) and Q3 (distance join) under
 reference's parity suites treat as ground truth.  With ``use_pallas`` the
 scans run on the fused CUDA kernels (the option keeps the reference's
 name); without it, on the plain torch
-:class:`~repro_torch.index.flat.FlatIndex`.  The other engines and query
-classes are later slices (ROADMAP.md queue 1) and are rejected at compile
-time.
+:class:`~repro_torch.index.flat.FlatIndex`.  With ``quant`` the batched
+scans stream the corpus's int8 or bf16 twin and re-rank in exact fp32
+(``kernels/quant.py``): the answers stay the fp32 kernels' bit for bit.
+The other engines and query classes are later slices (ROADMAP.md queue 1)
+and are rejected at compile time.
 """
 from __future__ import annotations
 
@@ -60,7 +62,11 @@ class EngineOptions:
     max_pairs: int = 512           # per-left-row buffer for join families
     join_lowering: str = "batch"   # batch | perleft
     dist: Any = None               # sharded scan spec (not yet ported)
-    quant: str | None = None       # None | 'int8' | 'bf16' (not yet ported)
+    # quantized twin streamed by the batched flat scans, re-ranked in exact
+    # fp32 (kernels/quant.py); needs use_pallas
+    quant: str | None = None       # None | 'int8' | 'bf16'
+    # candidate multiple c of the fp32 rescore: the quantized top-k keeps
+    # the top-(c·K) rows, the range path replays up to c·capacity rows
     rescore_factor: int = 2
 
     def fingerprint(self) -> str:
@@ -186,9 +192,16 @@ def _flat_topk(opts: EngineOptions, flat: FlatIndex, q, k, row_mask):
     return flat.topk(q, k, row_mask)
 
 
-def _flat_topk_batch(opts: EngineOptions, metric: Metric, corpus, qs,
-                     k: int, row_mask, qvalid=None):
-    """Fused flat batched top-k on the query-batched kernel."""
+def _flat_topk_batch(opts: EngineOptions, arrays, metric: Metric, corpus,
+                     qs, k: int, row_mask, qvalid=None):
+    """Fused flat batched top-k on the query-batched kernel, or on the
+    quantized twin in ``arrays`` (``qvecs``/``qscales``) when
+    ``opts.quant`` is set."""
+    if opts.quant is not None:
+        from ..kernels.quant import fused_scan_topk_batch_q
+        return fused_scan_topk_batch_q(
+            corpus, arrays["qvecs"], arrays["qscales"], qs, k, row_mask,
+            metric, rescore_factor=opts.rescore_factor, qvalid=qvalid)
     from ..kernels.ops import fused_scan_topk_batch
     return fused_scan_topk_batch(corpus, qs, k, row_mask, metric,
                                  qvalid=qvalid)
@@ -210,23 +223,32 @@ def _compact(hit: torch.Tensor, raw: torch.Tensor, metric: Metric,
 
 
 def _flat_range_topk_batch(opts: EngineOptions, metric: Metric, corpus, qs,
-                           radius, row_mask, capacity: int, qvalid=None):
+                           radius, row_mask, capacity: int, qvalid=None,
+                           arrays=None):
     """Flat range scan over an (M, d) query batch, compacted to
     ``capacity``.
 
-    The query-batched range kernel (``use_pallas``) or the exact plain scan,
-    one query at a time (the torch form of the reference's ``jax.vmap``
-    over ``FlatIndex.range_mask``).  ``radius`` is a scalar or (M,);
-    ``row_mask`` None, shared (N,) or per-query (M, N); ``qvalid`` None or
-    (M,) bool (size-bucket pad queries register no hits and zero counters).
-    Results are ordered best-first.  Returns (ids (M, P), sims, valid,
-    count (M,), per-row stats) with P = min(capacity, N)."""
+    The quantized range path (``quant``; its twin's tensors come in the
+    plan's ``arrays``), the query-batched range kernel (``use_pallas``) or
+    the exact plain scan, one query at a time (the torch form of the
+    reference's ``jax.vmap`` over ``FlatIndex.range_mask``).  ``radius`` is
+    a scalar or (M,); ``row_mask`` None, shared (N,) or per-query (M, N);
+    ``qvalid`` None or (M,) bool (size-bucket pad queries register no hits
+    and zero counters).  Results are ordered best-first.  Returns (ids
+    (M, P), sims, valid, count (M,), per-row stats) with
+    P = min(capacity, N)."""
     m, n = qs.shape[0], corpus.shape[0]
     dev = corpus.device
     cap = min(int(capacity), n)
     radius = torch.as_tensor(radius, dtype=torch.float32,
                              device=dev).expand(m)
-    if opts.use_pallas:
+    if opts.quant is not None:
+        from ..kernels.quant import fused_range_topk_batch_q
+        ids, sims, valid, count = fused_range_topk_batch_q(
+            corpus, arrays["qvecs"], arrays["qscales"], arrays["qhalf"],
+            arrays["ql1"], arrays["ql2"], qs, radius, row_mask, metric, cap,
+            rescore_factor=opts.rescore_factor, qvalid=qvalid)
+    elif opts.use_pallas:
         from ..kernels.ops import fused_range_topk_batch
         ids, sims, valid, count = fused_range_topk_batch(
             corpus, qs, radius, row_mask, metric, cap, qvalid=qvalid)
@@ -349,16 +371,18 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         if qvalid is not None:
             qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
         row_mask = mask_fn(binds, qn) if mask_fn else None       # (Q, N)
-        if (opts.use_pallas and qn == 1 and qvalid is None
-                and row_mask is None):
+        if (opts.use_pallas and opts.quant is None and qn == 1
+                and qvalid is None and row_mask is None):
             # single-query fast path: one query without a predicate runs
-            # the single-query kernel instead of a one-query batch
+            # the single-query kernel instead of a one-query batch (not
+            # under quant, whose only lowering is the batched one)
             from ..kernels.ops import fused_scan_topk
             i1, s1, v1 = fused_scan_topk(corpus, qs[0], k, None, metric)
             ids, sims, valid = i1[None], s1[None], v1[None]
         elif opts.use_pallas:
-            ids, sims, valid = _flat_topk_batch(opts, metric, corpus, qs, k,
-                                                row_mask, qvalid=qvalid)
+            ids, sims, valid = _flat_topk_batch(opts, arrays, metric, corpus,
+                                                qs, k, row_mask,
+                                                qvalid=qvalid)
         else:
             ids, sims, valid = FlatIndex(metric, corpus).topk(qs, k,
                                                                row_mask)
@@ -429,7 +453,7 @@ def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         row_mask = mask_fn(binds, qn) if mask_fn else None       # (Q, N)
         ids, sims, valid, count, stats = _flat_range_topk_batch(
             opts, metric, corpus, qs, radius, row_mask, capacity,
-            qvalid=qvalid)
+            qvalid=qvalid, arrays=arrays)
         return {"ids": ids, "sim": sims, "valid": valid, "count": count,
                 "stats": stats}
 
@@ -457,7 +481,7 @@ def _dist_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions):
         # probe_budget: the flat scan has no probe lane (ignored)
         return _flat_range_topk_batch(opts, metric, arrays["corpus"], qs,
                                       radius, rm, opts.max_pairs,
-                                      qvalid=qvalid)
+                                      qvalid=qvalid, arrays=arrays)
 
     return core
 

@@ -6,9 +6,9 @@ dimensionality and metric.  Tables are fixed-capacity: row selection is a
 validity mask, never a physical shrink.
 
 The :class:`Catalog` keeps the reference's versioned registration clock so
-compiled plans can detect a re-registered table.  Index, quantized-twin,
-live-corpus and sharded registrations belong to later slices of the port and
-raise ``NotImplementedError`` until then.
+compiled plans can detect a re-registered table or re-bind a re-registered
+quantized twin.  Index, live-corpus and sharded registrations belong to
+later slices of the port and raise ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -145,14 +145,16 @@ class Catalog:
     """Name -> Table registry with the reference's versioned registration
     clock.
 
-    ``register`` bumps a monotonic catalog clock and stamps the touched key;
+    Every registration bumps a monotonic catalog clock and stamps the
+    touched key (``("table", name)`` or ``("quantized", table, column)``);
     compiled plans snapshot the versions of the keys they captured and
     compare at execute time (``CompiledQuery.ensure_fresh``), so a
     re-registered table raises ``StalePlanError`` instead of serving frozen
-    data."""
+    data, and a re-registered twin re-binds in place."""
 
     def __init__(self):
         self._tables: dict[str, Table] = {}
+        self._quantized: dict[tuple, Any] = {}
         self._clock = 0
         self._versions: dict[tuple, int] = {}
 
@@ -172,9 +174,12 @@ class Catalog:
 
     def register(self, name: str, table: Table) -> None:
         """Register (or replace) a table under ``name``; bumps
-        ``("table", name)``."""
+        ``("table", name)`` and drops the old table's quantized twins (their
+        fp32 source changed)."""
         table.name = name
         self._tables[name] = table
+        for key in [k for k in self._quantized if k[0] == name]:
+            del self._quantized[key]
         self._bump(("table", name))
 
     def table(self, name: str) -> Table:
@@ -196,8 +201,19 @@ class Catalog:
 
     def register_quantized(self, table: str, column: str, quant: Any,
                            key: Any = None) -> None:
-        """Quantized twins belong to a later slice of the port."""
-        raise not_ported("Catalog.register_quantized", "8")
+        """Attach a :class:`~repro_torch.data.quantized.QuantizedCorpus` twin
+        to a (table, vector column) pair, keyed by ``key`` (default
+        ``quant.mode``, so int8 and bf16 twins coexist).  Bumps
+        ``("quantized", table, column)``: quant plans carry the twin's
+        tensors in their bound ``arrays`` dict and re-bind a re-registered
+        twin in place."""
+        self._quantized[(table, column, key or quant.mode)] = quant
+        self._bump(("quantized", table, column))
+
+    def quantized_for(self, table: str, column: str, key: Any):
+        """The QuantizedCorpus registered for (table, column) under ``key``
+        (a mode string), or None."""
+        return self._quantized.get((table, column, key))
 
     def register_live(self, table: str, column: str, live: Any) -> None:
         """Live corpora belong to a later slice of the port."""

@@ -5,6 +5,9 @@ PyTorch version beside it.
   Q1 main path (``csrc/``), their plain versions, launch geometry;
 * ``range_scan.py`` — wrappers of the two fused range-scan kernels of the
   Q2 and Q3 flat lowerings, their plain versions, launch geometry;
+* ``quant.py`` — wrappers of the two quantized scan kernels and the exact
+  fp32 replay of ``EngineOptions.quant``, their plain versions, and the
+  quantized paths' stage 2;
 * ``ops.py`` — public contracts: mask layout, the stage-2 merges and the
   range compaction;
 * ``ref.py`` — pure-torch oracles;
@@ -13,7 +16,9 @@ PyTorch version beside it.
 from .ops import (fused_range_scan, fused_range_scan_batch,
                   fused_range_topk_batch, fused_scan_topk,
                   fused_scan_topk_batch)
+from .quant import fused_range_topk_batch_q, fused_scan_topk_batch_q
 
 __all__ = ["fused_range_scan", "fused_range_scan_batch",
-           "fused_range_topk_batch", "fused_scan_topk",
-           "fused_scan_topk_batch"]
+           "fused_range_topk_batch", "fused_range_topk_batch_q",
+           "fused_scan_topk", "fused_scan_topk_batch",
+           "fused_scan_topk_batch_q"]

@@ -1,5 +1,6 @@
 // The register-blocked fp32 tile product of the query-batched kernels
-// (scan_topk_batch.cu, range_scan_batch.cu).
+// (scan_topk_batch.cu, range_scan_batch.cu and their quantized twins
+// quant_scan_topk_batch.cu, quant_keys_batch.cu).
 //
 // A block of kThreads threads scores a kRows-row corpus tile against its QT
 // queries with plain fp32 FMAs (no TF32, no tensor cores).  Thread
@@ -8,7 +9,10 @@
 // shared memory, transposed, with padded strides so the stores are
 // conflict-free.  Each (row, query) dot product is summed over D in the same
 // order whatever QT, TR and the launch geometry, so a pair's key is bitwise
-// the same at every batch size.
+// the same at every batch size.  Corpus elements reach the staging through a
+// row loader (Fp32Rows, Int8Rows, Bf16Rows): the quantized kernels stage
+// the dequantized fp32 value, and from the staging on every instantiation
+// runs the same FMAs in the same order.
 #pragma once
 
 #include "topk_common.cuh"
@@ -17,6 +21,33 @@ namespace repro_tile {
 
 using repro_topk::kInnerProduct;
 using repro_topk::kThreads;
+
+// Row loaders: element `idx` = row * d + col of the corpus as fp32.
+struct Fp32Rows {
+  const float* x;
+  __device__ __forceinline__ float operator()(int, size_t idx) const {
+    return __ldg(x + idx);
+  }
+};
+
+// int8 rows times their per-row fp32 scale: one rounded fp32 product, the
+// reference's `q.astype(f32) * s`.
+struct Int8Rows {
+  const int8_t* q;
+  const float* scales;
+  __device__ __forceinline__ float operator()(int row, size_t idx) const {
+    return static_cast<float>(__ldg(q + idx)) * __ldg(scales + row);
+  }
+};
+
+// bf16 rows (raw 16-bit patterns) widened exactly to fp32; their scales are
+// ones by construction and are not read.
+struct Bf16Rows {
+  const uint16_t* q;
+  __device__ __forceinline__ float operator()(int, size_t idx) const {
+    return __uint_as_float(static_cast<unsigned int>(__ldg(q + idx)) << 16);
+  }
+};
 
 constexpr int kRows = 64;   // corpus rows per tile
 constexpr int kDepth = 32;  // columns of D staged in shared memory at once
@@ -57,10 +88,12 @@ __device__ __forceinline__ void query_norms(const float* __restrict__ queries,
 // metric is inner product, xx[i] = the row's squared norm; rows at or past
 // row_end and queries at or past qn read as zeros.  Every thread of the
 // block calls it together: it synchronises before each staging step (so
-// the previous tile's readers are done) and after it.
-template <int QT, int TR, int METRIC>
+// the previous tile's readers are done) and after it.  Per pair, the dot
+// and the norm are one fmaf chain over d = 0 .. ceil(D / kDepth)·kDepth − 1
+// (zeros past D): replay_keys.cu reproduces it pair by pair.
+template <int QT, int TR, int METRIC, typename Rows>
 __device__ __forceinline__ void tile_product(
-    const float* __restrict__ corpus, const float* __restrict__ queries,
+    const Rows& corpus, const float* __restrict__ queries,
     int t0, int row_end, int q0, int qn, int d, float* r_s, float* q_s,
     float (&acc)[TileShape<QT, TR>::RPT][TileShape<QT, TR>::QPT],
     float (&xx)[TileShape<QT, TR>::RPT]) {
@@ -80,7 +113,7 @@ __device__ __forceinline__ void tile_product(
       const int row = e / kDepth, c = e % kDepth;
       const int gr = t0 + row, gc = d0 + c;
       r_s[c * S::RS + row] = (gr < row_end && gc < d)
-          ? __ldg(corpus + static_cast<size_t>(gr) * d + gc) : 0.f;
+          ? corpus(gr, static_cast<size_t>(gr) * d + gc) : 0.f;
     }
     for (int e = tid; e < QT * kDepth; e += kThreads) {
       const int qi = e / kDepth, c = e % kDepth;

@@ -21,12 +21,15 @@ __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); 
 
 // Order key of one (row, query) pair from its dot product and the two
 // squared norms; the same float operations, in the same order, as the
-// reference's metric epilogue.
+// reference's metric epilogue.  Each is written as a rounded intrinsic so
+// that nvcc never contracts a product and a sum into one FMA: every kernel
+// that calls it gives a pair the same key bits (replay_keys.cu relies on
+// it).
 template <int METRIC>
 __device__ __forceinline__ float order_key(float ip, float xx, float qq) {
   if (METRIC == kInnerProduct) return -ip;
-  if (METRIC == kL2) return (xx - 2.0f * ip) + qq;
-  return -(ip / (sqrtf(xx) * sqrtf(qq) + 1e-12f));
+  if (METRIC == kL2) return __fadd_rn(__fsub_rn(xx, __fmul_rn(2.0f, ip)), qq);
+  return -__fdiv_rn(ip, __fadd_rn(__fmul_rn(sqrtf(xx), sqrtf(qq)), 1e-12f));
 }
 
 __device__ __forceinline__ bool entry_greater(float ka, int ia, float kb,

@@ -1,0 +1,412 @@
+"""Quantized corpus scans with an exact fp32 rescore: the kernels and the
+stage 2 of ``EngineOptions(quant="int8" | "bf16")`` on the Q1–Q3 flat
+lowerings.
+
+The flat batched scan streams the whole corpus per launch.  These paths
+stream its int8 (per-row symmetric scale) or bf16 twin instead — 4× or 2×
+fewer bytes — and keep every answer EXACTLY the fp32 path's, bit for bit, by
+re-ranking a small candidate set with the fp32 kernels' own keys:
+
+* **Segmented candidates** (Q1).  ``quant_scan_topk_batch`` reduces its
+  quantized keys to per-8-row segment minima and keeps each query's best
+  segments per split.  A row of quantized rank ≤ c·k has at most c·k − 1
+  rows ahead of it, so at most c·k − 1 segments have a smaller minimum: the
+  global top-(c·k) segments, expanded to their rows, hold every row of
+  quantized rank ≤ c·k.  Splits hold at most 8·1024 rows (1,024 segments):
+  a split that cannot hold c·k segments emits all of them.
+* **Bitwise replay.**  ``replay_keys`` scores the candidate (row, query)
+  pairs with the fp32 batched kernels' exact arithmetic (``csrc/
+  replay_keys.cu``), and the candidates are sorted by row id before the
+  stable final top-k, so ties keep the lowest id.  The result equals the
+  fp32 path whenever the quantized top-(c·k) covers the fp32 top-k
+  (c = ``rescore_factor``).
+* **Slack bands** (Q2, Q3).  Per-row dequantization error bounds
+  (``QuantizedCorpus.half_step``) bound |k̂ − k| by a slack, so rows with
+  k̂ ≤ r − slack are certain hits, rows with k̂ > r + slack certain misses,
+  and only the band between is replayed.  When a band is wider than the
+  replay budget, the path runs the fp32 range kernel itself.
+
+Each kernel wrapper launches a hand-written CUDA kernel on a CUDA tensor
+and runs its plain PyTorch version beside it on a CPU tensor, and only then;
+it counts its launches in a plain integer attribute (``.launches``).
+Stage 2 is plain torch, and every top-k in it is ``stable_smallest_k``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.expr import pairwise_order_keys
+from ..core.schema import Metric
+from ..index.flat import stable_smallest_k
+from . import build
+from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
+from .ops import _mask_i8, _radius_keys, fused_range_topk_batch
+from .range_scan import batch_plan as range_batch_plan
+from .scan_topk import MAX_K, _check_k, _split_topk
+from .scan_topk import batch_plan as topk_batch_plan
+
+INF = float("inf")
+I32_MAX = 2 ** 31 - 1
+SEG = 8                        # rows per segment of the candidate extraction
+MAX_SPLIT_ROWS = SEG * MAX_K   # a split holds at most 1,024 segments
+MODE_CODES = {torch.int8: 0, torch.bfloat16: 1}
+
+
+def quant_plan(n: int, qn: int, count: int) -> tuple[int, int, int, int]:
+    """(queries per block, splits, rows per split, segments kept per split)
+    of the quantized top-k kernel asked for ``count`` = c·k segments per
+    query: the fp32 kernel's plan for min(count, 1024) candidates, splits
+    capped at 8·1024 rows."""
+    qt, splits, rows = topk_batch_plan(n, qn, min(count, MAX_K))
+    if rows > MAX_SPLIT_ROWS:
+        rows = MAX_SPLIT_ROWS
+        splits = -(-n // rows)
+    return qt, splits, rows, max(1, min(count, rows // SEG))
+
+
+def _check_quant(qvecs: torch.Tensor, scales: torch.Tensor,
+                 queries: torch.Tensor, mask_i8, qvalid_i8) -> torch.Tensor:
+    """Validate a quantized kernel's inputs; returns the scales as (N,)."""
+    n, d = qvecs.shape
+    qn = queries.shape[0]
+    dev = qvecs.device
+    if qvecs.dtype not in MODE_CODES:
+        raise ValueError(f"qvecs must be int8 or bfloat16, got {qvecs.dtype}")
+    check_tensor(qvecs, "qvecs", (n, d), qvecs.dtype, dev)
+    scales = scales.reshape(-1)
+    check_tensor(scales, "scales", (n,), torch.float32, dev)
+    check_tensor(queries, "queries", (qn, d), torch.float32, dev)
+    if mask_i8 is not None:
+        check_tensor(mask_i8, "mask", (qn, n) if mask_i8.ndim == 2 else (n,),
+                     torch.int8, dev)
+    check_tensor(qvalid_i8, "qvalid", (qn,), torch.int8, dev)
+    return scales
+
+
+def _device_of(name: str, t: torch.Tensor) -> str:
+    """'cpu' or 'cuda' for a wrapper's input; raises on any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda (or cpu), not {t.device}")
+    return t.device.type
+
+
+def _plain_keys(qvecs, scales, queries, mask_i8, qvalid_i8, metric: Metric):
+    """(Q, N) order keys of the dequantized rows, +inf on dead lanes: the
+    plain form of both quantized kernels' keys."""
+    deq = qvecs.to(torch.float32) * scales.reshape(-1, 1)
+    keys = pairwise_order_keys(metric, deq, queries)
+    if mask_i8 is not None:
+        m = mask_i8 if mask_i8.ndim == 2 else mask_i8[None]
+        keys = keys.masked_fill(m == 0, INF)
+    if qvalid_i8 is not None:
+        keys = keys.masked_fill((qvalid_i8 == 0)[:, None], INF)
+    return keys
+
+
+# ---------------------------------------------------------------------------
+# stage 1 of Q1: replaces quant_scan_topk_batch_pallas
+# (src/repro/kernels/quant.py)
+# ---------------------------------------------------------------------------
+
+def quant_scan_topk_batch_plain(qvecs, scales, queries, mask_i8, qvalid_i8,
+                                count: int, metric: Metric):
+    """Plain PyTorch version of the quantized top-k kernel."""
+    n = qvecs.shape[0]
+    qn = queries.shape[0]
+    keys = _plain_keys(qvecs, scales, queries, mask_i8, qvalid_i8, metric)
+    _, splits, rows, s_count = quant_plan(n, qn, count)
+    pad = (-n) % SEG
+    if pad:
+        keys = torch.cat([keys, keys.new_full((qn, pad), INF)], 1)
+    seg_keys = keys.reshape(qn, -1, SEG).amin(dim=-1)
+    return _split_topk(seg_keys, s_count, splits, rows // SEG)
+
+
+def quant_scan_topk_batch(qvecs: torch.Tensor, scales: torch.Tensor,
+                          queries: torch.Tensor, mask_i8: torch.Tensor | None,
+                          qvalid_i8: torch.Tensor | None, count: int,
+                          metric: Metric):
+    """Stage 1 of the quantized top-k: qvecs (N, D) int8 or bf16, scales
+    (N, 1) or (N,) fp32 (ones for bf16), queries (Q, D) fp32, mask None,
+    shared (N,) or query-major (Q, N) int8, qvalid None or (Q,) int8.
+    Returns (Q, splits·s) keys and global segment ids (row // 8), each
+    split's ``s`` best segments ascending by (key, id), (+inf, -1) in empty
+    slots; (splits, s) come from :func:`quant_plan` for ``count``."""
+    _check_k(min(count, MAX_K))
+    n, d = qvecs.shape
+    qn = queries.shape[0]
+    scales = _check_quant(qvecs, scales, queries, mask_i8, qvalid_i8)
+    if _device_of("quant_scan_topk_batch", qvecs) == "cpu":
+        return quant_scan_topk_batch_plain(qvecs, scales, queries, mask_i8,
+                                           qvalid_i8, count, metric)
+    dev = qvecs.device
+    qt, splits, rows, s_count = quant_plan(n, qn, count)
+    keys = torch.empty((qn, splits * s_count), dtype=torch.float32,
+                       device=dev)
+    ids = torch.empty((qn, splits * s_count), dtype=torch.int32, device=dev)
+    mask_mode = 0 if mask_i8 is None else 1 if mask_i8.ndim == 1 else 2
+    lib, launch = build.launcher(
+        "quant_scan_topk_batch.cu", "quant_scan_topk_batch_launch",
+        [P, P, I, P, P, I] + [P] * 3 + [I] * 8 + [P])
+    err = launch(
+        ptr(qvecs), ptr(scales), MODE_CODES[qvecs.dtype], ptr(queries),
+        ptr(mask_i8), mask_mode, ptr(qvalid_i8), ptr(keys), ptr(ids), n, d,
+        qn, s_count, METRIC_CODES[metric], qt, rows, splits, stream(dev))
+    build.check(lib, "quant_scan_topk_batch", err)
+    quant_scan_topk_batch.launches += 1
+    return keys, ids
+
+
+quant_scan_topk_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# stage 1 of Q2/Q3: replaces quant_keys_batch_pallas
+# (src/repro/kernels/quant.py)
+# ---------------------------------------------------------------------------
+
+def quant_keys_batch_plain(qvecs, scales, queries, mask_i8, qvalid_i8,
+                           metric: Metric):
+    """Plain PyTorch version of the quantized key kernel."""
+    return _plain_keys(qvecs, scales, queries, mask_i8, qvalid_i8, metric)
+
+
+def quant_keys_batch(qvecs: torch.Tensor, scales: torch.Tensor,
+                     queries: torch.Tensor, mask_i8: torch.Tensor | None,
+                     qvalid_i8: torch.Tensor | None, metric: Metric):
+    """Masked quantized order keys, query-major: inputs as
+    :func:`quant_scan_topk_batch`.  Returns (Q, N) fp32 keys, +inf where
+    the mask or the query's valid lane is 0 (no radius test)."""
+    n, d = qvecs.shape
+    qn = queries.shape[0]
+    scales = _check_quant(qvecs, scales, queries, mask_i8, qvalid_i8)
+    if _device_of("quant_keys_batch", qvecs) == "cpu":
+        return quant_keys_batch_plain(qvecs, scales, queries, mask_i8,
+                                      qvalid_i8, metric)
+    dev = qvecs.device
+    qt, splits, rows = range_batch_plan(n, qn)
+    keys = torch.empty((qn, n), dtype=torch.float32, device=dev)
+    mask_mode = 0 if mask_i8 is None else 1 if mask_i8.ndim == 1 else 2
+    lib, launch = build.launcher(
+        "quant_keys_batch.cu", "quant_keys_batch_launch",
+        [P, P, I, P, P, I, P, P] + [I] * 7 + [P])
+    err = launch(
+        ptr(qvecs), ptr(scales), MODE_CODES[qvecs.dtype], ptr(queries),
+        ptr(mask_i8), mask_mode, ptr(qvalid_i8), ptr(keys), n, d, qn,
+        METRIC_CODES[metric], qt, rows, splits, stream(dev))
+    build.check(lib, "quant_keys_batch", err)
+    quant_keys_batch.launches += 1
+    return keys
+
+
+quant_keys_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# exact fp32 replay: the port's form of _replay_keys
+# (src/repro/kernels/quant.py), plain XLA in the reference
+# ---------------------------------------------------------------------------
+
+def replay_keys_plain(corpus: torch.Tensor, queries: torch.Tensor,
+                      rows: torch.Tensor, metric: Metric) -> torch.Tensor:
+    """Plain PyTorch version of the replay: the fp32 plain kernels' own
+    (Q, N) keys, gathered.  The CPU fp32 path computes this same call on
+    the same inputs, so on the CPU, too, the replayed keys are its keys."""
+    n = corpus.shape[0]
+    keys = pairwise_order_keys(metric, corpus, queries)
+    ok = (rows >= 0) & (rows < n)
+    got = torch.take_along_dim(keys, rows.clamp(0, n - 1).long(), dim=1)
+    return torch.where(ok, got, INF)
+
+
+def replay_keys(corpus: torch.Tensor, queries: torch.Tensor,
+                rows: torch.Tensor, metric: Metric) -> torch.Tensor:
+    """Exact fp32 order keys of the pairs (query q, row ``rows[q, j]``):
+    corpus (N, D) fp32, queries (Q, D) fp32, rows (Q, C) int32.  Returns
+    (Q, C) fp32 keys, bitwise the fp32 batched kernels' keys of the same
+    pairs, +inf where a row id lies outside [0, N)."""
+    n, d = corpus.shape
+    qn, c = rows.shape
+    dev = corpus.device
+    check_tensor(corpus, "corpus", (n, d), torch.float32, dev)
+    check_tensor(queries, "queries", (qn, d), torch.float32, dev)
+    check_tensor(rows, "rows", (qn, c), torch.int32, dev)
+    if _device_of("replay_keys", corpus) == "cpu":
+        return replay_keys_plain(corpus, queries, rows, metric)
+    out = torch.empty((qn, c), dtype=torch.float32, device=dev)
+    vec4 = d % 4 == 0 and corpus.data_ptr() % 16 == 0
+    lib, launch = build.launcher("replay_keys.cu", "replay_keys_launch",
+                                 [P] * 4 + [I] * 6 + [P])
+    err = launch(ptr(corpus), ptr(queries), ptr(rows), ptr(out), n, d, qn, c,
+                 METRIC_CODES[metric], int(vec4), stream(dev))
+    build.check(lib, "replay_keys", err)
+    replay_keys.launches += 1
+    return out
+
+
+replay_keys.launches = 0
+
+
+def _mask_at_rows(row_mask: torch.Tensor | None,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """The row mask at gathered candidate positions ((Q, C) bool; ``rows``
+    in [0, N)).  Segment expansion can bring back a masked row that shares
+    a segment with a live one, so the rescore applies the mask again."""
+    if row_mask is None:
+        return torch.ones(rows.shape, dtype=torch.bool, device=rows.device)
+    m = row_mask.to(torch.bool)
+    if m.ndim == 1:
+        return m[rows.long()]
+    return torch.take_along_dim(m, rows.long(), dim=1)
+
+
+def _rescored_topk(corpus, queries, rows, row_mask, k: int, metric: Metric):
+    """The best ``k`` of each query's candidate rows (ascending ids) by
+    exact fp32 key: (ids, sims, valid)."""
+    n = corpus.shape[0]
+    exact = replay_keys(corpus, queries, rows, metric)
+    live = (rows < n) & _mask_at_rows(row_mask, rows.clamp(max=n - 1))
+    exact = torch.where(live, exact, INF)
+    out_keys, pos = stable_smallest_k(exact, k)
+    valid = torch.isfinite(out_keys)
+    ids = torch.where(
+        valid, torch.take_along_dim(rows, pos.clamp_min(0).long(), dim=1), -1)
+    sims = torch.where(valid, -out_keys if metric.is_similarity()
+                       else out_keys, 0.0)
+    return ids, sims, valid
+
+
+def fused_scan_topk_batch_q(corpus: torch.Tensor, qvecs: torch.Tensor,
+                            scales: torch.Tensor, queries: torch.Tensor,
+                            k: int, row_mask: torch.Tensor | None,
+                            metric: Metric, rescore_factor: int = 2,
+                            qvalid: torch.Tensor | None = None):
+    """Quantized twin of :func:`~repro_torch.kernels.ops.
+    fused_scan_topk_batch`: the segmented quantized kernel, the global
+    top-(c·k) segments per query, their rows in ascending order, and the
+    exact fp32 re-rank (c = ``rescore_factor``).  Contract (masks, the
+    valid lane, outputs) identical to the fp32 wrapper.  Returns (ids
+    (Q, k), sims raw-metric (Q, k), valid (Q, k))."""
+    _check_k(k)
+    corpus = corpus.to(torch.float32).contiguous()
+    queries = queries.to(torch.float32).contiguous()
+    count = max(1, int(rescore_factor)) * k
+    qv = None if qvalid is None else _mask_i8(qvalid)
+    keys, segs = quant_scan_topk_batch(qvecs, scales, queries,
+                                       _mask_i8(row_mask), qv, count, metric)
+    rows = candidate_rows(keys, segs, count)
+    return _rescored_topk(corpus, queries, rows, row_mask, k, metric)
+
+
+def candidate_rows(keys: torch.Tensor, segs: torch.Tensor,
+                   count: int) -> torch.Tensor:
+    """Stage 2 of the quantized top-k: the global top-``count`` segments of
+    each query from the kernel's per-split lists, expanded to their rows in
+    ascending order ((Q, 8·count) int32, ``I32_MAX`` in empty slots)."""
+    top, pos = stable_smallest_k(keys, min(count, keys.shape[1]))
+    seg = torch.where(torch.isfinite(top),
+                      torch.take_along_dim(segs, pos.long(), dim=1), -1)
+    offs = torch.arange(SEG, dtype=torch.int32, device=seg.device)
+    rows = torch.where(seg[..., None] >= 0, seg[..., None] * SEG + offs,
+                       I32_MAX).reshape(keys.shape[0], -1)
+    return torch.sort(rows, dim=1).values
+
+
+# ---------------------------------------------------------------------------
+# range: slack-band classification and boundary rescore
+# ---------------------------------------------------------------------------
+
+def _range_slack(metric: Metric, half: torch.Tensor, l1: torch.Tensor,
+                 l2: torch.Tensor, queries: torch.Tensor,
+                 d_true: int) -> torch.Tensor:
+    """Per-(query, row) upper bound on |quantized key − exact key|.
+
+    With h the per-row componentwise dequantization error bound
+    (``QuantizedCorpus.half_step``), x̂ the dequantized row and q the query:
+
+    * IP:  |Δ(−q·x)| ≤ h·‖q‖₁
+    * L2:  |Δ‖x−q‖²| ≤ 2h(‖x̂‖₁ + ‖q‖₁) + D·h²
+    * cos: |Δ| ≤ h·(‖q‖₁/‖q‖₂ + √D) / ‖x̂‖₂
+
+    Returns (Q, N) fp32, widened by a small relative and absolute epsilon
+    for the fp32 evaluation of the bound itself."""
+    h = half.reshape(1, -1)
+    q_l1 = queries.abs().sum(dim=1, keepdim=True)
+    if metric == Metric.INNER_PRODUCT:
+        slack = h * q_l1
+    elif metric == Metric.L2:
+        slack = 2.0 * h * (l1.reshape(1, -1) + q_l1) + d_true * h * h
+    elif metric == Metric.COSINE:
+        q_l2 = torch.sqrt((queries * queries).sum(dim=1, keepdim=True))
+        num = q_l1 / q_l2.clamp_min(1e-12) + math.sqrt(float(d_true))
+        slack = h * num / l2.reshape(1, -1).clamp_min(1e-12)
+    else:
+        raise ValueError(metric)
+    return slack * 1.001 + 1e-6
+
+
+def fused_range_topk_batch_q(corpus: torch.Tensor, qvecs: torch.Tensor,
+                             scales: torch.Tensor, half: torch.Tensor,
+                             l1: torch.Tensor, l2: torch.Tensor,
+                             queries: torch.Tensor, radius,
+                             row_mask: torch.Tensor | None, metric: Metric,
+                             capacity: int, rescore_factor: int = 2,
+                             qvalid: torch.Tensor | None = None):
+    """Quantized twin of :func:`~repro_torch.kernels.ops.
+    fused_range_topk_batch`.
+
+    Quantized keys classify every row as a certain hit (k̂ ≤ r − slack), a
+    certain miss (k̂ > r + slack) or a boundary row.  The best
+    ``rescore_factor·capacity`` maybe rows (certain or boundary) of each
+    query are replayed in exact fp32 for the emission, and its boundary
+    rows for the count (certain hits + boundary rows that hit exactly).
+    When any query has more maybe rows than that budget, the replay sets
+    would be incomplete, and the call runs the fp32 range kernel on the
+    fp32 corpus instead — the keys the replay reproduces — so the answer
+    is exact either way.  Returns (ids (Q, P), sims, valid, count (Q,)) with
+    P = min(capacity, N), as the fp32 wrapper."""
+    corpus = corpus.to(torch.float32).contiguous()
+    queries = queries.to(torch.float32).contiguous()
+    n, d = corpus.shape
+    qn = queries.shape[0]
+    qv = None if qvalid is None else _mask_i8(qvalid)
+    qkeys = quant_keys_batch(qvecs, scales, queries, _mask_i8(row_mask), qv,
+                             metric)                               # (Q, N)
+    rk = _radius_keys(radius, metric, qn, corpus.device)[:, None]
+    slack = _range_slack(metric, half, l1, l2, queries, d)
+    certain = qkeys <= rk - slack
+    maybe = qkeys <= rk + slack                     # +inf lanes: never maybe
+    cap = min(int(capacity), n)
+    w = min(max(1, int(rescore_factor)) * cap, n)
+    # the branch is chosen on the host: one device sync per call.  Boundary
+    # rows are maybe rows, so one test covers both replay budgets.
+    if int(maybe.sum(dim=1).max()) > w:
+        return fused_range_topk_batch(corpus, queries, radius, row_mask,
+                                      metric, cap, qvalid=qvalid)
+
+    def replayed(sel_keys):
+        """Each query's rows with a finite ``sel_keys`` (at most ``w``), in
+        ascending order, and their exact keys (+inf in empty slots)."""
+        vals, sel = stable_smallest_k(sel_keys, w)
+        rows = torch.where(torch.isfinite(vals), sel, I32_MAX)
+        rows = torch.sort(rows, dim=1).values
+        return rows, replay_keys(corpus, queries, rows, metric)
+
+    # emission: the best ``cap`` exact hits among the maybe rows
+    rows_e, exact_e = replayed(torch.where(maybe, qkeys, INF))
+    hit_e = (rows_e < n) & (exact_e <= rk)
+    out_keys, pos = stable_smallest_k(torch.where(hit_e, exact_e, INF), cap)
+    valid = torch.isfinite(out_keys)
+    ids = torch.where(
+        valid, torch.take_along_dim(rows_e, pos.clamp_min(0).long(), dim=1),
+        -1)
+    sims = torch.where(valid, -out_keys if metric.is_similarity()
+                       else out_keys, 0.0)
+    # count: certain hits + the boundary rows that hit exactly
+    boundary = maybe & ~certain
+    rows_b, exact_b = replayed(torch.where(boundary, (qkeys - rk).abs(), INF))
+    count = (certain.sum(dim=1, dtype=torch.int32)
+             + ((rows_b < n) & (exact_b <= rk)).sum(dim=1, dtype=torch.int32))
+    return ids, sims, valid, count

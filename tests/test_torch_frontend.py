@@ -140,13 +140,13 @@ def test_predicates_match_reference_single_and_batched(catalogs):
 def test_unported_registrations_raise(catalogs):
     _, cat = catalogs
     for call in (lambda: cat.register_index("laion", "vec", object()),
-                 lambda: cat.register_quantized("laion", "vec", object()),
                  lambda: cat.register_live("laion", "vec", object()),
                  lambda: cat.register_sharded("laion", "vec", object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
     assert cat.index_for("laion", "vec") is None
     assert cat.live_for("laion", "vec") is None
+    assert cat.quantized_for("laion", "vec", "int8") is None   # ported
 
 
 @pytest.mark.parametrize("metric", ["ip", "l2", "cosine"])

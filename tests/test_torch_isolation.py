@@ -89,3 +89,35 @@ def test_kernel_wrappers_refuse_other_devices():
         with pytest.raises(ValueError, match="range_scan_batch runs on cuda"):
             batch(corpus, torch.zeros((2, 8), device="meta"), 0.5, None,
                   Metric.L2)
+    from repro_torch.kernels import quant
+
+    q8 = torch.zeros((32, 8), dtype=torch.int8, device="meta")
+    scales = torch.ones((32, 1), device="meta")
+    queries = torch.zeros((2, 8), device="meta")
+    with pytest.raises(ValueError, match="quant_scan_topk_batch runs on cuda"):
+        quant.quant_scan_topk_batch(q8, scales, queries, None, None, 6,
+                                    Metric.L2)
+    with pytest.raises(ValueError, match="quant_keys_batch runs on cuda"):
+        quant.quant_keys_batch(q8.to(torch.bfloat16), scales, queries, None,
+                               None, Metric.L2)
+    with pytest.raises(ValueError, match="replay_keys runs on cuda"):
+        quant.replay_keys(corpus, queries,
+                          torch.zeros((2, 5), dtype=torch.int32,
+                                      device="meta"), Metric.L2)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_quant_without_the_kernels_raises(mode):
+    """The quantized lowering IS the kernel path: asking for it without
+    ``use_pallas`` raises instead of quietly running fp32."""
+    from repro_torch.core import EngineOptions, compile_query
+    from repro_torch.data import make_laion_catalog
+
+    cat = make_laion_catalog(n_rows=64, n_queries=2, dim=8, n_modes=2,
+                             device="cpu")
+    sql = ("SELECT sample_id FROM products "
+           "ORDER BY DISTANCE(embedding, ${qv}) LIMIT 3")
+    with pytest.raises(ValueError, match="use_pallas"):
+        compile_query(sql, cat, EngineOptions(engine="brute", quant=mode,
+                                              use_pallas=False))
+    assert cat.quantized_for("products", "embedding", mode) is None

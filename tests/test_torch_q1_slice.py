@@ -204,9 +204,9 @@ def test_unported_surfaces_raise(env):
             "ORDER BY DISTANCE(users.embedding, movies.embedding)) AS rank "
             "FROM users JOIN movies ON users.preferred_rating = movies.rating"
             ") AS ranked WHERE ranked.rank <= 5")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         connect(cat, engine="brute", use_pallas=True,
-                quant="int8").prepare(Q1, K=K)
+                dist=object()).prepare(Q1, K=K)
     with pytest.raises(NotImplementedError, match="item 11"):
         connect(cat, adaptive=True)
     with pytest.raises(NotImplementedError, match="item 12"):
