@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Three paths, each from SQL text through ``connect -> prepare -> execute``
-under ``engine="brute", use_pallas=True``, on the laion1m shape
-(1,000,000 rows of 512-d fp32 vectors, 100 queries; configs/chase_laion.py):
+Six query paths, each from SQL text through ``connect -> prepare ->
+execute`` under ``engine="brute", use_pallas=True``, and the public
+``repro_torch.kernels.pairwise_keys``, on the laion1m shape (1,000,000 rows
+of 512-d fp32 vectors, 100 queries; configs/chase_laion.py):
 
   Q1  VKNN-SF, the filtered vector top-k, K = 50, ``price < p`` at
       selectivity 0.3 (kernels scan_topk, scan_topk_batch);
@@ -16,13 +17,30 @@ under ``engine="brute", use_pallas=True``, on the laion1m shape
       max_pairs 512 (benchmarks/q3_distjoin.py), under the batch lowering
       (range_scan_batch) and the perleft one (range_scan, one launch per
       left row);
+  Q4  the KNN join of 100 users with the 1M movies on
+      ``users.preferred_rating = movies.rating``, K = 50
+      (benchmarks/q4_knnjoin.py), under the batch lowering
+      (scan_topk_batch), the perleft one (scan_topk, one launch per left
+      row) and ``engine="brute_sort"`` (pairwise_keys and a full sort), and
+      with a ``release_year >= y`` bind as a list of two bind sets;
+  Q5  the category partition ``DISTANCE <= r AND cuisine <> 3``, top 10 per
+      calorie level (8 levels; benchmarks/q5q6_category.py), result buffer
+      4096: single dicts (the reference's kernel-less lowering), lists of
+      1, 8, 64 and 100, stacked, exact_shape (range_scan_batch);
+  Q6  the category join of the 100 queries with the corpus on
+      ``DISTANCE <= r AND queries.cuisine <> recipes.cuisine``, top 10 per
+      (query, level): batch lowering and a list of 4 radii
+      (range_scan_batch), perleft (kernel-less, as in the reference);
+  pairwise_keys  the (100, 1M) order-key matrix;
 
-and each again under ``EngineOptions(quant="int8")`` and ``quant="bf16"``:
+and Q1–Q3 again under ``EngineOptions(quant="int8")`` and ``quant="bf16"``:
 the batched scans stream the corpus's int8 or bf16 twin and re-rank their
 candidates with exact fp32 keys (quant_scan_topk_batch for Q1,
 quant_keys_batch for Q2 and Q3, replay_keys for both; a Q2 band wider than
 the replay budget runs range_scan_batch itself).  Every quantized answer
 must equal the fp32 ``use_pallas=True`` answer of the same call bit for bit.
+Q4, Q5 and Q6's batched lowerings run under both modes too, held the same
+way.
 
 The radius is the paper's: the median over the 100 queries of each query's
 120th-best similarity (benchmarks/common.py, range_match_target).  Phases,
@@ -37,31 +55,38 @@ one JSON line each:
            rows; range radii that hit nothing, everything, or lie exactly
            on duplicate rows, and the compaction below and beyond the count;
            the quantized kernels in int8 and bf16, N % 8 != 0, segment
-           counts c·k for k in {1, 10, 50, 512} and c in {1, 2}
+           counts c·k for k in {1, 10, 50, 512} and c in {1, 2};
+           pairwise_keys at 3 metrics, Q in {1, 37, 130}, N in {1, 513,
+           5003}, D in {1, 64, 130, 512}, and bf16 inputs
   replay   replay_keys against the fp32 batched kernels' own keys, bit for
            bit, at 4, 16 and 64 queries per block and every metric
   full     each kernel against its plain version at the paths' shapes
-  slice    Q1, Q2 and Q3 through the session API: single dicts, lists,
+           (pairwise_keys at 100 x 1M x 512, every metric)
+  slice    Q1–Q6 through the session API: single dicts, lists,
            stacked dicts, exact_shape; every answer held against
            use_pallas=False on the card; each path's kernels' launch
-           counters must advance (counters set to 0 before each path)
-  slice_quant  the same paths under int8 and bf16, every answer equal bit
+           counters must advance (counters set to 0 before each path);
+           Q5's single dicts and Q6's perleft lowering must launch none
+  slice_quant  Q1–Q3 and the batched Q4–Q6 under int8 and bf16, every
+           answer equal bit
            for bit to the fp32 use_pallas=True answer; a Q2 call forced
            into the full branch; Q1's coverage (queries whose fp32 top-K
            has a row outside the quantized candidates)
   times    per kernel: its time, its plain version's, the library
            yardstick (timed only), the bound
-  e2e      execute latency and QPS per batch size (Q1, Q2) and per Q3
-           lowering; for the range paths the kernel's and the stage-2
-           compaction's time at the same shapes, and the peak memory; the
-           quantized paths' beside the fp32 ones
+  e2e      execute latency and QPS per batch size (Q1, Q2, Q5) and per
+           join lowering (Q3, Q4, Q6); beside each the kernel's and the
+           stage-2 time at the same shapes (compaction, merge, full sort,
+           category rank), and the peak memory; the quantized Q1–Q3 paths'
+           beside the fp32 ones
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero without the last line.
 
-Tolerance: 1e-5 at D <= 130 and 1e-4 at D = 512 on sims, on the key gap
-that may reorder a near-tie, and on the distance from the radius within
-which a row may be a hit on one side only (fp32 sums of up to 512
-unit-scale products taken in a different order).
+Tolerance: 1e-5 at D <= 130 and 1e-4 at D = 512 on sims and keys, on the
+key gap that may reorder a near-tie, and on the distance from the radius
+within which a row may be a hit on one side only (fp32 sums of up to 512
+unit-scale products taken in a different order).  A Q5/Q6 answer is held
+list by list, each (query, category) list as a range buffer of its hits.
 """
 import json
 import os
@@ -92,8 +117,30 @@ Q3 = ("SELECT queries.id AS qid, images.sample_id AS tid "
       "FROM queries JOIN images "
       "ON DISTANCE(queries.embedding, images.embedding) <= ${r} "
       "AND images.capture_date > queries.capture_date")
+K_CATEGORY, EX = 10, 3        # Q5/Q6: top 10 per level; Q5 excludes cuisine 3
+Q4 = ("SELECT qid, tid FROM (SELECT users.id AS qid, movies.sample_id AS tid, "
+      "RANK() OVER (PARTITION BY users.id "
+      "ORDER BY DISTANCE(users.embedding, movies.embedding)) AS rank "
+      "FROM users JOIN movies ON users.preferred_rating = movies.rating"
+      "{extra}) AS ranked WHERE ranked.rank <= 50")
+Q4Y = Q4.format(extra=" AND movies.release_year >= ${y}")
+Q4 = Q4.format(extra="")
+Q5 = ("SELECT qid, category FROM (SELECT sample_id AS qid, "
+      "calorie_level AS category, RANK() OVER (PARTITION BY calorie_level "
+      "ORDER BY DISTANCE(embedding, ${qv})) AS rank FROM recipes "
+      "WHERE DISTANCE(embedding, ${qv}) <= ${r} AND cuisine <> ${ex}"
+      ") AS ranked WHERE ranked.rank <= 10")
+Q6 = ("SELECT qid, category, tid FROM (SELECT queries.id AS qid, "
+      "recipes.sample_id AS tid, recipes.calorie_level AS category, "
+      "RANK() OVER (PARTITION BY queries.id, recipes.calorie_level "
+      "ORDER BY DISTANCE(queries.embedding, recipes.embedding)) AS rank "
+      "FROM queries JOIN recipes "
+      "ON DISTANCE(queries.embedding, recipes.embedding) <= ${r} "
+      "AND queries.cuisine <> recipes.cuisine) AS ranked "
+      "WHERE ranked.rank <= 10")
 KERNELS = ("scan_topk_batch", "scan_topk", "range_scan_batch", "range_scan",
-           "quant_scan_topk_batch", "quant_keys_batch", "replay_keys")
+           "quant_scan_topk_batch", "quant_keys_batch", "replay_keys",
+           "pairwise_keys")
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in KERNELS}
 REPLACES = {"scan_topk": "src/repro/kernels/scan_topk.py:241",
             "scan_topk_batch": "src/repro/kernels/scan_topk.py:189",
@@ -101,7 +148,8 @@ REPLACES = {"scan_topk": "src/repro/kernels/scan_topk.py:241",
             "range_scan_batch": "src/repro/kernels/range_scan.py:118",
             "quant_scan_topk_batch": "src/repro/kernels/quant.py:132",
             "quant_keys_batch": "src/repro/kernels/quant.py:187",
-            "replay_keys": "src/repro/kernels/quant.py:208"}
+            "replay_keys": "src/repro/kernels/quant.py:208",
+            "pairwise_keys": "src/repro/kernels/distance.py:48"}
 MODES = ("int8", "bf16")
 RESCORE = (2, 3, 4, 6, 8)     # Q1 candidate multiples tried, smallest first
 # published dense peaks (NVIDIA data sheets): bytes/s, fp32 CUDA-core FLOP/s
@@ -204,11 +252,13 @@ def main() -> None:
     from repro_torch.api import ExecutionHints, connect
     from repro_torch.core.expr import (evaluate, evaluate_batch, order_key,
                                        pairwise_order_keys)
+    from repro_torch.core.physical import _ranked_buffer
     from repro_torch.core.schema import Metric
     from repro_torch.data import make_laion_catalog, selectivity_threshold
     from repro_torch.data.quantized import quantize_corpus
     from repro_torch.index.flat import compact_range
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build, ops, pairwise_keys
+    from repro_torch.kernels import distance as dist_mod
     from repro_torch.kernels import quant as qt_mod
     from repro_torch.kernels import range_scan as rs_mod
     from repro_torch.kernels import scan_topk as st_mod
@@ -220,7 +270,8 @@ def main() -> None:
                 "range_scan_batch": rs_mod.range_scan_batch,
                 "quant_scan_topk_batch": qt_mod.quant_scan_topk_batch,
                 "quant_keys_batch": qt_mod.quant_keys_batch,
-                "replay_keys": qt_mod.replay_keys}
+                "replay_keys": qt_mod.replay_keys,
+                "pairwise_keys": dist_mod.pairwise_keys}
 
     def reset_counts() -> None:
         for fn in wrappers.values():
@@ -468,6 +519,28 @@ def main() -> None:
                                            slab(*got, s), slab(*want, s),
                                            atol=tol, tie_tol=tol,
                                            what=f"{what} k={k} c={c}"))
+    # the pairwise key matrix: every metric, ragged Q, N and D (one query,
+    # one row, D = 1), fp32 and bf16 inputs (the op casts them to fp32;
+    # the plain version gets the same rounded values)
+    def check_pairwise(qs, corpus, metric, tol, what):
+        got = pairwise_keys(qs, corpus, metric)
+        want = dist_mod.pairwise_keys_plain(qs.float(), corpus.float(),
+                                            metric)
+        torch.cuda.synchronize()
+        record("pairwise_keys", keys_err(got, want, tol, what))
+
+    for metric in Metric:
+        for n in (1, 513, 5003):
+            for d in (1, 64, 130, 512):
+                tol = 1e-4 if d > 130 else 1e-5
+                corpus = unit((n, d))
+                for qn in (1, 37, 130):
+                    qs = unit((qn, d))
+                    check_pairwise(qs, corpus, metric, tol,
+                                   f"pairwise {metric.value} q={qn} n={n} "
+                                   f"d={d}")
+                check_pairwise(qs.bfloat16(), corpus.bfloat16(), metric, tol,
+                               f"pairwise bf16 {metric.value} n={n} d={d}")
     emit({"phase": "sweep", "cases": cases, "max_abs_err": max_err})
 
     # -- replay: bit for bit the fp32 batched kernels' keys ------------------
@@ -562,12 +635,12 @@ def main() -> None:
     check_range_single(corpus, left[0], rk.reshape(1), date_mask[0], metric,
                        1e-4, "range single full shape (Q3 perleft row)")
     # the quantized kernels at the paths' shapes (Q1's c·K segments, Q2's
-    # keys); the twins are registered under both table names the paths
+    # keys); the twins are registered under every table name the paths
     # scan, so the session reuses them
     twins = {}
     for mode in MODES:
         qc = quantize_corpus(corpus, mode)
-        for tname in ("products", "images"):
+        for tname in ("products", "images", "movies", "recipes"):
             cat.register_quantized(tname, "embedding", qc)
         twins[mode] = qc
         args = (qc.qvecs, qc.scales, batch_q, batch_mask, batch_qvalid)
@@ -590,6 +663,9 @@ def main() -> None:
         record("quant_keys_batch", keys_err(got, want, 1e-4,
                                             f"quant keys {mode} full shape"))
         del got, want, rep
+    # the pairwise key matrix at 100 x 1M x 512: a 400 MB output
+    for m in Metric:
+        check_pairwise(left, corpus, m, 1e-4, f"pairwise {m.value} full shape")
     twin_mb = {mode: {"qvecs": qc.qvecs.numel() * qc.qvecs.element_size()
                       / 1e6, "per_row": 4 * 4 * N_ROWS / 1e6}
                for mode, qc in twins.items()}
@@ -629,7 +705,7 @@ def main() -> None:
              ("exact_shape", stmt, stacked, exact),
              ("fast_path", nofilter, {"qv": qv[:1]}, exact)]
     results = drive("q1", runs)
-    checked = {"q1": {}, "q2": {}, "q3": {}}
+    checked = {path: {} for path in ("q1", "q2", "q3", "q4", "q5", "q6")}
     for label, s, b, h, res in results:
         want = plain_db.prepare(s.sql, K=K).execute(b, hints=h)
         torch.cuda.synchronize()
@@ -729,13 +805,165 @@ def main() -> None:
         "q3", drive("q3", runs),
         lambda label: radii[:, None] if label == "list4" else r,
         lambda label: near_list if label == "list4" else near_q, date_ok)
+
+    # the pairwise key matrix through its public entry point
+    reset_counts()
+    keys_pk = pairwise_keys(left, corpus, metric)
+    torch.cuda.synchronize()
+    launches["pairwise"] = counts()
+    checked["pairwise"] = {"shape": list(keys_pk.shape), "max_abs_err": keys_err(
+        keys_pk, dist_mod.pairwise_keys_plain(left, corpus, metric), 1e-4,
+        "slice pairwise")}
+    del keys_pk
+
+    def as_topk(data: dict) -> dict:
+        return {"ids": data["tid"], "sim": data["sim"],
+                "valid": data["valid"], "stats": data["stats"]}
+
+    # Q4: batch, perleft, brute_sort, and a list of two bind sets
+    users, movies = cat.table("users"), cat.table("movies")
+    qrating = users["preferred_rating"].cpu().numpy()
+    rating = movies["rating"].cpu().numpy()
+    year = movies["release_year"].cpu().numpy()
+    sort_db = connect(cat, engine="brute_sort", use_pallas=True)
+    plain_sort_db = connect(cat, engine="brute_sort", use_pallas=False)
+    q4, q4y = db.prepare(Q4), db.prepare(Q4Y)
+    q4_list = [{"y": np.int32(y)} for y in (1980, 2000)]
+    runs = [("batch", q4, {}, None),
+            ("perleft", db.prepare(Q4, hints=perleft), {}, None),
+            ("brute_sort", sort_db.prepare(Q4), {}, None),
+            ("list2", q4y, q4_list, None)]
+    for label, s, b, h, res in drive("q4", runs):
+        pdb = plain_sort_db if label == "brute_sort" else plain_db
+        want = pdb.prepare(s.sql, hints=s.hints).execute(b, hints=h)
+        torch.cuda.synchronize()
+        for key in ("qid", "rank"):
+            if not torch.equal(res[key], want[key]):
+                raise AssertionError(f"slice q4 {label}: {key} differs")
+        err = assert_topk_close(as_topk(res.data), as_topk(want.data),
+                                atol=1e-4, tie_tol=1e-4,
+                                what=f"slice q4 {label}")
+        tid = res["tid"].cpu().numpy().reshape(-1, N_QUERIES, K)
+        sims_k = res["sim"].cpu().numpy().reshape(-1, N_QUERIES, K)
+        # every user has about 200,000 movies of its rating: lists are full
+        if not res["valid"].all() or not np.isfinite(sims_k).all():
+            raise AssertionError(f"slice q4 {label}: short or non-finite")
+        for j, bset in enumerate(b if isinstance(b, list) else [b]):
+            ok = ((rating[tid[j]] == qrating[:, None])
+                  & (year[tid[j]] >= bset.get("y", 0)))
+            if not ok.all():
+                raise AssertionError(f"slice q4 {label}: a pair fails the "
+                                     f"join predicate")
+        if (np.diff(sims_k, axis=-1) > 0).any():
+            raise AssertionError(f"slice q4 {label}: sims not descending")
+        checked["q4"][label] = {"shape": list(res["tid"].shape),
+                                "max_abs_err": err, "path": res.explain().path,
+                                "lowering": res.explain().batch_lowering}
+
+    # Q5 and Q6: each (query, category) list held as a range buffer
+    recipes = cat.table("recipes")
+    level = recipes["calorie_level"].cpu().numpy()
+    cuisine = recipes["cuisine"].cpu().numpy()
+    qcuisine = qtable["cuisine"].cpu().numpy()
+
+    def category_close(got: dict, want: dict, radius, what: str) -> float:
+        """Hold one Q5/Q6 answer against another: category (and qid)
+        equal, and every (query, category) list under assert_range_close
+        with its count the hits it holds — a row at the radius may be in
+        one side's list only, near-ties may swap."""
+        for key in ("category", "qid"):
+            if key in want and not torch.equal(got[key], want[key]):
+                raise AssertionError(f"{what}: {key} differs")
+        key = "ids" if "ids" in want else "tid"
+
+        def view(d):
+            return {key: d[key], "sim": d["sim"], "valid": d["valid"],
+                    "count": d["valid"].sum(-1), "stats": d["stats"]}
+
+        return assert_range_close(view(got), view(want), radius=radius,
+                                  atol=1e-4, tie_tol=1e-4, what=what)
+
+    def check_category_answers(path: str, results, radius_of, extra):
+        """Hold every answer against use_pallas=False on the card; check
+        the radius, the order within each list, each list's level, and
+        ``extra`` on every hit."""
+        for label, s, b, h, res in results:
+            want = plain_db.prepare(s.sql, hints=s.hints).execute(b, hints=h)
+            torch.cuda.synchronize()
+            err = category_close(res.data, want.data, radius_of(label),
+                                 f"slice {path} {label}")
+            ids = res.ids.cpu().numpy()
+            valid = res["valid"].cpu().numpy()
+            sims_c = res["sim"].cpu().numpy()
+            if (sims_c[valid] < np.min(radius_of(label)) - 1e-4).any():
+                raise AssertionError(f"slice {path} {label}: a hit below r")
+            if ((np.diff(sims_c, axis=-1) > 0) & valid[..., 1:]).any():
+                raise AssertionError(f"slice {path} {label}: not best-first")
+            lv = res["category"].cpu().numpy()
+            if (level[ids[valid]] != lv[valid]).any():
+                raise AssertionError(f"slice {path} {label}: a row in "
+                                     f"another level's list")
+            extra(label, ids, valid)
+            held = valid.sum(-1)
+            checked[path.split("_")[0]][label] = {
+                "shape": list(ids.shape), "max_abs_err": err,
+                "path": res.explain().path, "bucket": res.explain().bucket,
+                "lowering": res.explain().batch_lowering,
+                "held_median": float(np.median(held)),
+                "full_lists": float((held == K_CATEGORY).mean())}
+
+    def cuisine_ok(label, ids, valid):
+        if not (cuisine[ids[valid]] != EX).all():
+            raise AssertionError(f"slice q5 {label}: a row of cuisine {EX}")
+
+    q5 = db.prepare(Q5)
+    q5_binds = [{"qv": qv[i], "r": r, "ex": np.int32(EX)}
+                for i in range(N_QUERIES)]
+    q5_stacked = {"qv": qv, "r": np.full(N_QUERIES, r, np.float32),
+                  "ex": np.full(N_QUERIES, EX, np.int32)}
+    runs = [(f"list{qn}", q5, q5_binds[:qn], None) for qn in BATCHES]
+    runs += [("stacked", q5, q5_stacked, None),
+             ("exact_shape", q5, q5_stacked, exact)]
+    check_category_answers("q5", drive("q5", runs), lambda label: r,
+                           cuisine_ok)
+    runs = [(f"single{i}", q5, q5_binds[i], None) for i in range(3)]
+    check_category_answers("q5_single", drive("q5_single", runs),
+                           lambda label: r, cuisine_ok)
+
+    def join_cuisine_ok(label, ids, valid):
+        ids = ids.reshape(-1, N_QUERIES, ids.shape[-2] * ids.shape[-1])
+        valid = valid.reshape(ids.shape)
+        for i in range(N_QUERIES):
+            if not (cuisine[ids[:, i][valid[:, i]]] != qcuisine[i]).all():
+                raise AssertionError(f"slice q6 {label}: a pair of one "
+                                     f"cuisine")
+
+    q6 = db.prepare(Q6)
+    runs = [("batch", q6, {"r": r}, None),
+            ("list4", q6, [{"r": x} for x in radii], None)]
+    check_category_answers(
+        "q6", drive("q6", runs),
+        lambda label: radii[:, None, None] if label == "list4" else r,
+        join_cuisine_ok)
+    check_category_answers(
+        "q6_perleft", drive("q6_perleft", [
+            ("perleft", db.prepare(Q6, hints=perleft), {"r": r}, None)]),
+        lambda label: r, join_cuisine_ok)
     need = {"q1": ("scan_topk", "scan_topk_batch"),
             "q2": ("range_scan_batch",),
-            "q3": ("range_scan", "range_scan_batch")}
+            "q3": ("range_scan", "range_scan_batch"),
+            "pairwise": ("pairwise_keys",),
+            "q4": ("scan_topk_batch", "scan_topk", "pairwise_keys"),
+            "q5": ("range_scan_batch",),
+            "q6": ("range_scan_batch",)}
     for path, kernels in need.items():
         for kname in kernels:
             if launches[path][kname] < 1:
                 raise AssertionError(f"path {path} never launched {kname}")
+    # the reference lowers these without a kernel, and so does the port
+    for path in ("q5_single", "q6_perleft"):
+        if any(launches[path].values()):
+            raise AssertionError(f"path {path} launched {launches[path]}")
     emit({"phase": "slice", "radius": float(r), "launches": launches,
           "runs": checked,
           "trace_counts": {str(b): c for b, c in
@@ -759,16 +987,35 @@ def main() -> None:
         corpus, batch_q, K, batch_mask.view(torch.bool), metric,
         qvalid=batch_qvalid.bool())[0][:N_QUERIES]
 
-    def missing(qc, c: int) -> int:
-        """Queries whose fp32 top-K holds a row outside the rows of the
-        quantized top-(c·K) segments (Q1 at bucket 128)."""
-        got = qt_mod.quant_scan_topk_batch(qc.qvecs, qc.scales, batch_q,
-                                           batch_mask, batch_qvalid, c * K,
-                                           metric)
-        rows = qt_mod.candidate_rows(*got, c * K)[:N_QUERIES]
-        inside = ((fp32_top[:, :, None] == rows[:, None, :]).any(-1)
-                  | (fp32_top < 0))
+    def missing(qc, c: int, qs, mask, valid, top) -> int:
+        """Queries whose fp32 top-K ``top`` holds a row outside the rows of
+        the quantized top-(c·K) segments."""
+        got = qt_mod.quant_scan_topk_batch(qc.qvecs, qc.scales, qs, mask,
+                                           valid, c * K, metric)
+        rows = qt_mod.candidate_rows(*got, c * K)[:top.shape[0]]
+        inside = ((top[:, :, None] == rows[:, None, :]).any(-1) | (top < 0))
         return int((~inside.all(1)).sum())
+
+    def coverage_factor(qc, cov: tuple, what: str) -> tuple[dict, int]:
+        """The smallest rescore factor whose candidates hold every fp32
+        top-K row, with the misses of each factor tried."""
+        miss = {}
+        for c in RESCORE:
+            miss[c] = missing(qc, c, *cov)
+            if miss[c] == 0:
+                return miss, c
+        raise AssertionError(f"{what}: no rescore factor in {RESCORE} "
+                             f"covers the fp32 top-K")
+
+    # Q1 at bucket 128; Q4's two bind sets (200 left rows)
+    q1_cov = (batch_q, batch_mask, batch_qvalid, fp32_top)
+    q4_masks = torch.cat([
+        (movies["rating"][None, :] == users["preferred_rating"][:, None])
+        & (movies["release_year"][None, :] >= int(b["y"])) for b in q4_list])
+    q4_qs = left.repeat(len(q4_list), 1)
+    q4_cov = (q4_qs, q4_masks.view(torch.int8), None,
+              ops.fused_scan_topk_batch(corpus, q4_qs, K, q4_masks,
+                                        metric)[0])
 
     # every row hits: the maybe band is the corpus, wider than the replay
     # budget of 2·CAPACITY rows
@@ -790,26 +1037,22 @@ def main() -> None:
     q2_full_binds = [{"qv": qv[i], "r": np.float32(-2.0),
                       "p": np.float32(3e38)} for i in range(8)]
     fp32_of = {"q1": stmt, "q2": q2, "q2_full": q2, "q3": q3,
-               "q3_budget": q3}
+               "q3_budget": q3, "q4": q4y, "q5": q5, "q6": q6}
     need_q = {"q1": ("quant_scan_topk_batch", "replay_keys"),
               "q2": ("quant_keys_batch",),
               "q2_full": ("quant_keys_batch", "range_scan_batch"),
               "q3": ("quant_keys_batch",),
-              "q3_budget": ("quant_keys_batch", "replay_keys")}
+              "q3_budget": ("quant_keys_batch", "replay_keys"),
+              "q4": ("quant_scan_topk_batch", "replay_keys"),
+              "q5": ("quant_keys_batch",),
+              "q6": ("quant_keys_batch",)}
     coverage, bands, qchecked, qstmts = {}, {}, {}, {}
     for mode in MODES:
-        miss = {2: missing(twins[mode], 2)}
-        c1 = 2
-        if miss[2]:
-            for c in RESCORE[1:]:
-                miss[c] = missing(twins[mode], c)
-                if miss[c] == 0:
-                    c1 = c
-                    break
-            else:
-                raise AssertionError(f"{mode}: no rescore factor in "
-                                     f"{RESCORE} covers the fp32 top-K")
-        coverage[mode] = {"missing_queries": miss, "rescore_factor": c1}
+        miss, c1 = coverage_factor(twins[mode], q1_cov, f"q1 {mode}")
+        miss4, c4 = coverage_factor(twins[mode], q4_cov, f"q4 {mode}")
+        coverage[mode] = {"missing_queries": miss, "rescore_factor": c1,
+                          "q4_missing_queries": miss4,
+                          "q4_rescore_factor": c4}
         qdb = connect(cat, engine="brute", use_pallas=True, quant=mode)
         q1s = connect(cat, engine="brute", use_pallas=True, quant=mode,
                       rescore_factor=c1).prepare(Q1, K=K)
@@ -843,6 +1086,19 @@ def main() -> None:
                       rescore_factor=c3).prepare(Q3)
         results["q3_budget"] = drive(f"q3_budget_{mode}", [
             ("single", q3b, {"r": r}, None)])
+        # the batched Q4–Q6 lowerings (a single dict runs them at Q = 1)
+        q4s = connect(cat, engine="brute", use_pallas=True, quant=mode,
+                      rescore_factor=c4).prepare(Q4Y)
+        results["q4"] = drive(f"q4_{mode}", [
+            ("single", q4s, q4_list[0], None),
+            ("list2", q4s, q4_list, None)])
+        q5s, q6s = qdb.prepare(Q5), qdb.prepare(Q6)
+        results["q5"] = drive(f"q5_{mode}", [
+            ("single0", q5s, q5_binds[0], None),
+            (f"list{N_QUERIES}", q5s, q5_binds, None)])
+        results["q6"] = drive(f"q6_{mode}", [
+            ("single", q6s, {"r": r}, None),
+            ("list4", q6s, [{"r": x} for x in radii], None)])
         for path, res in results.items():
             for label, _s, b, h, out in res:
                 if label.startswith("single"):
@@ -992,6 +1248,13 @@ def main() -> None:
             lambda: qt_mod.replay_keys_plain(corpus, batch_q, replay_rows,
                                              metric),
             lib_replay, bound(replay_bytes, 2 * DIM * replay_pairs)),
+        # the (100, 1M) key matrix: corpus and queries in, keys out
+        "pairwise_keys": (
+            lambda: dist_mod.pairwise_keys(left, corpus, metric),
+            lambda: dist_mod.pairwise_keys_plain(left, corpus, metric),
+            lambda: -torch.matmul(left, corpus.T),
+            bound(N_ROWS * DIM * 4 + N_QUERIES * DIM * 4
+                  + N_QUERIES * N_ROWS * 4, 2 * N_QUERIES * N_ROWS * DIM)),
     }
 
     def timed(table: dict) -> dict:
@@ -1025,7 +1288,10 @@ def main() -> None:
                      "range_batch_plan": list(rs_mod.batch_plan(N_ROWS,
                                                                 bucket)),
                      "quant_plan": list(q_plan),
-                     "replay_pairs": replay_pairs},
+                     "replay_pairs": replay_pairs,
+                     "pairwise": [N_QUERIES, N_ROWS, DIM],
+                     "pairwise_plan": list(rs_mod.batch_plan(N_ROWS,
+                                                             N_QUERIES))},
           "kernels": times, "kernels_bf16": times_bf16,
           "bucket8": bucket8})
 
@@ -1122,6 +1388,148 @@ def main() -> None:
           "runs": q2_e2e})
     emit({"phase": "e2e", "path": "q3", "device": name, "nvidia_smi": smi,
           "left_rows": N_QUERIES, "runs": q3_e2e})
+
+    # Q4: each lowering beside its kernel and its stage 2 (the merge of the
+    # per-split lists, or the full sort)
+    rating_mask = (movies["rating"][None, :]
+                   == users["preferred_rating"][:, None])
+    rating_m8 = rating_mask.view(torch.int8)
+    sort_stmt = sort_db.prepare(Q4)
+    q4_perleft = db.prepare(Q4, hints=perleft)
+    q4_e2e = {}
+    stage1 = st_mod.scan_topk_batch(corpus, left, rating_m8, None, K, metric)
+    q4_e2e["batch"] = {
+        "latency_ms": latency_ms(lambda: q4.execute(), iters=5),
+        "kernel": "scan_topk_batch",
+        "kernel_ms": time_ms(lambda: st_mod.scan_topk_batch(
+            corpus, left, rating_m8, None, K, metric), 2, 5),
+        "stage2_ms": time_ms(lambda: ops._merge(*stage1, K, metric), 2, 5),
+        "peak_mb": peak_mb(lambda: q4.execute())}
+    rows1 = [st_mod.scan_topk(corpus, left[i], rating_m8[i], K, metric)
+             for i in range(N_QUERIES)]
+    q4_e2e["perleft"] = {
+        "latency_ms": latency_ms(lambda: q4_perleft.execute(), iters=3),
+        "kernel": f"scan_topk x {N_QUERIES}",
+        "kernel_ms": time_ms(lambda: [st_mod.scan_topk(
+            corpus, left[i], rating_m8[i], K, metric)
+            for i in range(N_QUERIES)], 1, 3),
+        "stage2_ms": time_ms(lambda: [ops._merge(kk.reshape(-1),
+                                                 ii.reshape(-1), K, metric)
+                                      for kk, ii in rows1], 1, 3),
+        "peak_mb": peak_mb(lambda: q4_perleft.execute())}
+    del stage1, rows1
+    sort_keys = dist_mod.pairwise_keys(left, corpus, metric)
+    q4_e2e["brute_sort"] = {
+        "latency_ms": latency_ms(lambda: sort_stmt.execute(), iters=3),
+        "kernel": "pairwise_keys",
+        "kernel_ms": time_ms(lambda: dist_mod.pairwise_keys(left, corpus,
+                                                            metric), 2, 5),
+        "stage2_ms": time_ms(lambda: compact_range(
+            sort_keys.masked_fill(~rating_mask, float("inf")), K, metric),
+            1, 3),
+        "peak_mb": peak_mb(lambda: sort_stmt.execute())}
+    del sort_keys
+    for row in q4_e2e.values():
+        row["left_rows_per_s"] = N_QUERIES * 1e3 / row["latency_ms"]
+        row["kernel_share"] = row["kernel_ms"] / row["latency_ms"]
+        row["stage2_share"] = row["stage2_ms"] / row["latency_ms"]
+    emit({"phase": "e2e", "path": "q4", "device": name, "nvidia_smi": smi,
+          "left_rows": N_QUERIES, "k": K, "runs": q4_e2e})
+
+    # Q5 per batch size and Q6 per lowering: the range kernel, then stage 2
+    # (the compaction to the 4096-row buffer and the per-category rank)
+    n_levels = recipes.schema["calorie_level"].num_categories
+    levels = recipes["calorie_level"]
+
+    def rank_stage(keys):
+        return _ranked_buffer(metric, levels,
+                              *compact_range(keys, CAPACITY, metric),
+                              n_levels, K_CATEGORY)
+
+    q5_pred = q5.compiled.analysis.structured_predicate
+
+    def q5_inputs(qn: int):
+        """The batched kernel's inputs for a Q5 list of ``qn`` binds,
+        edge-padded to the bucket as the executor pads them."""
+        b = 1 << (qn - 1).bit_length()
+        idx = np.minimum(np.arange(b), qn - 1)
+        mask = evaluate_batch(q5_pred, recipes,
+                              {"ex": np.full(b, EX, np.int32)},
+                              b).contiguous().view(torch.int8)
+        valid = (torch.arange(b, device=dev) < qn).to(torch.int8)
+        return (torch.from_numpy(qv[idx]).to(dev), rk.expand(b).contiguous(),
+                mask, valid)
+
+    def cat_stage(kernel_fn, loops: int = 1) -> tuple:
+        """(kernel ms, stage-2 ms) at one path's shapes."""
+        keys = kernel_fn()[0]
+        reps = (1, 3) if keys.numel() > 2e8 else (2, 5)
+        return (time_ms(kernel_fn, *reps),
+                time_ms(lambda: [rank_stage(keys) for _ in range(loops)],
+                        *reps))
+
+    q5_e2e = {}
+    single_keys = torch.where(
+        (sims[0] >= float(r)) & (recipes["cuisine"] != EX), -sims[0],
+        float("inf"))
+    q5_e2e["single"] = {
+        "latency_ms": latency_ms(lambda: q5.execute(q5_binds[0])),
+        "kernel": "none (reference lowering)", "kernel_ms": 0.0,
+        "stage2_ms": time_ms(lambda: rank_stage(single_keys)),
+        "peak_mb": peak_mb(lambda: q5.execute(q5_binds[0])), "queries": 1}
+    for qn in BATCHES:
+        inputs = q5_inputs(qn)
+        k_ms, s_ms = cat_stage(
+            lambda: rs_mod.range_scan_batch(corpus, *inputs, metric))
+        q5_e2e[f"batch{qn}"] = {
+            "latency_ms": latency_ms(lambda: q5.execute(q5_binds[:qn]),
+                                     iters=5),
+            "kernel": "range_scan_batch", "kernel_ms": k_ms,
+            "stage2_ms": s_ms,
+            "peak_mb": peak_mb(lambda: q5.execute(q5_binds[:qn])),
+            "queries": qn, "bucket": inputs[0].shape[0]}
+    for row in q5_e2e.values():
+        row["qps"] = row["queries"] * 1e3 / row["latency_ms"]
+    q6_mask = (recipes["cuisine"][None, :]
+               != qtable["cuisine"][:, None]).view(torch.int8)
+    q6_perleft = db.prepare(Q6, hints=perleft)
+    q6_e2e = {}
+    k_ms, s_ms = cat_stage(lambda: rs_mod.range_scan_batch(
+        corpus, left, q3_rk, q6_mask, None, metric))
+    q6_e2e["batch"] = {"latency_ms": latency_ms(lambda: q6.execute({"r": r}),
+                                                iters=5),
+                       "kernel": "range_scan_batch", "kernel_ms": k_ms,
+                       "stage2_ms": s_ms, "bind_sets": 1,
+                       "peak_mb": peak_mb(lambda: q6.execute({"r": r}))}
+    row_keys = torch.where((sims[0] >= float(r)) & (q6_mask[0] != 0),
+                           -sims[0], float("inf"))
+    q6_e2e["perleft"] = {
+        "latency_ms": latency_ms(lambda: q6_perleft.execute({"r": r}),
+                                 iters=3),
+        "kernel": "none (reference lowering)", "kernel_ms": 0.0,
+        "stage2_ms": time_ms(lambda: [rank_stage(row_keys)
+                                      for _ in range(N_QUERIES)], 1, 3),
+        "bind_sets": 1,
+        "peak_mb": peak_mb(lambda: q6_perleft.execute({"r": r}))}
+    mask4_q6 = q6_mask.repeat(4, 1)
+    k_ms, s_ms = cat_stage(lambda: rs_mod.range_scan_batch(
+        corpus, left4, rk4, mask4_q6, None, metric))
+    q6_e2e["list4"] = {"latency_ms": latency_ms(lambda: q6.execute(list4),
+                                                iters=3),
+                       "kernel": "range_scan_batch", "kernel_ms": k_ms,
+                       "stage2_ms": s_ms, "bind_sets": 4,
+                       "peak_mb": peak_mb(lambda: q6.execute(list4))}
+    for row in list(q5_e2e.values()) + list(q6_e2e.values()):
+        row["kernel_share"] = row["kernel_ms"] / row["latency_ms"]
+        row["stage2_share"] = row["stage2_ms"] / row["latency_ms"]
+    for row in q6_e2e.values():
+        row["left_rows_per_s"] = (row["bind_sets"] * N_QUERIES * 1e3
+                                  / row["latency_ms"])
+    emit({"phase": "e2e", "path": "q5", "device": name, "nvidia_smi": smi,
+          "k_per_category": K_CATEGORY, "runs": q5_e2e})
+    emit({"phase": "e2e", "path": "q6", "device": name, "nvidia_smi": smi,
+          "left_rows": N_QUERIES, "k_per_category": K_CATEGORY,
+          "runs": q6_e2e})
 
     # the quantized paths, each beside the fp32 number measured above
     for mode in MODES:

@@ -11,8 +11,11 @@ Statement``, ONE ``Statement.execute`` front door.
   fingerprint plus the canonicalized static binds, LRU-bounded.  A hit
   reuses the compiled plan AND its bucket executors.
 
-Serving, the adaptive optimizer, the on-disk plan cache and the live corpus
-belong to later slices of the port and raise ``NotImplementedError``.
+Every query class (Q1–Q6) prepares under every engine, the default
+``EngineOptions()`` included, on the flat path until the IVF index is
+ported.  Serving, the adaptive optimizer, the on-disk plan cache and the
+live corpus belong to later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -15,10 +15,14 @@ a plain closure over the plan, and ``trace_counts[bucket]`` counts the
 executor objects built for that bucket.  "Compiled once per bucket" keeps
 its meaning — a second batch in the same bucket builds nothing.
 
-The port compiles Q1 (VKNN-SF), Q2 (DR-SF) and Q3 (distance join) under
-``engine="brute"``, with or without ``EngineOptions.quant``; every other
-query class and engine, and the dist option, raise ``NotImplementedError``
-naming their ROADMAP.md item (live corpora cannot be registered yet).
+The port compiles all six query classes (Q1 VKNN-SF, Q2 DR-SF, the Q3
+distance join, the Q4 KNN join, Q5 category partition, the Q6 category
+join) on the flat path, with or without ``EngineOptions.quant``.  No IVF
+index can be registered yet, so every engine lowers as the reference lowers
+a missing index: ``chase``, ``vbase``, ``pase`` and ``brute`` run the flat
+scan, ``brute_sort`` the Q4 full sort.  An index would raise
+``NotImplementedError`` naming its ROADMAP.md item, as the dist option does
+(live corpora cannot be registered yet).
 """
 from __future__ import annotations
 
@@ -405,14 +409,20 @@ class CompiledQuery:
 def _gather_arrays(a: Analysis, catalog: Catalog,
                    options: EngineOptions) -> dict:
     """The device tensors a compiled pipeline reads: the scanned corpus, a
-    join's left embeddings, and under ``quant`` the scanned column's
-    quantized twin — built and registered on the catalog at the first
-    prepare that needs it, shared by every later one."""
+    join's left embeddings, Q5/Q6's category column, and under ``quant``
+    the scanned column's quantized twin — built and registered on the
+    catalog at the first prepare that needs it, shared by every later
+    one."""
     if a.query_class in _SINGLE_TABLE:
-        arrays = {"corpus": catalog.table(a.table)[a.vector_column]}
+        scanned = catalog.table(a.table)
+        arrays = {"corpus": scanned[a.vector_column]}
     else:
+        scanned = catalog.table(a.right_table)
         arrays = {"left": catalog.table(a.left_table)[a.left_vector],
-                  "corpus": catalog.table(a.right_table)[a.right_vector]}
+                  "corpus": scanned[a.right_vector]}
+    if a.query_class in (QueryClass.CATEGORY_PARTITION,
+                         QueryClass.CATEGORY_JOIN):
+        arrays["categories"] = scanned[a.category_column.name]
     if options.quant is not None:
         from ..data.quantized import quantize_corpus
         table, column = _scan_of(a)
@@ -480,13 +490,6 @@ def _batch_lowering(a: Analysis, options: EngineOptions):
             "native (query-tiled kernels / multi-cluster probes)")
 
 
-_CLASS_ITEMS = {
-    QueryClass.KNN_JOIN: "7 (joins, Q4-Q6)",
-    QueryClass.CATEGORY_PARTITION: "7 (joins, Q4-Q6)",
-    QueryClass.CATEGORY_JOIN: "7 (joins, Q4-Q6)",
-}
-
-
 def _validate_quant(options: EngineOptions) -> None:
     """Reject option combinations the quantized lowering cannot honor (the
     reference's checks and messages).
@@ -541,16 +544,22 @@ def _single_via_batch(bfn: Callable) -> Callable:
     return fn
 
 
-def _validate_slice(a: Analysis, options: EngineOptions) -> None:
-    """Reject what this slice of the port does not lower yet."""
+# the engines whose plans probe an IVF index when one is registered
+_INDEX_ENGINES = ("chase", "vbase", "pase", "chase_no_updatestate")
+
+
+def _validate_slice(a: Analysis, catalog: Catalog,
+                    options: EngineOptions) -> None:
+    """Reject what the port does not lower yet.  Without an index on the
+    scanned column every engine takes the reference's missing-index
+    branch, the flat scan (``brute_sort`` its full sort)."""
     if a.query_class == QueryClass.NON_HYBRID:
         raise NotImplementedError(
             "plan did not match a hybrid pattern; use the interpreter engine")
-    if a.query_class not in BUILDERS:
-        raise not_ported(f"query class {a.query_class.value}",
-                      _CLASS_ITEMS[a.query_class])
-    if options.engine != "brute":
-        raise not_ported(f"engine {options.engine!r}", "5 (IVF engines)")
+    if (options.engine in _INDEX_ENGINES
+            and catalog.index_for(*_scan_of(a)) is not None):
+        raise not_ported(f"engine {options.engine!r} over an IVF index",
+                         "5 (IVF engines)")
     if options.dist is not None:
         raise not_ported("EngineOptions.dist (sharded scans)", "13")
 
@@ -574,7 +583,7 @@ def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
     """Compile an already-parsed logical plan (the plan-cache entry point)."""
     a = analyze(plan, catalog)
     _validate_quant(options)
-    _validate_slice(a, options)
+    _validate_slice(a, catalog, options)
     rewritten = rewrite(a)
     arrays = _gather_arrays(a, catalog, options)
     batch_builder, batch_native, batch_reason = _batch_lowering(a, options)

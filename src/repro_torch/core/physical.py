@@ -5,16 +5,18 @@ tensors on the catalog's device; the batched builders take
 ``(arrays, binds, qvalid=None, probe_budget=None)`` with every bind carrying
 a leading Q axis.
 
-The port lowers Q1 (VKNN-SF), Q2 (DR-SF) and Q3 (distance join) under
-``engine="brute"``: the compiled, fused, index-less full scan, which the
-reference's parity suites treat as ground truth.  With ``use_pallas`` the
-scans run on the fused CUDA kernels (the option keeps the reference's
-name); without it, on the plain torch
-:class:`~repro_torch.index.flat.FlatIndex`.  With ``quant`` the batched
-scans stream the corpus's int8 or bf16 twin and re-rank in exact fp32
-(``kernels/quant.py``): the answers stay the fp32 kernels' bit for bit.
-The other engines and query classes are later slices (ROADMAP.md queue 1)
-and are rejected at compile time.
+The port lowers all six query classes — Q1 (VKNN-SF), Q2 (DR-SF), Q3
+(distance join), Q4 (KNN join), Q5 (category partition), Q6 (category
+join) — on the flat path: the compiled, fused, index-less full scan, which
+the reference's parity suites treat as ground truth.  No IVF index can be
+registered yet (ROADMAP.md queue 1 item 5), so every engine takes the
+reference's missing-index branch: the flat scan, or under ``brute_sort``
+Q4's full sort.  With ``use_pallas`` the scans run on the fused CUDA
+kernels (the option keeps the reference's name); without it, on the plain
+torch :class:`~repro_torch.index.flat.FlatIndex`.  With ``quant`` the
+batched scans stream the corpus's int8 or bf16 twin and re-rank in exact
+fp32 (``kernels/quant.py``): the answers stay the fp32 kernels' bit for
+bit.
 """
 from __future__ import annotations
 
@@ -23,9 +25,10 @@ from typing import Any, Callable
 
 import torch
 
-from ..index.flat import FlatIndex, compact_range
+from ..index.flat import FlatIndex, compact_range, masked_topk
 from .expr import (Bindings, Column, Expr, Param, as_tensor, evaluate,
-                   evaluate_batch, evaluate_expr, order_key, stacked_param)
+                   evaluate_batch, evaluate_expr, order_key,
+                   pairwise_order_keys, stacked_param)
 from .schema import Catalog, Metric, Table
 from .semantics import Analysis, QueryClass
 
@@ -35,7 +38,8 @@ class ProbeConfig:
     """Static IVF probe parameters (the engine's physical-operator knobs).
 
     Carried in :class:`EngineOptions` (and so in its fingerprint) exactly as
-    in the reference; the IVF probes that read it are the next slice."""
+    in the reference.  The flat range plans read ``capacity``; the IVF
+    probes that read the rest are a later slice."""
     max_probes: int = 64            # hard cap on clusters visited
     min_probes: int = 4             # converge-first phase (Alg.1 lines 2-3)
     stop_after_no_improve: int = 4  # top-k adaptive-queue stop (VBASE analogue)
@@ -584,26 +588,438 @@ def _build_dist_join_perleft(a: Analysis, catalog: Catalog,
     return fn
 
 
+# ---------------------------------------------------------------------------
+# Q4 — entity-centric KNN join
+# ---------------------------------------------------------------------------
+
+def _flat_topk_rows(flat: FlatIndex, qs, k: int, rm):
+    """The plain per-query top-k over an (M, d) batch, one query at a time
+    (the torch form of the reference's ``jax.vmap`` over ``FlatIndex.topk``):
+    each row is the single-query scan's answer bit for bit, so the batch and
+    perleft lowerings agree exactly."""
+    rows = [flat.topk(qs[i], k, None if rm is None else rm[i])
+            for i in range(qs.shape[0])]
+    return tuple(torch.stack(c) for c in zip(*rows))
+
+
+def _sort_keys(opts: EngineOptions, metric: Metric, corpus, qs):
+    """(M, N) order keys for the full-sort plan: the pairwise-key kernel
+    with ``use_pallas``, else one plain row at a time (so that a row's keys
+    do not depend on the batch it rides in)."""
+    if opts.use_pallas:
+        from ..kernels.ops import pairwise_keys
+        return pairwise_keys(qs, corpus, metric)
+    return torch.cat([pairwise_order_keys(metric, corpus, qs[i:i + 1])
+                      for i in range(qs.shape[0])])
+
+
+def _full_sort_topk(opts: EngineOptions, metric: Metric, corpus, qs, k: int,
+                    rm, qvalid=None):
+    """The Fig. 5a plan: the window sorts the WHOLE partition
+    (|B| log |B|) per left row — the full sort is the measured
+    inefficiency.  ``torch.sort(stable=True)``, so ties go to the lowest
+    id as ``jnp.argsort`` sends them."""
+    keys = _sort_keys(opts, metric, corpus, qs)                  # (M, N)
+    if rm is not None:
+        keys = keys.masked_fill(~rm, float("inf"))
+    if qvalid is not None:
+        keys = keys.masked_fill(~qvalid[:, None], float("inf"))
+    return compact_range(keys, k, metric)
+
+
+def _knn_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions,
+                   k: int):
+    """(arrays, qs (M, d), rm (M, N) | None) -> (ids, sims, valid, stats)."""
+    metric = _metric_of(catalog, a.right_table, a.right_vector)
+
+    def core(arrays, qs, rm, qvalid=None, probe_budget=None):
+        # probe_budget: the flat scans have no probe lane (ignored)
+        corpus = arrays["corpus"]
+        m, n = qs.shape[0], corpus.shape[0]
+        if opts.engine == "brute_sort":
+            ids, sims, valid = _full_sort_topk(opts, metric, corpus, qs, k,
+                                               rm, qvalid)
+        elif opts.use_pallas:   # brute (compiled top-k; LingoDB-V-like)
+            ids, sims, valid = _flat_topk_batch(opts, arrays, metric, corpus,
+                                                qs, k, rm, qvalid=qvalid)
+        else:
+            ids, sims, valid = _flat_topk_rows(FlatIndex(metric, corpus), qs,
+                                               k, rm)
+            if qvalid is not None:
+                valid = valid & qvalid[:, None]
+                ids = torch.where(valid, ids, -1)
+                sims = torch.where(valid, sims, 0.0)
+        stats = {"probes": torch.zeros((m,), dtype=torch.int32,
+                                       device=corpus.device),
+                 "distance_evals": _flat_evals(qvalid, m, n, corpus.device)}
+        return ids, sims, valid, stats
+
+    return core
+
+
+def _ranks(k: int, shape, device) -> torch.Tensor:
+    return torch.arange(1, k + 1, dtype=torch.int32,
+                        device=device).expand(shape)
+
+
+def build_knn_join(a: Analysis, catalog: Catalog, opts: EngineOptions,
+                   binds_static: Bindings) -> Callable:
+    """Q4 (entity-centric KNN join): the per-left top-k as one query batch
+    (``join_lowering='perleft'`` keeps the loop)."""
+    if opts.join_lowering == "perleft":
+        return _build_knn_join_perleft(a, catalog, opts, binds_static)
+    ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
+    k = _static_int(a.k, binds_static, "K")
+    mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
+                                 a.right_alias)
+    core = _knn_join_core(a, catalog, opts, k)
+
+    def fn(arrays, binds):
+        lvec = arrays["left"]                                   # (L, d)
+        rm = mask_b(binds) if mask_b else None                  # (L, N)
+        ids, sims, valid, stats = core(arrays, lvec, rm)
+        qid = torch.arange(lvec.shape[0], dtype=torch.int32,
+                           device=ids.device)
+        return {"qid": qid[:, None].expand(ids.shape), "tid": ids,
+                "sim": sims, "valid": valid,
+                "rank": _ranks(k, ids.shape, ids.device), "stats": stats}
+
+    return fn
+
+
+def build_knn_join_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
+                         binds_static: Bindings) -> Callable:
+    """Q bind sets x L left rows, flattened into ONE kernel query batch."""
+    ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
+    k = _static_int(a.k, binds_static, "K")
+    mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
+                                 a.right_alias)
+    core = _knn_join_core(a, catalog, opts, k)
+
+    def fn(arrays, binds, qvalid=None, probe_budget=None):
+        lvec = arrays["left"]
+        qn, nleft, qs, rm = _flatten_left_batch(lvec, binds, mask_b)
+        fq, fb = _flatten_valid_budget(qvalid, probe_budget, qn, nleft,
+                                       lvec.device)
+        ids, sims, valid, stats = core(arrays, qs, rm, qvalid=fq,
+                                       probe_budget=fb)
+        shape = (qn, nleft, k)
+        qid = torch.arange(nleft, dtype=torch.int32, device=ids.device)
+        return {"qid": qid[None, :, None].expand(shape),
+                "tid": ids.reshape(shape), "sim": sims.reshape(shape),
+                "valid": valid.reshape(shape),
+                "rank": _ranks(k, shape, ids.device),
+                "stats": {key: v.reshape(qn, nleft)
+                          for key, v in stats.items()}}
+
+    return fn
+
+
+def _build_knn_join_perleft(a: Analysis, catalog: Catalog,
+                            opts: EngineOptions,
+                            binds_static: Bindings) -> Callable:
+    """The per-left-row baseline: one scan per left row — under ``brute``
+    with ``use_pallas``, one launch of the single-query top-k kernel each;
+    under ``brute_sort`` one full sort each."""
+    ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
+    metric = _metric_of(catalog, a.right_table, a.right_vector)
+    k = _static_int(a.k, binds_static, "K")
+    pair_mask = _join_mask_fn(a.join_predicate, ltab, rtab, a.left_alias,
+                              a.right_alias)
+
+    def fn(arrays, binds):
+        lvec = arrays["left"]
+        corpus = arrays["corpus"]
+        dev = corpus.device
+        n = corpus.shape[0]
+        flat = FlatIndex(metric, corpus)
+        rows = []
+        for i in range(lvec.shape[0]):
+            rm = pair_mask(i, binds) if pair_mask else None
+            if opts.engine == "brute_sort":
+                rows.append(tuple(v[0] for v in _full_sort_topk(
+                    opts, metric, corpus, lvec[i:i + 1], k,
+                    None if rm is None else rm[None])))
+            else:
+                rows.append(_flat_topk(opts, flat, lvec[i], k, rm))
+        ids, sims, valid = (torch.stack(c) for c in zip(*rows))
+        nleft = ids.shape[0]
+        qid = torch.arange(nleft, dtype=torch.int32, device=dev)
+        stats = {"probes": torch.zeros(nleft, dtype=torch.int32, device=dev),
+                 "distance_evals": torch.full((nleft,), n, dtype=torch.int32,
+                                              device=dev)}
+        return {"qid": qid[:, None].expand(ids.shape), "tid": ids,
+                "sim": sims, "valid": valid,
+                "rank": _ranks(k, ids.shape, dev), "stats": stats}
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Q5 / Q6 — category-driven
+# ---------------------------------------------------------------------------
+
+def _rank_per_category(metric: Metric, ids, keys, valid, cats, C: int,
+                       K: int):
+    """(..., P) result buffers -> (..., C, K) per-category top-K: the window
+    operator over the range scan's output, for one buffer or a batch of
+    them at once (the reference's ``_rank_per_category`` and
+    ``_rank_per_category_batch``).  It consumes the scan's similarity
+    through ``keys`` (the map-operator contract) and sorts stably, so equal
+    keys keep their buffer order, as ``lax.top_k`` keeps it."""
+    c = torch.arange(C, dtype=cats.dtype, device=cats.device)[:, None]
+    member = valid[..., None, :] & (cats[..., None, :] == c)     # (..., C, P)
+    ck, cids, cvalid = masked_topk(keys[..., None, :].expand(member.shape),
+                                   ids[..., None, :], member, K)
+    sims = torch.where(cvalid, -ck if metric.is_similarity() else ck, 0.0)
+    return cids, sims, cvalid
+
+
+def _ranked_buffer(metric: Metric, cats, ids, sims, valid, C: int, k: int):
+    """A best-first range buffer -> its per-category ranking.  The keys are
+    rebuilt from the buffer's own sims (not from the corpus), so the rank
+    orders exactly what the scan emitted."""
+    keys = torch.where(valid, order_key(metric, sims), float("inf"))
+    bcats = torch.where(valid, cats[ids.clamp_min(0).long()], -1)
+    return _rank_per_category(metric, ids, keys, valid, bcats, C, k)
+
+
+def _category_core(opts: EngineOptions, metric: Metric, C: int, k: int):
+    """(arrays, qs (M, d), radius, rm (M, N) | None) -> (M, C, K) ranked
+    batch.  Shared by the Q5 bind-batch lowering and the Q6 left-row batch:
+    one flat range scan of the (M, d) query batch, then the window rank for
+    all M queries at once."""
+    capacity = opts.probe.capacity
+
+    def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None):
+        # probe_budget: the flat scan has no probe lane (ignored)
+        ids, sims, valid, _count, stats = _flat_range_topk_batch(
+            opts, metric, arrays["corpus"], qs, radius, rm, capacity,
+            qvalid=qvalid, arrays=arrays)
+        cids, csims, cvalid = _ranked_buffer(metric, arrays["categories"],
+                                             ids, sims, valid, C, k)
+        return cids, csims, cvalid, stats
+
+    return core
+
+
+def _category_of(table: Table, a: Analysis) -> int:
+    col = a.category_column.name
+    C = table.schema[col].num_categories
+    if not C:
+        raise ValueError(f"category column {col} needs num_categories")
+    return C
+
+
+def _categories(C: int, shape, device) -> torch.Tensor:
+    """The category index of each (..., C, K) slot."""
+    return torch.arange(C, dtype=torch.int32,
+                        device=device)[:, None].expand(shape)
+
+
+def _single_range(metric: Metric, corpus, q, radius, row_mask,
+                  capacity: int):
+    """The reference's kernel-less single-query range lowering: the plain
+    flat scan and a top-``capacity`` of its hits, capped at N."""
+    hit, raw = FlatIndex(metric, corpus).range_mask(q, radius, row_mask)
+    return _compact(hit, raw, metric, min(capacity, corpus.shape[0]))
+
+
+def build_category_partition(a: Analysis, catalog: Catalog,
+                             opts: EngineOptions,
+                             binds_static: Bindings) -> Callable:
+    """Q5 (category-driven, single table): the range scan, then the
+    per-category rank.  As in the reference, the single-query brute plan
+    runs the exact plain scan whatever ``use_pallas`` says."""
+    table = catalog.table(a.table)
+    metric = _metric_of(catalog, a.table, a.vector_column)
+    k = _static_int(a.k, binds_static, "K")
+    C = _category_of(table, a)
+    mask_fn = _row_mask_fn(a.structured_predicate, table)
+    qparam = a.query_expr
+    radius_expr = a.radius
+    capacity = opts.probe.capacity
+
+    def fn(arrays, binds):
+        corpus = arrays["corpus"]
+        dev = corpus.device
+        q = as_tensor(binds[qparam.name], dev)
+        radius = evaluate(radius_expr, table, binds)
+        row_mask = mask_fn(binds) if mask_fn else None
+        ids, sims, valid = _single_range(metric, corpus, q, radius, row_mask,
+                                         capacity)
+        cids, csims, cvalid = _ranked_buffer(metric, arrays["categories"],
+                                             ids, sims, valid, C, k)
+        stats = {"probes": torch.tensor(0, dtype=torch.int32, device=dev),
+                 "distance_evals": torch.tensor(corpus.shape[0],
+                                                dtype=torch.int32,
+                                                device=dev)}
+        return {"ids": cids, "sim": csims, "valid": cvalid,
+                "category": _categories(C, cids.shape, dev), "stats": stats}
+
+    return fn
+
+
+def build_category_partition_batch(a: Analysis, catalog: Catalog,
+                                   opts: EngineOptions,
+                                   binds_static: Bindings) -> Callable:
+    """Q5 over Q bind sets: one batched range scan + one window rank."""
+    table = catalog.table(a.table)
+    metric = _metric_of(catalog, a.table, a.vector_column)
+    k = _static_int(a.k, binds_static, "K")
+    C = _category_of(table, a)
+    mask_fn = _row_mask_batch_fn(a.structured_predicate, table)
+    qparam = a.query_expr
+    core = _category_core(opts, metric, C, k)
+    radius_expr = a.radius
+
+    def fn(arrays, binds, qvalid=None, probe_budget=None):
+        dev = arrays["corpus"].device
+        qs = as_tensor(binds[qparam.name], dev)                  # (Q, D)
+        qn = qs.shape[0]
+        radius = _radius_batch(radius_expr, table, binds, qn)
+        if qvalid is not None:
+            qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
+        row_mask = mask_fn(binds, qn) if mask_fn else None       # (Q, N)
+        cids, csims, cvalid, stats = core(arrays, qs, radius, row_mask,
+                                          qvalid=qvalid,
+                                          probe_budget=probe_budget)
+        return {"ids": cids, "sim": csims, "valid": cvalid,
+                "category": _categories(C, cids.shape, dev), "stats": stats}
+
+    return fn
+
+
+def _category_join_output(cids, csims, cvalid, stats, C: int) -> dict:
+    nleft = cids.shape[0]
+    qid = torch.arange(nleft, dtype=torch.int32, device=cids.device)
+    return {"qid": qid[:, None, None].expand(cids.shape), "tid": cids,
+            "sim": csims, "valid": cvalid,
+            "category": _categories(C, cids.shape, cids.device),
+            "stats": stats}
+
+
+def build_category_join(a: Analysis, catalog: Catalog, opts: EngineOptions,
+                        binds_static: Bindings) -> Callable:
+    """Q6 (category-driven join): Q5's scan + rank for every left row, as
+    one query batch (``join_lowering='perleft'`` keeps the loop)."""
+    if opts.join_lowering == "perleft":
+        return _build_category_join_perleft(a, catalog, opts, binds_static)
+    ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
+    metric = _metric_of(catalog, a.right_table, a.right_vector)
+    k = _static_int(a.k, binds_static, "K")
+    C = _category_of(rtab, a)
+    mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
+                                 a.right_alias)
+    core = _category_core(opts, metric, C, k)
+    radius_expr = a.radius
+
+    def fn(arrays, binds):
+        radius = evaluate(radius_expr, rtab, binds)
+        rm = mask_b(binds) if mask_b else None                  # (L, N)
+        return _category_join_output(*core(arrays, arrays["left"], radius,
+                                           rm), C)
+
+    return fn
+
+
+def build_category_join_batch(a: Analysis, catalog: Catalog,
+                              opts: EngineOptions,
+                              binds_static: Bindings) -> Callable:
+    """Q bind sets x L left rows, flattened into ONE kernel query batch."""
+    ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
+    metric = _metric_of(catalog, a.right_table, a.right_vector)
+    k = _static_int(a.k, binds_static, "K")
+    C = _category_of(rtab, a)
+    mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
+                                 a.right_alias)
+    core = _category_core(opts, metric, C, k)
+    radius_expr = a.radius
+
+    def fn(arrays, binds, qvalid=None, probe_budget=None):
+        lvec = arrays["left"]
+        qn, nleft, qs, rm = _flatten_left_batch(lvec, binds, mask_b)
+        fq, fb = _flatten_valid_budget(qvalid, probe_budget, qn, nleft,
+                                       lvec.device)
+        radius = _radius_batch(radius_expr, rtab, binds, qn)
+        cids, csims, cvalid, stats = core(
+            arrays, qs, radius.repeat_interleave(nleft), rm, qvalid=fq,
+            probe_budget=fb)
+        shape = (qn, nleft, C, k)
+        qid = torch.arange(nleft, dtype=torch.int32, device=lvec.device)
+        return {"qid": qid[None, :, None, None].expand(shape),
+                "tid": cids.reshape(shape), "sim": csims.reshape(shape),
+                "valid": cvalid.reshape(shape),
+                "category": _categories(C, shape, lvec.device),
+                "stats": {key: v.reshape(qn, nleft)
+                          for key, v in stats.items()}}
+
+    return fn
+
+
+def _build_category_join_perleft(a: Analysis, catalog: Catalog,
+                                 opts: EngineOptions,
+                                 binds_static: Bindings) -> Callable:
+    """The per-left-row baseline: Q5's single-query plan once per left row
+    (the plain flat scan: the reference lowers it without a kernel)."""
+    ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
+    metric = _metric_of(catalog, a.right_table, a.right_vector)
+    k = _static_int(a.k, binds_static, "K")
+    C = _category_of(rtab, a)
+    pair_mask = _join_mask_fn(a.join_predicate, ltab, rtab, a.left_alias,
+                              a.right_alias)
+    radius_expr = a.radius
+    capacity = opts.probe.capacity
+
+    def fn(arrays, binds):
+        lvec = arrays["left"]
+        corpus = arrays["corpus"]
+        dev = corpus.device
+        n = corpus.shape[0]
+        radius = evaluate(radius_expr, rtab, binds)
+        rows = []
+        for i in range(lvec.shape[0]):
+            rm = pair_mask(i, binds) if pair_mask else None
+            ids, sims, valid = _single_range(metric, corpus, lvec[i], radius,
+                                             rm, capacity)
+            rows.append(_ranked_buffer(metric, arrays["categories"], ids,
+                                       sims, valid, C, k))
+        cids, csims, cvalid = (torch.stack(c) for c in zip(*rows))
+        nleft = cids.shape[0]
+        stats = {"probes": torch.zeros(nleft, dtype=torch.int32, device=dev),
+                 "distance_evals": torch.full((nleft,), n, dtype=torch.int32,
+                                              device=dev)}
+        return _category_join_output(cids, csims, cvalid, stats, C)
+
+    return fn
+
+
 BUILDERS = {
     QueryClass.VKNN_SF: build_vknn_sf,
     QueryClass.DR_SF: build_dr_sf,
     QueryClass.DIST_JOIN: build_dist_join,
+    QueryClass.KNN_JOIN: build_knn_join,
+    QueryClass.CATEGORY_PARTITION: build_category_partition,
+    QueryClass.CATEGORY_JOIN: build_category_join,
 }
 
-# Every ported class has a NATIVE batched lowering; the join families
-# flatten (bind sets x left rows) into one kernel-level query batch.  The
+# Every class has a NATIVE batched lowering; the join families flatten
+# (bind sets x left rows) into one kernel-level query batch.  The
 # loop-of-singles fallback remains only for join_lowering='perleft'
 # (core/compiler.py gates it — the measured baseline).
 BATCH_BUILDERS = {
     QueryClass.VKNN_SF: build_vknn_sf_batch,
     QueryClass.DR_SF: build_dr_sf_batch,
     QueryClass.DIST_JOIN: build_dist_join_batch,
+    QueryClass.KNN_JOIN: build_knn_join_batch,
+    QueryClass.CATEGORY_PARTITION: build_category_partition_batch,
+    QueryClass.CATEGORY_JOIN: build_category_join_batch,
 }
 
 # the join classes whose lowering obeys opts.join_lowering: 'perleft' swaps
 # their single-call builder for the per-left loop AND forces the
-# loop-of-singles execute_batch fallback (the reference's set; Q4 and Q6
-# are later slices).
+# loop-of-singles execute_batch fallback (Q5 has no left side, so its
+# batching never degrades).
 JOIN_LOWERING_FAMILIES = frozenset({
     QueryClass.DIST_JOIN, QueryClass.KNN_JOIN, QueryClass.CATEGORY_JOIN,
 })

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("scan_topk.cu", "scan_topk_batch.cu", "range_scan.cu",
            "range_scan_batch.cu", "quant_scan_topk_batch.cu",
-           "quant_keys_batch.cu", "replay_keys.cu")
+           "quant_keys_batch.cu", "replay_keys.cu", "pairwise_keys.cu")
 HEADERS = ("topk_common.cuh", "fp32_tile.cuh", "topk_batch.cuh",
            "range_batch.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,5 +1,6 @@
-"""Public contracts of the fused scans: mask layout, the kernels' stage 1,
-and the stage-2 merges and compactions in plain torch.
+"""Public contracts of the fused scans and the pairwise key matrix: mask
+layout, the kernels' stage 1, and the stage-2 merges and compactions in
+plain torch.
 
 The kernels take ragged N, D and Q and mask the edge themselves, so none of
 the reference's padding helpers is needed: the only layout work left is
@@ -13,6 +14,7 @@ import torch
 from ..core.expr import order_key
 from ..core.schema import Metric
 from ..index.flat import compact_range, stable_smallest_k
+from . import distance
 from .range_scan import range_scan, range_scan_batch
 from .scan_topk import scan_topk, scan_topk_batch
 
@@ -138,3 +140,13 @@ def fused_range_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
     keys, _hit, counts = _range_batch(corpus, queries, radius, row_mask,
                                       metric, qvalid)
     return compact_range(keys, capacity, metric) + (counts,)
+
+
+def pairwise_keys(queries: torch.Tensor, corpus: torch.Tensor,
+                  metric: Metric) -> torch.Tensor:
+    """(Q, N) fp32 order-key matrix (smaller = better) of every (query,
+    corpus row) pair.  Inputs of any float dtype (bf16 included) are cast
+    to fp32, as the reference op does."""
+    return distance.pairwise_keys(queries.to(torch.float32).contiguous(),
+                                  corpus.to(torch.float32).contiguous(),
+                                  metric)

@@ -35,3 +35,23 @@ def range_scan_ref(corpus: torch.Tensor, query: torch.Tensor, radius_key,
     if row_mask is not None:
         hit = hit & row_mask
     return hit, keys
+
+
+def pairwise_keys_ref(queries: torch.Tensor, corpus: torch.Tensor,
+                      metric: Metric) -> torch.Tensor:
+    """(Q, N) order-key matrix oracle, in the reference's float order:
+    q2 − 2ip + c2 for L2, −ip / (‖q‖·‖c‖ + 1e-12) for cosine."""
+    q = queries.to(torch.float32)
+    c = corpus.to(torch.float32)
+    ip = q @ c.T
+    if metric == Metric.INNER_PRODUCT:
+        return -ip
+    if metric == Metric.L2:
+        q2 = torch.sum(q * q, dim=1, keepdim=True)
+        c2 = torch.sum(c * c, dim=1)
+        return q2 - 2.0 * ip + c2[None, :]
+    if metric == Metric.COSINE:
+        qn = torch.linalg.vector_norm(q, dim=1, keepdim=True)
+        cn = torch.linalg.vector_norm(c, dim=1)
+        return -(ip / (qn * cn[None, :] + 1e-12))
+    raise ValueError(metric)

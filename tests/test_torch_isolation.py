@@ -29,7 +29,8 @@ def _modules() -> list[str]:
 
 def test_importing_every_module_loads_no_jax_or_reference():
     mods = _modules()
-    assert "repro_torch.kernels.scan_topk" in mods
+    assert {"repro_torch.kernels.scan_topk",
+            "repro_torch.kernels.distance"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -104,6 +105,11 @@ def test_kernel_wrappers_refuse_other_devices():
         quant.replay_keys(corpus, queries,
                           torch.zeros((2, 5), dtype=torch.int32,
                                       device="meta"), Metric.L2)
+    from repro_torch.kernels import distance, pairwise_keys
+
+    for fn in (distance.pairwise_keys, pairwise_keys):
+        with pytest.raises(ValueError, match="pairwise_keys runs on cuda"):
+            fn(queries, corpus, Metric.COSINE)
 
 
 @pytest.mark.parametrize("mode", ["int8", "bf16"])

@@ -289,6 +289,12 @@ def test_validate_quant(env, change, match):
 
 
 def test_quant_engines_not_ported_yet(env):
-    opts = EngineOptions(engine="chase", use_pallas=True, quant="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_query(Q1, env["cat"], opts, K=K)
+    """With no IVF index (none can be registered yet) engine 'chase' under
+    quant is the flat quantized scan, as in the reference: brute's answer
+    bit for bit."""
+    binds = _binds(env, "q1", 3)
+    chase = connect(env["cat"], engine="chase", use_pallas=True,
+                    quant="int8").prepare(Q1, K=K)
+    brute = connect(env["cat"], engine="brute", use_pallas=True,
+                    quant="int8").prepare(Q1, K=K)
+    _assert_bitwise(chase.execute(binds).data, brute.execute(binds).data)
