@@ -60,6 +60,10 @@ one JSON line each:
            5003}, D in {1, 64, 130, 512}, and bf16 inputs
   replay   replay_keys against the fp32 batched kernels' own keys, bit for
            bit, at 4, 16 and 64 queries per block and every metric
+  pairwise_bits  pairwise_keys bit for bit: against replay_keys over all
+           rows (inner product, cosine) and row i of a Q-query call against
+           the single-query call (every metric), at (n, d) in {(5003, 130),
+           (4099, 64), (3001, 512)} and Q in {1, 8, 37, 100, 130}
   full     each kernel against its plain version at the paths' shapes
            (pairwise_keys at 100 x 1M x 512, every metric)
   slice    Q1–Q6 through the session API: single dicts, lists,
@@ -73,7 +77,8 @@ one JSON line each:
            into the full branch; Q1's coverage (queries whose fp32 top-K
            has a row outside the quantized candidates)
   times    per kernel: its time, its plain version's, the library
-           yardstick (timed only), the bound
+           yardstick (timed only), the bound; pairwise_keys also at Q in
+           {1, 8, 100} beside one torch.matmul
   e2e      execute latency and QPS per batch size (Q1, Q2, Q5) and per
            join lowering (Q3, Q4, Q6); beside each the kernel's and the
            stage-2 time at the same shapes (compaction, merge, full sort,
@@ -579,6 +584,35 @@ def main() -> None:
     emit({"phase": "replay", "bitwise_pairs": replay_pairs,
           "cases": cases["replay_keys"],
           "max_abs_err_vs_plain": max_err["replay_keys"]})
+
+    # -- pairwise_bits: the pairwise kernel's keys bit for bit ----------------
+    # against replay_keys over all rows (inner product and cosine: the same
+    # fmaf chains, query norms and epilogue; L2 adds the norms in another
+    # order), and row i of a Q-query call against the single-query call
+    pair_cases = 0
+    for n, d in ((5003, 130), (4099, 64), (3001, 512)):
+        corpus = unit((n, d))
+        all_rows = torch.arange(n, dtype=torch.int32, device=dev)
+        for metric in Metric:
+            for qn in (1, 8, 37, 100, 130):
+                qs = unit((qn, d))
+                what = f"pairwise bits {metric.value} n={n} d={d} q={qn}"
+                got = pairwise_keys(qs, corpus, metric)
+                if metric != Metric.L2:
+                    rep = qt_mod.replay_keys(
+                        corpus, qs, all_rows.expand(qn, n).contiguous(),
+                        metric)
+                    if not torch.equal(bits(got), bits(rep)):
+                        raise AssertionError(f"{what}: not replay_keys' keys")
+                for i in range(qn):
+                    one = pairwise_keys(qs[i:i + 1], corpus, metric)
+                    if not torch.equal(bits(one[0]), bits(got[i])):
+                        raise AssertionError(
+                            f"{what}: row {i} is not the single-query call")
+                pair_cases += 1
+    emit({"phase": "pairwise_bits", "cases": pair_cases,
+          "checks": ["= replay_keys over all rows (ip, cosine)",
+                     "row of batch = single query (every metric)"]})
 
     # -- the catalog at full width -------------------------------------------
     t0 = time.perf_counter()
@@ -1281,6 +1315,18 @@ def main() -> None:
             "ms": time_ms(lambda: qt_mod.quant_scan_topk_batch(
                 qc.qvecs, qc.scales, q8, m8, v8, 2 * K, metric)),
             "bytes_bound_ms": (twin_bytes(qc) + 8 * N_ROWS) / bw * 1e3}
+    # the pairwise kernel at a single query (Q4 brute_sort perleft), a few
+    # and the 100 queries, each beside one torch.matmul
+    pairwise_by_q = {}
+    for qn in (1, 8, N_QUERIES):
+        qs_ = left[:qn]
+        t_bytes = (N_ROWS * DIM * 4 + qn * DIM * 4 + qn * N_ROWS * 4) / bw
+        pairwise_by_q[qn] = {
+            "ms": time_ms(lambda: dist_mod.pairwise_keys(qs_, corpus,
+                                                         metric)),
+            "matmul_ms": time_ms(lambda: torch.matmul(qs_, corpus.T)),
+            "bound_ms": max(t_bytes, 2 * qn * N_ROWS * DIM / flops) * 1e3,
+            "plan": list(dist_mod.pairwise_plan(N_ROWS, qn))}
     emit({"phase": "times", "device": name, "nvidia_smi": smi,
           "shapes": {"n": N_ROWS, "d": DIM, "k": K, "bucket": bucket,
                      "live_queries": live_q, "qt": qt, "splits": splits,
@@ -1290,10 +1336,10 @@ def main() -> None:
                      "quant_plan": list(q_plan),
                      "replay_pairs": replay_pairs,
                      "pairwise": [N_QUERIES, N_ROWS, DIM],
-                     "pairwise_plan": list(rs_mod.batch_plan(N_ROWS,
-                                                             N_QUERIES))},
+                     "pairwise_plan": list(dist_mod.pairwise_plan(
+                         N_ROWS, N_QUERIES))},
           "kernels": times, "kernels_bf16": times_bf16,
-          "bucket8": bucket8})
+          "bucket8": bucket8, "pairwise_by_q": pairwise_by_q})
 
     # -- e2e -------------------------------------------------------------------
     e2e = {"single": latency_ms(lambda: stmt.execute(binds[0]))}

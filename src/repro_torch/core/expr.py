@@ -12,8 +12,9 @@ leading query axis and returns (Q, N).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Iterator, Sequence
 
 import torch
 
@@ -192,14 +193,47 @@ def order_key(metric: Metric, values: torch.Tensor) -> torch.Tensor:
     return -values if metric.is_similarity() else values
 
 
+# the per-backend matmul settings that full_fp32 pins and restores
+_MATMUL_BACKENDS = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+
+
+@contextlib.contextmanager
+def full_fp32() -> Iterator[None]:
+    """Run the fp32 products inside in full fp32 (no TF32 on the card, no
+    bf16 passes on the CPU), whatever matmul precision the caller set, and
+    restore the caller's settings afterwards, also on an exception.
+
+    The plain paths are the card's correctness yardstick, so their keys
+    must not follow ``torch.set_float32_matmul_precision``.  The legacy
+    setting and the per-backend ones (``torch.backends.cuda.matmul`` and
+    ``torch.backends.mkldnn.matmul`` ``.fp32_precision``) are saved apart
+    and restored in that order.  Torch refuses to read the legacy setting
+    once a caller has set only the per-backend ones; the legacy one is then
+    at its default, "highest"."""
+    saved = [m.fp32_precision for m in _MATMUL_BACKENDS]
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        legacy = "highest"
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(legacy)
+        for m, p in zip(_MATMUL_BACKENDS, saved):
+            m.fp32_precision = p
+
+
 def pairwise_order_keys(metric: Metric, corpus: torch.Tensor,
                         queries: torch.Tensor) -> torch.Tensor:
     """(Q, N) order keys of every (query, corpus row) pair: one fp32
-    ``torch.matmul`` plus the metric epilogue, in the fused kernels' float
-    order (‖x‖² − 2ip + ‖q‖² for L2, −ip/(‖x‖‖q‖ + 1e-12) for cosine)."""
+    ``torch.matmul`` (under :func:`full_fp32`) plus the metric epilogue, in
+    the fused kernels' float order (‖x‖² − 2ip + ‖q‖² for L2,
+    −ip/(‖x‖‖q‖ + 1e-12) for cosine)."""
     corpus = corpus.to(torch.float32)
     queries = queries.to(torch.float32)
-    ip = torch.matmul(queries, corpus.T)                       # (Q, N)
+    with full_fp32():
+        ip = torch.matmul(queries, corpus.T)                   # (Q, N)
     if metric == Metric.INNER_PRODUCT:
         return -ip
     xx = torch.sum(corpus * corpus, dim=-1)[None, :]

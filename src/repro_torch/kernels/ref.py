@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.expr import distance_values, order_key
+from ..core.expr import distance_values, full_fp32, order_key
 from ..core.schema import Metric
 from ..index.flat import stable_smallest_k
 
@@ -43,7 +43,8 @@ def pairwise_keys_ref(queries: torch.Tensor, corpus: torch.Tensor,
     q2 − 2ip + c2 for L2, −ip / (‖q‖·‖c‖ + 1e-12) for cosine."""
     q = queries.to(torch.float32)
     c = corpus.to(torch.float32)
-    ip = q @ c.T
+    with full_fp32():
+        ip = q @ c.T
     if metric == Metric.INNER_PRODUCT:
         return -ip
     if metric == Metric.L2:

@@ -96,3 +96,58 @@ def test_wrapper_checks_and_refuses_other_devices():
         distance.pairwise_keys(torch.zeros((2, 0)), torch.zeros((3, 0)),
                                Metric.L2)
     assert distance.pairwise_keys.launches == 0      # the CPU launches none
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan (what the wrapper passes to the CUDA launcher)
+# ---------------------------------------------------------------------------
+
+PLAN_QS = [1, 8, 16, 17, 100, 128, 129, 540]
+PLAN_NS = [1, 513, 1_000_000]
+INT32_MAX = 2**31 - 1
+
+
+@pytest.mark.parametrize("n", PLAN_NS)
+@pytest.mark.parametrize("qn", PLAN_QS)
+def test_plan_covers_every_row_and_query(qn, n):
+    qt, rt, row_blocks, query_blocks = distance.pairwise_plan(n, qn)
+    assert (qt, rt) in distance.PAIRWISE_SHAPES
+    # every row and query in a block, and no block wholly past the end
+    assert row_blocks * rt >= n > (row_blocks - 1) * rt
+    assert query_blocks * qt >= qn > (query_blocks - 1) * qt
+    assert query_blocks <= distance.MAX_GRID_Y
+    # the narrow shapes at Q <= 16, the narrowest that holds Q; the wide one
+    # past it, so that 100 queries read the corpus once
+    if qn <= 16:
+        assert qt <= 16 and qt >= qn and query_blocks == 1
+        assert qt == min(s[0] for s in distance.PAIRWISE_SHAPES
+                         if s[0] >= qn)
+    else:
+        assert qt == max(s[0] for s in distance.PAIRWISE_SHAPES)
+    if qn <= qt:
+        assert query_blocks == 1
+
+
+@pytest.mark.parametrize("n", PLAN_NS)
+@pytest.mark.parametrize("qn", PLAN_QS)
+def test_plan_passes_no_32_bit_value_that_overflows(qn, n):
+    """The launcher takes 32-bit ints: every plan value and every extent
+    fits one, while the key offsets q·N + row pass 2^31 at 540 x 1M (the
+    kernel forms them in 64 bits)."""
+    plan = distance.pairwise_plan(n, qn)
+    for v in plan + (n, qn, plan[0] * plan[3], plan[1] * plan[2]):
+        assert 0 < v <= INT32_MAX
+    last_offset = (plan[3] * plan[0] - 1) * n + plan[2] * plan[1] - 1
+    if qn * n > INT32_MAX:
+        assert last_offset > INT32_MAX
+
+
+def test_plan_refuses_what_the_grid_cannot_hold():
+    with pytest.raises(ValueError, match="N, Q >= 1"):
+        distance.pairwise_plan(0, 4)
+    with pytest.raises(ValueError, match="N, Q >= 1"):
+        distance.pairwise_plan(10, 0)
+    widest = max(s[0] for s in distance.PAIRWISE_SHAPES)
+    distance.pairwise_plan(10, distance.MAX_GRID_Y * widest)
+    with pytest.raises(ValueError, match="at most"):
+        distance.pairwise_plan(10, distance.MAX_GRID_Y * widest + 1)

@@ -24,10 +24,12 @@ import torch
 from repro.api import ExecutionHints as RefHints
 from repro.api import connect as ref_connect
 from repro.core.physical import ProbeConfig as RefProbe
+from repro.core.schema import Metric as RefMetric
 from repro.data import make_laion_catalog as ref_make_catalog
 from repro_torch.api import ExecutionHints, connect
 from repro_torch.core import EngineOptions, compile_query
 from repro_torch.core.physical import ProbeConfig
+from repro_torch.core.schema import Metric
 from repro_torch.data import make_laion_catalog
 from repro_torch.testing import assert_range_close, assert_topk_close
 
@@ -271,6 +273,34 @@ def test_q4_perleft_launches_one_single_query_scan_per_left_row(
     calls.clear()
     _statements(env, Q4, True, engine="brute_sort")[0].execute()
     assert calls == ["pairwise_keys"]
+
+
+@pytest.fixture(scope="module", params=["l2", "cosine"])
+def metric_env(request):
+    """Both catalogs under another metric than the default inner product
+    (the `brute_sort` key matrix runs every metric's epilogue)."""
+    metric = request.param
+    return (metric,
+            make_laion_catalog(**SMALL, metric=Metric(metric), device="cpu"),
+            ref_make_catalog(**SMALL, metric=RefMetric(metric)))
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("lowering", ["batch", "perleft"])
+def test_q4_brute_sort_matches_reference_under_l2_and_cosine(
+        metric_env, lowering, use_pallas):
+    metric, cat, ref_cat = metric_env
+    kw = dict(engine="brute_sort", use_pallas=use_pallas,
+              join_lowering=lowering)
+    got = connect(cat, **kw).prepare(Q4).execute()
+    ref = ref_connect(ref_cat, **kw).prepare(Q4).execute()
+    assert got["tid"].shape == (SMALL["n_queries"], K4)
+    _assert_exact(got.data, ref.data)
+    assert got["valid"].all()
+    # the brute scan ranks the same rows
+    brute = connect(cat, engine="brute", use_pallas=use_pallas,
+                    join_lowering=lowering).prepare(Q4).execute()
+    assert torch.equal(got["tid"], brute["tid"]), metric
 
 
 # ---------------------------------------------------------------------------
