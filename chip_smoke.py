@@ -64,6 +64,15 @@ one JSON line each:
            rows (inner product, cosine) and row i of a Q-query call against
            the single-query call (every metric), at (n, d) in {(5003, 130),
            (4099, 64), (3001, 512)} and Q in {1, 8, 37, 100, 130}
+  quant_bits  quant_scan_topk_batch bit for bit: its keys (int32 view) and
+           ids equal quant_scan_topk_batch_replayed (replay_keys over the
+           dequantized rows, masked; each 8-row segment's minimum; each
+           split's best), int8 and bf16, every metric, masks none, shared
+           and per-query, count ceil(N / 8) (every segment emitted), 100
+           and 150, at the pairwise_bits shapes, and at 1,000,003 x 64 with
+           Q in {8, 40} and count in {150, 600, 1024} (lists of 256 and
+           1,024 entries); row i of a Q-query call gives the single-query
+           call's candidate_rows
   full     each kernel against its plain version at the paths' shapes
            (pairwise_keys at 100 x 1M x 512, every metric)
   slice    Q1–Q6 through the session API: single dicts, lists,
@@ -77,13 +86,14 @@ one JSON line each:
            into the full branch; Q1's coverage (queries whose fp32 top-K
            has a row outside the quantized candidates)
   times    per kernel: its time, its plain version's, the library
-           yardstick (timed only), the bound; pairwise_keys also at Q in
-           {1, 8, 100} beside one torch.matmul
+           yardstick (timed only), the bound; quant_scan_topk_batch also
+           at Q in {1, 8, 100} beside its yardstick, and pairwise_keys at Q
+           in {1, 8, 100} beside one torch.matmul
   e2e      execute latency and QPS per batch size (Q1, Q2, Q5) and per
            join lowering (Q3, Q4, Q6); beside each the kernel's and the
            stage-2 time at the same shapes (compaction, merge, full sort,
-           category rank), and the peak memory; the quantized Q1–Q3 paths'
-           beside the fp32 ones
+           category rank), and the peak memory; the quantized Q1–Q4 paths'
+           beside the fp32 ones (Q4: one bind set and the list of two)
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero without the last line.
 
@@ -614,6 +624,90 @@ def main() -> None:
           "checks": ["= replay_keys over all rows (ip, cosine)",
                      "row of batch = single query (every metric)"]})
 
+    # -- quant_bits: the quantized top-k kernel's segments bit for bit -------
+    # against its definition on the fp32 kernels' arithmetic (replay_keys
+    # over the dequantized rows, masked, each segment's minimum, each
+    # split's best), with count = ceil(N / 8) (every segment emitted),
+    # Q1's c·K = 100 and 150 (between them the kernel's three block
+    # shapes); and row i of a Q-query call gives the single-query call's
+    # candidate rows (one mask kind per metric)
+    qbit_cases = qbit_rows = 0
+    mask_of = {Metric.INNER_PRODUCT: "per_query", Metric.L2: "shared",
+               Metric.COSINE: "none"}
+    for n, d in ((5003, 130), (4099, 64), (3001, 512)):
+        corpus = unit((n, d))
+        corpus[n // 3: n // 3 + 40] = corpus[7]          # exact duplicates
+        for mode in MODES:
+            qc = quantize_corpus(corpus, mode)
+            for metric in Metric:
+                for qn in (1, 8, 37, 100, 130):
+                    qs = unit((qn, d))
+                    qs[0] = corpus[7]
+                    qv8 = (torch.arange(qn, device=dev)
+                           < max(1, qn - 3)).to(torch.int8)
+                    for mname in ("none", "shared", "per_query"):
+                        m8 = mask8(mname, qn, n)
+                        args = (qc.qvecs, qc.scales, qs, m8, qv8)
+                        for count in (-(-n // qt_mod.SEG), 2 * K, 3 * K):
+                            what = (f"quant bits {mode} {metric.value} n={n} "
+                                    f"d={d} q={qn} {mname} count={count}")
+                            got = qt_mod.quant_scan_topk_batch(*args, count,
+                                                               metric)
+                            want = qt_mod.quant_scan_topk_batch_replayed(
+                                *args, count, metric)
+                            if not (torch.equal(bits(got[0]), bits(want[0]))
+                                    and torch.equal(got[1], want[1])):
+                                raise AssertionError(
+                                    f"{what}: not the replayed segments")
+                            qbit_cases += 1
+                        if mname != mask_of[metric]:
+                            continue
+                        rows = qt_mod.candidate_rows(*got, 2 * K)
+                        for i in range(qn):
+                            one = qt_mod.quant_scan_topk_batch(
+                                qc.qvecs, qc.scales, qs[i:i + 1].contiguous(),
+                                None if m8 is None else m8 if m8.ndim == 1
+                                else m8[i:i + 1].contiguous(),
+                                qv8[i:i + 1].contiguous(), 2 * K, metric)
+                            if not torch.equal(
+                                    qt_mod.candidate_rows(*one, 2 * K)[0],
+                                    rows[i]):
+                                raise AssertionError(
+                                    f"{what}: row {i} is not the "
+                                    "single-query call")
+                            qbit_rows += 1
+    # lists longer than one tile's segments need splits of thousands of
+    # rows: 1M ragged rows at D = 64, counts whose lists hold 256 and 1,024
+    # entries (the mid and narrow shapes)
+    n, d = 1_000_003, 64
+    corpus = unit((n, d))
+    for mode in MODES:
+        qc = quantize_corpus(corpus, mode)
+        for metric in Metric:
+            for qn in (8, 40):
+                qs = unit((qn, d))
+                qv8 = (torch.arange(qn, device=dev)
+                       < max(1, qn - 3)).to(torch.int8)
+                m8 = mask8(mask_of[metric], qn, n)
+                args = (qc.qvecs, qc.scales, qs, m8, qv8)
+                for count in (3 * K, 600, 1024):
+                    what = (f"quant bits {mode} {metric.value} n={n} d={d} "
+                            f"q={qn} {mask_of[metric]} count={count}")
+                    got = qt_mod.quant_scan_topk_batch(*args, count, metric)
+                    want = qt_mod.quant_scan_topk_batch_replayed(
+                        *args, count, metric)
+                    if not (torch.equal(bits(got[0]), bits(want[0]))
+                            and torch.equal(got[1], want[1])):
+                        raise AssertionError(
+                            f"{what}: not the replayed segments")
+                    qbit_cases += 1
+    del corpus, qc, got, want
+    emit({"phase": "quant_bits", "cases": qbit_cases,
+          "single_query_rows": qbit_rows,
+          "checks": ["= quant_scan_topk_batch_replayed, keys (int32 view) "
+                     "and ids, every metric, mode and mask kind",
+                     "row of batch = single query (candidate_rows)"]})
+
     # -- the catalog at full width -------------------------------------------
     t0 = time.perf_counter()
     cat = make_laion_catalog(n_rows=N_ROWS, n_queries=N_QUERIES, dim=DIM,
@@ -1123,6 +1217,7 @@ def main() -> None:
         # the batched Q4–Q6 lowerings (a single dict runs them at Q = 1)
         q4s = connect(cat, engine="brute", use_pallas=True, quant=mode,
                       rescore_factor=c4).prepare(Q4Y)
+        qstmts[mode] += (q4s,)
         results["q4"] = drive(f"q4_{mode}", [
             ("single", q4s, q4_list[0], None),
             ("list2", q4s, q4_list, None)])
@@ -1227,13 +1322,15 @@ def main() -> None:
     replay_bytes = (replay_pairs * DIM * 4 + live_q * DIM * 4
                     + 2 * replay_rows.numel() * 4)
 
-    def dequantized_keys(qc):
-        keys = -(batch_q @ (qc.qvecs.to(torch.float32) * qc.scales).T)
-        keys = keys.masked_fill(batch_mask == 0, float("inf"))
-        return keys.masked_fill((batch_qvalid == 0)[:, None], float("inf"))
+    def dequantized_keys(qc, qs=batch_q, mask=batch_mask,
+                         valid=batch_qvalid):
+        keys = -(qs @ (qc.qvecs.to(torch.float32) * qc.scales).T)
+        keys = keys.masked_fill(mask == 0, float("inf"))
+        return keys.masked_fill((valid == 0)[:, None], float("inf"))
 
-    def lib_quant_topk(qc):
-        seg = dequantized_keys(qc).view(bucket, -1, qt_mod.SEG).amin(-1)
+    def lib_quant_topk(qc, qs=batch_q, mask=batch_mask, valid=batch_qvalid):
+        seg = dequantized_keys(qc, qs, mask, valid).view(
+            qs.shape[0], -1, qt_mod.SEG).amin(-1)
         return torch.topk(seg, 2 * K, dim=1, largest=False)
 
     def lib_replay():
@@ -1315,6 +1412,24 @@ def main() -> None:
             "ms": time_ms(lambda: qt_mod.quant_scan_topk_batch(
                 qc.qvecs, qc.scales, q8, m8, v8, 2 * K, metric)),
             "bytes_bound_ms": (twin_bytes(qc) + 8 * N_ROWS) / bw * 1e3}
+    # the quantized top-k at one query (a quantized single dict), bucket 8
+    # and bucket 128 (100 live), each mode beside the library yardstick
+    quant_by_q = {}
+    for live, b in ((1, 1), (8, 8), (N_QUERIES, bucket)):
+        qs_, m_, v_ = batch_q[:b], batch_mask[:b], batch_qvalid[:b]
+        _, splits_, _, s_ = qt_mod.quant_plan(N_ROWS, b, 2 * K)
+        quant_by_q[live] = {"bucket": b, "plan": list(qt_mod.quant_plan(
+            N_ROWS, b, 2 * K))}
+        for mode, qc in twins.items():
+            b_ms, b_by = bound(
+                twin_bytes(qc) + live * DIM * 4 + live * N_ROWS + b
+                + live * splits_ * s_ * 8, 2 * N_ROWS * DIM * live)
+            quant_by_q[live][mode] = {
+                "ms": time_ms(lambda: qt_mod.quant_scan_topk_batch(
+                    qc.qvecs, qc.scales, qs_, m_, v_, 2 * K, metric)),
+                "library_ms": time_ms(
+                    lambda: lib_quant_topk(qc, qs_, m_, v_), 2, 5),
+                "bound_ms": b_ms, "bound_by": b_by}
     # the pairwise kernel at a single query (Q4 brute_sort perleft), a few
     # and the 100 queries, each beside one torch.matmul
     pairwise_by_q = {}
@@ -1339,7 +1454,8 @@ def main() -> None:
                      "pairwise_plan": list(dist_mod.pairwise_plan(
                          N_ROWS, N_QUERIES))},
           "kernels": times, "kernels_bf16": times_bf16,
-          "bucket8": bucket8, "pairwise_by_q": pairwise_by_q})
+          "bucket8": bucket8, "quant_by_q": quant_by_q,
+          "pairwise_by_q": pairwise_by_q})
 
     # -- e2e -------------------------------------------------------------------
     e2e = {"single": latency_ms(lambda: stmt.execute(binds[0]))}
@@ -1579,7 +1695,7 @@ def main() -> None:
 
     # the quantized paths, each beside the fp32 number measured above
     for mode in MODES:
-        q1s, q2s, q3s = qstmts[mode]
+        q1s, q2s, q3s, q4s = qstmts[mode]
         lat = {"single": latency_ms(lambda: q1s.execute(binds[0]))}
         for qn in BATCHES:
             lat[f"batch{qn}"] = latency_ms(lambda: q1s.execute(binds[:qn]))
@@ -1613,6 +1729,29 @@ def main() -> None:
                     "fp32_peak_mb": fp32[key]["peak_mb"]}
         emit({"phase": "e2e", "path": f"q2_q3_{mode}", "device": name,
               "nvidia_smi": smi, "runs": runs})
+        # quantized Q4 batch: one bind set (100 users) and the list of two,
+        # beside fp32; the kernel at the list's stage-1 shape (200 left
+        # rows, their rating and year masks, c·K segments)
+        c4 = coverage[mode]["q4_rescore_factor"]
+        q4_runs = {}
+        for key, b in (("single", q4_list[0]), ("list2", q4_list)):
+            ms = latency_ms(lambda: q4s.execute(b), iters=5)
+            fp32_ms = latency_ms(lambda: q4y.execute(b), iters=5)
+            q4_runs[key] = {
+                "latency_ms": ms, "fp32_latency_ms": fp32_ms,
+                "left_rows_per_s": (N_QUERIES * (1 if key == "single"
+                                                 else len(q4_list))
+                                    * 1e3 / ms),
+                "peak_mb": peak_mb(lambda: q4s.execute(b))}
+        q4_runs["list2"]["kernel_ms"] = time_ms(
+            lambda: qt_mod.quant_scan_topk_batch(
+                qc.qvecs, qc.scales, q4_qs, q4_masks.view(torch.int8), None,
+                c4 * K, metric), 2, 5)
+        q4_runs["list2"]["kernel_share"] = (q4_runs["list2"]["kernel_ms"]
+                                            / q4_runs["list2"]["latency_ms"])
+        emit({"phase": "e2e", "path": f"q4_{mode}", "device": name,
+              "nvidia_smi": smi, "rescore_factor": c4, "k": K,
+              "runs": q4_runs})
 
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": SOURCES[kname],

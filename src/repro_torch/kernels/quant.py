@@ -42,10 +42,10 @@ from ..core.schema import Metric
 from ..index.flat import stable_smallest_k
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
+from .distance import MAX_GRID_Y
 from .ops import _mask_i8, _radius_keys, fused_range_topk_batch
 from .range_scan import batch_plan as range_batch_plan
-from .scan_topk import MAX_K, _check_k, _split_topk
-from .scan_topk import batch_plan as topk_batch_plan
+from .scan_topk import MAX_K, _cdiv, _check_k, _next_pow2, _split_topk
 
 INF = float("inf")
 I32_MAX = 2 ** 31 - 1
@@ -54,15 +54,65 @@ MAX_SPLIT_ROWS = SEG * MAX_K   # a split holds at most 1,024 segments
 MODE_CODES = {torch.int8: 0, torch.bfloat16: 1}
 
 
+# Block shapes of the quantized top-k kernel (csrc/quant_scan_topk_batch.cu
+# `Wide`, `Mid`, `Narrow`), by queries per block: (rows per tile, columns
+# per staged chunk, blocks per SM its registers are sized for).  A block
+# keeps one list of 2·kp (key, id) pairs per query, so the wide shape
+# serves kp <= 128 and the mid one kp <= 256; the narrow one serves small
+# batches and every larger kp.
+QUANT_SHAPES = {64: (256, 16, 1), 32: (256, 16, 2), 8: (512, 16, 2)}
+NARROW_QUERIES = 16            # up to this many queries, the narrow shape
+MID_QUERIES = 32               # up to this many, the mid one
+SM_COUNT = 132                 # H100 SXM
+SM_SMEM = 233_472              # shared memory of one SM (228 KB)
+BLOCK_SMEM = 232_448           # the most one block may use (227 KB)
+BLOCK_RESERVED = 1_024         # shared memory the card keeps per block
+
+
+def quant_kp(qt: int, k: int) -> int:
+    """List length of the kernel's shape ``qt`` for ``k`` segments kept: a
+    power of two that holds k and one tile's segments."""
+    return _next_pow2(max(k, QUANT_SHAPES[qt][0] // SEG))
+
+
+def quant_smem(qt: int, kp: int) -> int:
+    """Shared memory (bytes) of one block of shape ``qt`` at list length
+    ``kp``: two staging buffers, the tile's row norms, the lists, and six
+    per-query words (the kernel's ``Shape::smem_bytes`` + static)."""
+    rows, depth, _ = QUANT_SHAPES[qt]
+    return 4 * (2 * depth * (rows + qt) + rows) + qt * 2 * kp * 8 + 24 * qt
+
+
 def quant_plan(n: int, qn: int, count: int) -> tuple[int, int, int, int]:
     """(queries per block, splits, rows per split, segments kept per split)
     of the quantized top-k kernel asked for ``count`` = c·k segments per
-    query: the fp32 kernel's plan for min(count, 1024) candidates, splits
-    capped at 8·1024 rows."""
-    qt, splits, rows = topk_batch_plan(n, qn, min(count, MAX_K))
-    if rows > MAX_SPLIT_ROWS:
-        rows = MAX_SPLIT_ROWS
-        splits = -(-n // rows)
+    query.
+
+    The narrow shape up to 16 queries, the mid one up to 32, the wide one
+    beyond; where a shape's lists would not fit (the wide one's past
+    c·k = 128, the mid one's past 256), the next narrower.  Splits are
+    whole tiles of the shape and at most 8·1024 rows (1,024 segments, so a
+    split that cannot hold c·k segments emits all of them); their number
+    fills whole waves of the card's 132 SMs at the blocks per SM the
+    shape's shared memory allows, the fewest waves that keep that cap."""
+    kc = min(count, MAX_K)
+    shapes = (64, 32) if qn > MID_QUERIES else (32,)
+    qt = 8 if qn <= NARROW_QUERIES else next(
+        (t for t in shapes if quant_smem(t, quant_kp(t, kc)) <= BLOCK_SMEM),
+        8)
+    tile, _, minb = QUANT_SHAPES[qt]
+    per_sm = max(1, min(minb, SM_SMEM // (quant_smem(qt, quant_kp(qt, kc))
+                                          + BLOCK_RESERVED)))
+    slots, qtiles = SM_COUNT * per_sm, _cdiv(qn, qt)
+    tiles = max(1, _cdiv(n, tile))
+    least = _cdiv(tiles, MAX_SPLIT_ROWS // tile)
+    waves = _cdiv(least * qtiles, slots)
+    want = min(tiles, max(least, waves * slots // qtiles))
+    rows = _cdiv(tiles, want) * tile
+    splits = _cdiv(n, rows)
+    if splits > MAX_GRID_Y:
+        raise ValueError(f"quant_scan_topk_batch takes at most "
+                         f"{MAX_GRID_Y * MAX_SPLIT_ROWS} rows, got {n}")
     return qt, splits, rows, max(1, min(count, rows // SEG))
 
 
@@ -96,7 +146,12 @@ def _plain_keys(qvecs, scales, queries, mask_i8, qvalid_i8, metric: Metric):
     """(Q, N) order keys of the dequantized rows, +inf on dead lanes: the
     plain form of both quantized kernels' keys."""
     deq = qvecs.to(torch.float32) * scales.reshape(-1, 1)
-    keys = pairwise_order_keys(metric, deq, queries)
+    return _masked(pairwise_order_keys(metric, deq, queries), mask_i8,
+                   qvalid_i8)
+
+
+def _masked(keys, mask_i8, qvalid_i8):
+    """(Q, N) keys with +inf where the row mask or the valid lane is 0."""
     if mask_i8 is not None:
         m = mask_i8 if mask_i8.ndim == 2 else mask_i8[None]
         keys = keys.masked_fill(m == 0, INF)
@@ -113,15 +168,37 @@ def _plain_keys(qvecs, scales, queries, mask_i8, qvalid_i8, metric: Metric):
 def quant_scan_topk_batch_plain(qvecs, scales, queries, mask_i8, qvalid_i8,
                                 count: int, metric: Metric):
     """Plain PyTorch version of the quantized top-k kernel."""
-    n = qvecs.shape[0]
-    qn = queries.shape[0]
     keys = _plain_keys(qvecs, scales, queries, mask_i8, qvalid_i8, metric)
+    return segment_topk(keys, count)
+
+
+def segment_topk(keys: torch.Tensor, count: int):
+    """(Q, N) masked row keys -> the kernel's output for ``count``: each
+    8-row segment's minimum key, and each split's best segments (the plan
+    of :func:`quant_plan`) ascending by (key, id), (+inf, -1) in empty
+    slots."""
+    qn, n = keys.shape
     _, splits, rows, s_count = quant_plan(n, qn, count)
     pad = (-n) % SEG
     if pad:
         keys = torch.cat([keys, keys.new_full((qn, pad), INF)], 1)
     seg_keys = keys.reshape(qn, -1, SEG).amin(dim=-1)
     return _split_topk(seg_keys, s_count, splits, rows // SEG)
+
+
+def quant_scan_topk_batch_replayed(qvecs, scales, queries, mask_i8,
+                                   qvalid_i8, count: int, metric: Metric):
+    """The quantized top-k kernel's output rebuilt on the fp32 kernels' own
+    arithmetic: :func:`replay_keys` of every (query, row) pair over the
+    dequantized corpus, masked, then :func:`segment_topk`.  On the card the
+    kernel must equal it bit for bit, keys and ids (``chip_smoke.py``,
+    phase quant_bits); (Q, N) sized, for small checks."""
+    n = qvecs.shape[0]
+    qn = queries.shape[0]
+    deq = qvecs.to(torch.float32) * scales.reshape(-1, 1)
+    rows = torch.arange(n, dtype=torch.int32, device=qvecs.device)
+    keys = replay_keys(deq, queries, rows.expand(qn, n).contiguous(), metric)
+    return segment_topk(_masked(keys, mask_i8, qvalid_i8), count)
 
 
 def quant_scan_topk_batch(qvecs: torch.Tensor, scales: torch.Tensor,
@@ -147,13 +224,18 @@ def quant_scan_topk_batch(qvecs: torch.Tensor, scales: torch.Tensor,
                        device=dev)
     ids = torch.empty((qn, splits * s_count), dtype=torch.int32, device=dev)
     mask_mode = 0 if mask_i8 is None else 1 if mask_i8.ndim == 1 else 2
+    # 16-byte loads: whole units along D (16 int8 or 8 bf16 columns) and
+    # aligned bases
+    vec = (d % (16 // qvecs.element_size()) == 0
+           and qvecs.data_ptr() % 16 == 0 and queries.data_ptr() % 16 == 0)
     lib, launch = build.launcher(
         "quant_scan_topk_batch.cu", "quant_scan_topk_batch_launch",
-        [P, P, I, P, P, I] + [P] * 3 + [I] * 8 + [P])
+        [P, P, I, P, P, I] + [P] * 3 + [I] * 9 + [P])
     err = launch(
         ptr(qvecs), ptr(scales), MODE_CODES[qvecs.dtype], ptr(queries),
         ptr(mask_i8), mask_mode, ptr(qvalid_i8), ptr(keys), ptr(ids), n, d,
-        qn, s_count, METRIC_CODES[metric], qt, rows, splits, stream(dev))
+        qn, s_count, METRIC_CODES[metric], qt, rows, splits, int(vec),
+        stream(dev))
     build.check(lib, "quant_scan_topk_batch", err)
     quant_scan_topk_batch.launches += 1
     return keys, ids

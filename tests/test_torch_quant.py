@@ -226,6 +226,77 @@ def test_quant_plan_caps_splits():
     assert s_count == rows // 8 < 2048
 
 
+PLAN_QS = [1, 8, 16, 17, 100, 128, 129, 540]
+PLAN_NS = [1, 8, 5003, 1_000_000]
+PLAN_COUNTS = [1, 20, 100, 128, 129, 512, 1024]
+
+
+@pytest.mark.parametrize("count", PLAN_COUNTS)
+@pytest.mark.parametrize("n", PLAN_NS)
+@pytest.mark.parametrize("qn", PLAN_QS)
+def test_quant_plan_covers_and_fits(qn, n, count):
+    """The kernel's plan covers every query and row with splits of whole
+    row tiles, at most 8·1024 rows, keeps max(1, min(count, rows // 8))
+    segments per split, takes the narrow shape at Q <= 16, and the shape's
+    shared memory at the list length the kernel derives from the segment
+    count fits one block (232,448 bytes)."""
+    qt, splits, rows, s_count = quant.quant_plan(n, qn, count)
+    tile = quant.QUANT_SHAPES[qt][0]
+    assert -(-qn // qt) * qt >= qn
+    assert (splits - 1) * rows < n <= splits * rows
+    assert rows % tile == 0 and tile <= rows <= quant.MAX_SPLIT_ROWS
+    assert splits <= 65535                         # gridDim.y
+    assert s_count == max(1, min(count, rows // 8))
+    if qn <= quant.NARROW_QUERIES:
+        assert qt == 8
+    elif qn <= quant.MID_QUERIES:
+        assert qt in (32, 8)
+    assert quant.quant_smem(qt, quant.quant_kp(qt, s_count)) \
+        <= quant.BLOCK_SMEM
+
+
+def test_quant_plan_main_shape():
+    """Q1's bucket of 128 at c·K = 100 over 1M rows: the wide shape (both
+    64-query tiles read each split), 131 splits of 7,680 rows, 262 blocks
+    in two waves of 132 SMs at one block each; bucket 1 and 8: the narrow
+    shape at two blocks per SM, 245 blocks in one wave."""
+    assert quant.quant_plan(1_000_000, 128, 100) == (64, 131, 7680, 100)
+    assert quant.quant_plan(1_000_000, 100, 100) == (64, 131, 7680, 100)
+    for qn in (1, 8):
+        assert quant.quant_plan(1_000_000, qn, 100) == (8, 245, 4096, 100)
+    # 17..32 queries: the mid shape; lists of kp = 256 do not fit 64
+    # queries but fit 32, and kp >= 512 only the narrow shape
+    assert quant.quant_plan(1_000_000, 30, 100)[0] == 32
+    assert quant.quant_plan(1_000_000, 100, 150) == (32, 131, 7680, 150)
+    assert quant.quant_plan(1_000_000, 100, 300)[0] == 8
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "shared", "per_query"])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("mode", MODES)
+def test_replayed_reference_is_the_plain_kernel(mode, metric, mask_kind):
+    """``quant_scan_topk_batch_replayed`` (the card's bitwise reference:
+    replay keys over the dequantized corpus, segment minima, split top)
+    equals the plain kernel version bit for bit on the CPU, where both take
+    the plain keys."""
+    rng = np.random.default_rng(6)
+    n, d, qn = 1003, 24, 5
+    corpus, queries = _unit(rng, (n, d)), _unit(rng, (qn, d))
+    qc = quantize_corpus(corpus, mode)
+    mask = _t(_mask(rng, mask_kind, qn, n))
+    mask = None if mask is None else mask.to(torch.int8)
+    qvalid = torch.tensor([1, 1, 0, 1, 1], dtype=torch.int8)
+    for count in (10, 126):
+        a = (qc.qvecs, qc.scales, torch.from_numpy(queries), mask, qvalid,
+             count, Metric(metric))
+        got = quant.quant_scan_topk_batch_replayed(*a)
+        want = quant.quant_scan_topk_batch_plain(*a)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+        assert (got[1][2] == -1).all()                  # the dead query
+
+
 def test_replay_plain_is_the_fp32_plain_kernel_keys():
     rng = np.random.default_rng(4)
     n, d, qn = 900, 130, 6

@@ -19,10 +19,11 @@ import pytest
 import torch
 
 from repro.api import connect as ref_connect
+from repro.core.schema import Metric as RefMetric
 from repro.data import make_laion_catalog as ref_make_catalog
 from repro_torch.api import ExecutionHints, connect
 from repro_torch.core import EngineOptions, StalePlanError, compile_query
-from repro_torch.core.schema import Table
+from repro_torch.core.schema import Metric, Table
 from repro_torch.data import make_laion_catalog
 from repro_torch.data.quantized import quantize_corpus
 from repro_torch.testing import assert_range_close, assert_topk_close
@@ -175,6 +176,42 @@ def test_single_dict_is_the_fp32_list_of_one(env, mode, case):
     _assert_bitwise(got.data, _first(want.data))
     ref = db(mode, ref=True).prepare(SQL[case], K=K).execute(b[0])
     _assert_close(case, got.data, dict(ref.data), b, single=True)
+
+
+@pytest.fixture(scope="module", params=["l2", "cosine"])
+def metric_env(request):
+    """Both catalogs under another metric than the default inner product:
+    the quantized kernel's keys, segment minima and the replay run each
+    metric's epilogue."""
+    metric = request.param
+    cat = make_laion_catalog(**SMALL, metric=Metric(metric), device="cpu")
+    return {"metric": metric, "cat": cat,
+            "ref_cat": ref_make_catalog(**SMALL, metric=RefMetric(metric)),
+            "left": cat.table("queries")["embedding"].numpy(),
+            "price": cat.table("laion")["price"].numpy()}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_q1_quant_matches_reference_under_l2_and_cosine(metric_env, mode):
+    """Quantized Q1 under L2 and cosine: the reference's quantized answer
+    (ids and valid exact, sims to 1e-5) and the port's fp32 answer bit for
+    bit, for a bucketed list and for a single dict (the fp32 exact-shape
+    list of one)."""
+    cat, ref_cat = metric_env["cat"], metric_env["ref_cat"]
+    binds = _binds(metric_env, "q1", 5, seed=3)             # bucket 8
+    st = connect(cat, engine="brute", use_pallas=True,
+                 quant=mode).prepare(Q1, K=K)
+    got = st.execute(binds)
+    ref = ref_connect(ref_cat, engine="brute", use_pallas=True,
+                      quant=mode).prepare(Q1, K=K).execute(binds)
+    assert_topk_close(got.data, dict(ref.data), atol=TOL, tie_tol=TOL)
+    assert got["valid"].any()
+    fp32 = connect(cat, engine="brute", use_pallas=True).prepare(Q1, K=K)
+    _assert_bitwise(got.data, fp32.execute(binds).data, metric_env["metric"])
+    one = st.execute(binds[0])
+    _assert_bitwise(one.data,
+                    _first(fp32.execute(binds[:1], hints=EXACT).data),
+                    "single dict")
 
 
 # ---------------------------------------------------------------------------
