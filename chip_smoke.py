@@ -59,11 +59,22 @@ one JSON line each:
            pairwise_keys at 3 metrics, Q in {1, 37, 130}, N in {1, 513,
            5003}, D in {1, 64, 130, 512}, and bf16 inputs
   replay   replay_keys against the fp32 batched kernels' own keys, bit for
-           bit, at 4, 16 and 64 queries per block and every metric
+           bit, at each block shape of scan_topk_batch (8, 32 and 64
+           queries per block) and every metric
   pairwise_bits  pairwise_keys bit for bit: against replay_keys over all
            rows (inner product, cosine) and row i of a Q-query call against
            the single-query call (every metric), at (n, d) in {(5003, 130),
            (4099, 64), (3001, 512)} and Q in {1, 8, 37, 100, 130}
+  topk_bits  scan_topk_batch bit for bit: its keys (int32 view) and ids
+           equal scan_topk_batch_replayed (replay_keys over all rows,
+           masked; each split's best k), every metric, masks none, shared
+           and per-query with dead valid lanes, k in {1, 50, 200, 1000}
+           (every block shape and list length), at the pairwise_bits
+           shapes with Q in {1, 8, 20, 37, 100, 130}, at 1,000,003 x 64
+           with Q in {8, 40} (splits of many tiles), and on a corpus whose
+           every row beats the one before it (each insertion round
+           overflows); row i of a Q-query call gives the single-query
+           call's stage-2 answer
   quant_bits  quant_scan_topk_batch bit for bit: its keys (int32 view) and
            ids equal quant_scan_topk_batch_replayed (replay_keys over the
            dequantized rows, masked; each 8-row segment's minimum; each
@@ -86,9 +97,10 @@ one JSON line each:
            into the full branch; Q1's coverage (queries whose fp32 top-K
            has a row outside the quantized candidates)
   times    per kernel: its time, its plain version's, the library
-           yardstick (timed only), the bound; quant_scan_topk_batch also
-           at Q in {1, 8, 100} beside its yardstick, and pairwise_keys at Q
-           in {1, 8, 100} beside one torch.matmul
+           yardstick (timed only), the bound; scan_topk_batch also at
+           buckets 1, 8, 32 and 128 and quant_scan_topk_batch at Q in {1,
+           8, 100}, each beside its yardstick, and pairwise_keys at Q in
+           {1, 8, 100} beside one torch.matmul
   e2e      execute latency and QPS per batch size (Q1, Q2, Q5) and per
            join lowering (Q3, Q4, Q6); beside each the kernel's and the
            stage-2 time at the same shapes (compaction, merge, full sort,
@@ -466,7 +478,7 @@ def main() -> None:
                             radius=raw_of(rk, metric), atol=tol,
                             tie_tol=tol, near=near,
                             what=f"{what} compaction cap={cap}")
-    # k beyond the live rows, and the large-k block shapes (16 and 4 queries)
+    # k beyond the live rows, and the large-k lists (kp = 256 and 1,024)
     corpus = unit((2500, 96))
     sparse = torch.zeros(2500, dtype=torch.int8, device=dev)
     sparse[[0, 999, 1000, 2499]] = 1
@@ -567,7 +579,7 @@ def main() -> None:
         corpus = unit((n, d))
         all_rows = torch.arange(n, dtype=torch.int32, device=dev)
         for metric in Metric:
-            for qn in (3, 16, 37):                  # 4, 16, 64 per block
+            for qn in (3, 20, 37):                  # narrow, mid, wide
                 qs = unit((qn, d))
                 what = f"replay {metric.value} n={n} d={d} q={qn}"
                 keys, ids = st_mod.scan_topk_batch(corpus, qs, None, None,
@@ -624,6 +636,101 @@ def main() -> None:
           "checks": ["= replay_keys over all rows (ip, cosine)",
                      "row of batch = single query (every metric)"]})
 
+    # -- topk_bits: the batched fp32 top-k's keys and ids bit for bit --------
+    # against scan_topk_batch_replayed (replay_keys over all rows, masked,
+    # each split's best k) at the pairwise_bits shapes, k in {1, 50, 200,
+    # 1000} (between them every block shape and list length), with dead
+    # valid lanes; at 1,000,003 x 64 (splits of many tiles); on a corpus
+    # ordered so that each row beats the one before it for every query
+    # (every insertion round overflows its lists); and row i of a Q-query
+    # call gives the single-query call's stage-2 answer (K, one mask kind
+    # per metric)
+    mask_of = {Metric.INNER_PRODUCT: "per_query", Metric.L2: "shared",
+               Metric.COSINE: "none"}
+    topk_cases = topk_rows = 0
+
+    def topk_bits(args, k, metric, what):
+        nonlocal topk_cases
+        got = st_mod.scan_topk_batch(*args, k, metric)
+        want = st_mod.scan_topk_batch_replayed(*args, k, metric)
+        if not (torch.equal(bits(got[0]), bits(want[0]))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{what}: not the replayed top-k")
+        topk_cases += 1
+        return got
+
+    def stage2(out, k, metric):
+        ids, sims, _ = ops._merge(*out, k, metric)
+        return bits(sims), ids
+
+    for n, d in ((5003, 130), (4099, 64), (3001, 512)):
+        corpus = unit((n, d))
+        corpus[n // 3: n // 3 + 40] = corpus[7]          # exact duplicates
+        for metric in Metric:
+            for qn in (1, 8, 20, 37, 100, 130):
+                qs = unit((qn, d))
+                qs[0] = corpus[7]
+                qv8 = (torch.arange(qn, device=dev)
+                       < max(1, qn - 3)).to(torch.int8)
+                for mname in ("none", "shared", "per_query"):
+                    m8 = mask8(mname, qn, n)
+                    args = (corpus, qs, m8, qv8)
+                    for k in (1, K, 200, 1000):
+                        topk_bits(args, k, metric,
+                                  f"topk bits {metric.value} n={n} d={d} "
+                                  f"q={qn} {mname} k={k}")
+                    if mname != mask_of[metric]:
+                        continue
+                    top = stage2(st_mod.scan_topk_batch(*args, K, metric), K,
+                                 metric)
+                    for i in range(qn):
+                        one = stage2(st_mod.scan_topk_batch(
+                            corpus, qs[i:i + 1].contiguous(),
+                            None if m8 is None else m8 if m8.ndim == 1
+                            else m8[i:i + 1].contiguous(),
+                            qv8[i:i + 1].contiguous(), K, metric), K, metric)
+                        if not (torch.equal(one[0][0], top[0][i])
+                                and torch.equal(one[1][0], top[1][i])):
+                            raise AssertionError(
+                                f"topk bits {metric.value} n={n} d={d} "
+                                f"q={qn}: row {i} is not the single-query "
+                                "call")
+                        topk_rows += 1
+    n, d = 1_000_003, 64
+    corpus = unit((n, d))
+    for metric in Metric:
+        for qn in (8, 40):
+            qs = unit((qn, d))
+            qv8 = (torch.arange(qn, device=dev)
+                   < max(1, qn - 3)).to(torch.int8)
+            args = (corpus, qs, mask8(mask_of[metric], qn, n), qv8)
+            for k in (K, 200, 1000):
+                topk_bits(args, k, metric,
+                          f"topk bits {metric.value} n={n} d={d} q={qn} "
+                          f"{mask_of[metric]} k={k}")
+    # t·q + 2(1 − t)·u with u ⊥ q and t rising from 0.5 to 1: each row has
+    # a larger inner product and cosine with q, and a smaller L2 distance
+    n = 100_003
+    q = unit((d,))
+    u = unit((d,))
+    u = u - (u @ q) * q
+    u = u / u.norm()
+    t = torch.linspace(0.5, 1.0, n, device=dev)[:, None]
+    ordered = (t * q + 2.0 * (1.0 - t) * u).contiguous()
+    for metric in Metric:
+        for qn in (8, 40):
+            for k in (K, 1000):
+                topk_bits((ordered, q.expand(qn, d).contiguous(), None, None),
+                          k, metric, f"topk bits ordered {metric.value} "
+                          f"n={n} q={qn} k={k}")
+    del corpus, ordered
+    emit({"phase": "topk_bits", "cases": topk_cases,
+          "single_query_rows": topk_rows,
+          "checks": ["= scan_topk_batch_replayed, keys (int32 view) and "
+                     "ids, every metric and mask kind",
+                     "row of batch = single query (stage 2)",
+                     "rows each beating the last (every round overflows)"]})
+
     # -- quant_bits: the quantized top-k kernel's segments bit for bit -------
     # against its definition on the fp32 kernels' arithmetic (replay_keys
     # over the dequantized rows, masked, each segment's minimum, each
@@ -632,8 +739,6 @@ def main() -> None:
     # shapes); and row i of a Q-query call gives the single-query call's
     # candidate rows (one mask kind per metric)
     qbit_cases = qbit_rows = 0
-    mask_of = {Metric.INNER_PRODUCT: "per_query", Metric.L2: "shared",
-               Metric.COSINE: "none"}
     for n, d in ((5003, 130), (4099, 64), (3001, 512)):
         corpus = unit((n, d))
         corpus[n // 3: n // 3 + 40] = corpus[7]          # exact duplicates
@@ -1430,6 +1535,29 @@ def main() -> None:
                 "library_ms": time_ms(
                     lambda: lib_quant_topk(qc, qs_, m_, v_), 2, 5),
                 "bound_ms": b_ms, "bound_by": b_by}
+    # the fp32 batched top-k at one query (a list of 1), buckets 8 and 32
+    # (30 live; the narrow and mid shapes) and 128 (100 live), beside the
+    # library yardstick
+    fp32_by_q = {}
+    for live, b in ((1, 1), (8, 8), (30, 32), (N_QUERIES, bucket)):
+        qs_, m_ = batch_q[:b], batch_mask[:b]
+        v_ = (torch.arange(b, device=dev) < live).to(torch.int8)
+        _, splits_, _ = st_mod.batch_plan(N_ROWS, b, K)
+        b_ms, b_by = bound(N_ROWS * DIM * 4 + live * DIM * 4 + live * N_ROWS
+                           + b + live * splits_ * K * 8,
+                           2 * N_ROWS * DIM * live)
+
+        def lib_b():
+            keys = -(qs_ @ corpus.T)
+            keys = keys.masked_fill(m_ == 0, float("inf"))
+            keys = keys.masked_fill((v_ == 0)[:, None], float("inf"))
+            return torch.topk(keys, K, dim=1, largest=False)
+        fp32_by_q[live] = {
+            "bucket": b, "plan": list(st_mod.batch_plan(N_ROWS, b, K)),
+            "ms": time_ms(lambda: st_mod.scan_topk_batch(corpus, qs_, m_, v_,
+                                                         K, metric)),
+            "library_ms": time_ms(lib_b, 2, 5), "bound_ms": b_ms,
+            "bound_by": b_by}
     # the pairwise kernel at a single query (Q4 brute_sort perleft), a few
     # and the 100 queries, each beside one torch.matmul
     pairwise_by_q = {}
@@ -1454,7 +1582,8 @@ def main() -> None:
                      "pairwise_plan": list(dist_mod.pairwise_plan(
                          N_ROWS, N_QUERIES))},
           "kernels": times, "kernels_bf16": times_bf16,
-          "bucket8": bucket8, "quant_by_q": quant_by_q,
+          "bucket8": bucket8, "fp32_by_q": fp32_by_q,
+          "quant_by_q": quant_by_q,
           "pairwise_by_q": pairwise_by_q})
 
     # -- e2e -------------------------------------------------------------------

@@ -63,18 +63,15 @@
 // repro_tile::query_norms and the key from the same repro_topk::order_key.
 // So a segment's key is the minimum of replay_keys.cu's keys of its rows on
 // the dequantized corpus, at every batch size and plan.
-#include "fp32_tile.cuh"
+#include "select_tile.cuh"
 
 namespace {
 
 using namespace repro_topk;
+using namespace repro_select;
 
 constexpr int kSeg = 8;                     // rows per segment
 constexpr int kChunk = repro_tile::kDepth;  // each chain runs over whole chunks
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxBlockSmem = 232448;       // H100: the most one block may use
-
-enum MaskMode : int { kNoMask = 0, kSharedMask = 1, kPerQueryMask = 2 };
 
 // A block shape: BQ queries × BR rows, each thread an RM × QM micro-tile, a
 // warp LR threads along rows, BK columns of D per staged chunk, MINB blocks
@@ -129,21 +126,6 @@ struct Units {
   static_assert(RU % 32 == 0 && QU % 32 == 0, "unit kinds switch by warp");
 };
 
-// M values of a micro-tile from one staged k row, 16 bytes at a time:
-// groups of 4 consecutive entries starting at t·4, the groups B / (M / 4)
-// entries apart.
-template <int M, int B>
-__device__ __forceinline__ void fragment(const float* row, int t,
-                                         float (&v)[M]) {
-#pragma unroll
-  for (int g = 0; g < M / 4; ++g) {
-    const float4 x =
-        *reinterpret_cast<const float4*>(row + g * (B / (M / 4)) + t * 4);
-    v[4 * g] = x.x; v[4 * g + 1] = x.y; v[4 * g + 2] = x.z;
-    v[4 * g + 3] = x.w;
-  }
-}
-
 // The UC fp32 values of a 16-byte twin unit.  int8: float(q) · scale, one
 // rounded product; the byte is widened exactly as 2^23 + (q + 128) − (2^23
 // + 128) (integer ops and one exact subtraction instead of the
@@ -167,83 +149,6 @@ __device__ __forceinline__ void dequant(const uint4& raw, float scale,
       v[2 * i] = __uint_as_float(w[i] << 16);
       v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
-  }
-}
-
-// Mask bytes p[0 .. 3] packed little-endian, 0 past `avail` (>= 1): one
-// 4-byte load where the address allows it.
-__device__ __forceinline__ unsigned mask4(const int8_t* p, int avail) {
-  if (avail >= 4 && (reinterpret_cast<uintptr_t>(p) & 3) == 0)
-    return __ldg(reinterpret_cast<const unsigned*>(p));
-  unsigned w = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (e < avail)
-      w |= static_cast<unsigned>(static_cast<uint8_t>(__ldg(p + e)))
-           << (8 * e);
-  return w;
-}
-
-// Merge one query's list by one warp: `keys` / `ids` hold kp sorted
-// entries followed by a buffer of `cnt` candidates (then empty entries).
-// The occupied part of the buffer is sorted (sort_segments' bitonic network
-// on the next power of two >= cnt), the head keeps the smaller of entry i
-// and buffer entry kp − 1 − i (a bitonic sequence of the kp smallest), and
-// a bitonic merge sorts it; the buffer is emptied, the count reset and the
-// threshold raised to the new k-th key.  Entries are ordered by (key, id)
-// as in topk_common.cuh, so the head is what a full sort would keep.
-__device__ __forceinline__ void warp_merge(float* keys, int* ids, int kp,
-                                           int k, int cnt, int lane,
-                                           int* count, float* thr) {
-  float* bk = keys + kp;
-  int* bi = ids + kp;
-  int p2 = 1;
-  while (p2 < cnt) p2 <<= 1;
-  for (int size = 2; size <= p2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = lane; t < p2 / 2; t += 32) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const float ka = bk[lo], kb = bk[hi];
-        const int ia = bi[lo], ib = bi[hi];
-        if (entry_greater(ka, ia, kb, ib) == up) {
-          bk[lo] = kb; bk[hi] = ka;
-          bi[lo] = ib; bi[hi] = ia;
-        }
-      }
-      __syncwarp();
-    }
-  }
-  for (int i = lane; i < kp; i += 32) {
-    const float kb = bk[kp - 1 - i];
-    const int ib = bi[kp - 1 - i];
-    if (entry_greater(keys[i], ids[i], kb, ib)) {
-      keys[i] = kb;
-      ids[i] = ib;
-    }
-  }
-  __syncwarp();
-  for (int stride = kp >> 1; stride > 0; stride >>= 1) {
-    for (int t = lane; t < kp / 2; t += 32) {
-      const int lo = 2 * t - (t & (stride - 1));
-      const int hi = lo + stride;
-      const float ka = keys[lo], kb = keys[hi];
-      const int ia = ids[lo], ib = ids[hi];
-      if (entry_greater(ka, ia, kb, ib)) {
-        keys[lo] = kb; keys[hi] = ka;
-        ids[lo] = ib; ids[hi] = ia;
-      }
-    }
-    __syncwarp();
-  }
-  for (int i = lane; i < kp; i += 32) {
-    bk[i] = pos_inf();
-    bi[i] = kEmptyId;
-  }
-  if (lane == 0) {
-    *count = 0;
-    *thr = keys[k - 1];
   }
 }
 

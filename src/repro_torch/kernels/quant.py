@@ -45,7 +45,9 @@ from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 from .distance import MAX_GRID_Y
 from .ops import _mask_i8, _radius_keys, fused_range_topk_batch
 from .range_scan import batch_plan as range_batch_plan
-from .scan_topk import MAX_K, _cdiv, _check_k, _next_pow2, _split_topk
+from .scan_topk import (BLOCK_RESERVED, BLOCK_SMEM, MAX_K, SM_SMEM, _cdiv,
+                        _check_k, _masked, _next_pow2, _split_topk,
+                        pick_shape, wave_splits)
 
 INF = float("inf")
 I32_MAX = 2 ** 31 - 1
@@ -61,12 +63,6 @@ MODE_CODES = {torch.int8: 0, torch.bfloat16: 1}
 # serves kp <= 128 and the mid one kp <= 256; the narrow one serves small
 # batches and every larger kp.
 QUANT_SHAPES = {64: (256, 16, 1), 32: (256, 16, 2), 8: (512, 16, 2)}
-NARROW_QUERIES = 16            # up to this many queries, the narrow shape
-MID_QUERIES = 32               # up to this many, the mid one
-SM_COUNT = 132                 # H100 SXM
-SM_SMEM = 233_472              # shared memory of one SM (228 KB)
-BLOCK_SMEM = 232_448           # the most one block may use (227 KB)
-BLOCK_RESERVED = 1_024         # shared memory the card keeps per block
 
 
 def quant_kp(qt: int, k: int) -> int:
@@ -96,20 +92,14 @@ def quant_plan(n: int, qn: int, count: int) -> tuple[int, int, int, int]:
     fills whole waves of the card's 132 SMs at the blocks per SM the
     shape's shared memory allows, the fewest waves that keep that cap."""
     kc = min(count, MAX_K)
-    shapes = (64, 32) if qn > MID_QUERIES else (32,)
-    qt = 8 if qn <= NARROW_QUERIES else next(
-        (t for t in shapes if quant_smem(t, quant_kp(t, kc)) <= BLOCK_SMEM),
-        8)
+    qt = pick_shape(
+        qn, lambda t: quant_smem(t, quant_kp(t, kc)) <= BLOCK_SMEM)
     tile, _, minb = QUANT_SHAPES[qt]
     per_sm = max(1, min(minb, SM_SMEM // (quant_smem(qt, quant_kp(qt, kc))
                                           + BLOCK_RESERVED)))
-    slots, qtiles = SM_COUNT * per_sm, _cdiv(qn, qt)
-    tiles = max(1, _cdiv(n, tile))
-    least = _cdiv(tiles, MAX_SPLIT_ROWS // tile)
-    waves = _cdiv(least * qtiles, slots)
-    want = min(tiles, max(least, waves * slots // qtiles))
-    rows = _cdiv(tiles, want) * tile
-    splits = _cdiv(n, rows)
+    splits, rows = wave_splits(n, qn, qt, tile, per_sm,
+                               _cdiv(max(1, _cdiv(n, tile)),
+                                     MAX_SPLIT_ROWS // tile))
     if splits > MAX_GRID_Y:
         raise ValueError(f"quant_scan_topk_batch takes at most "
                          f"{MAX_GRID_Y * MAX_SPLIT_ROWS} rows, got {n}")
@@ -148,16 +138,6 @@ def _plain_keys(qvecs, scales, queries, mask_i8, qvalid_i8, metric: Metric):
     deq = qvecs.to(torch.float32) * scales.reshape(-1, 1)
     return _masked(pairwise_order_keys(metric, deq, queries), mask_i8,
                    qvalid_i8)
-
-
-def _masked(keys, mask_i8, qvalid_i8):
-    """(Q, N) keys with +inf where the row mask or the valid lane is 0."""
-    if mask_i8 is not None:
-        m = mask_i8 if mask_i8.ndim == 2 else mask_i8[None]
-        keys = keys.masked_fill(m == 0, INF)
-    if qvalid_i8 is not None:
-        keys = keys.masked_fill((qvalid_i8 == 0)[:, None], INF)
-    return keys
 
 
 # ---------------------------------------------------------------------------

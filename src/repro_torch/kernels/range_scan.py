@@ -21,15 +21,25 @@ from ..core.expr import pairwise_order_keys
 from ..core.schema import Metric
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
-from .scan_topk import BATCH_QTILES, split_plan
+from .scan_topk import _cdiv
+
+# Launch geometry of the batched kernel (H100: 132 SMs).  The plain version
+# needs none: its outputs are whole (Q, N) matrices.
+BATCH_TILE = 64              # rows a batched block scores per step
+BATCH_BLOCKS = 264           # 2 blocks per SM
+BATCH_QTILES = (4, 16, 64)   # queries per batched block (kernel templates)
 
 
 def batch_plan(n: int, qn: int) -> tuple[int, int, int]:
     """(queries per block, splits, rows per split) of the batched kernel:
     the smallest query tile that holds all Q (64 at most), about
-    ``scan_topk.BATCH_BLOCKS`` blocks."""
+    BATCH_BLOCKS blocks in all, each split a whole number of BATCH_TILE-row
+    tiles."""
     qt = next((t for t in BATCH_QTILES if t >= qn), BATCH_QTILES[-1])
-    return (qt,) + split_plan(n, qn, qt)
+    tiles = max(1, _cdiv(n, BATCH_TILE))
+    want = max(1, _cdiv(BATCH_BLOCKS, _cdiv(qn, qt)))
+    rows = _cdiv(tiles, min(tiles, want)) * BATCH_TILE
+    return qt, _cdiv(n, rows), rows
 
 
 def _hits(keys: torch.Tensor, radius_keys: torch.Tensor,

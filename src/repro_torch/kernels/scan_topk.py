@@ -9,7 +9,10 @@ by id, with (+inf, -1) in empty slots.  The stage-2 merge is in ``ops.py``.
 
 A wrapper counts its kernel launches in a plain integer attribute
 (``scan_topk.launches``, ``scan_topk_batch.launches``), so a run can show
-that the main path went through the kernels.
+that the main path went through the kernels.  ``single_plan`` and
+``batch_plan`` are their launch plans; the batched plan's shape choice and
+wave sizing (``pick_shape``, ``wave_splits``) serve the quantized top-k's
+plan (``quant.quant_plan``) too.
 """
 from __future__ import annotations
 
@@ -23,13 +26,23 @@ from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 
 MAX_K = 1024                 # the reference's BLOCK_N cap on k
 
-# Launch geometry (H100: 132 SMs).  The plain versions cut the corpus the
-# same way, so kernel and plain outputs compare entry by entry.
+# Launch geometry (H100 SXM).  The plain versions cut the corpus the same
+# way, so kernel and plain outputs compare entry by entry.
 SINGLE_TILE = 256            # rows a single-query block scores per step
 SINGLE_BLOCKS = 528          # 4 blocks per SM
-BATCH_TILE = 64              # rows a batched block scores per step
-BATCH_BLOCKS = 264           # 2 blocks per SM
-BATCH_QTILES = (4, 16, 64)   # queries per batched block (kernel templates)
+# Block shapes of the batched kernel (csrc/scan_topk_batch.cu `Wide`,
+# `Mid`, `Narrow`), by queries per block: (rows per tile, columns per staged
+# chunk, blocks per SM its registers are sized for).  A block keeps one
+# list of 2·kp (key, id) pairs per query, kp = next power of two >=
+# max(k, ROUND_ROWS), so the wide shape serves kp = 128 and the mid one
+# kp <= 256; the narrow one serves small batches and every larger kp.
+BATCH_SHAPES = {64: (256, 16, 1), 32: (256, 16, 2), 8: (512, 16, 2)}
+ROUND_ROWS = 128             # rows of a tile that enter the lists at once
+NARROW_QUERIES = 16          # up to this many queries, the narrow shape
+SM_COUNT = 132               # H100 SXM
+SM_SMEM = 233_472            # shared memory of one SM (228 KB)
+BLOCK_SMEM = 232_448         # the most one block may use (227 KB)
+BLOCK_RESERVED = 1_024       # shared memory the card keeps per block
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -47,32 +60,73 @@ def single_plan(n: int) -> tuple[int, int]:
     return _cdiv(n, rows), rows
 
 
-def batch_plan(n: int, qn: int, k: int) -> tuple[int, int, int]:
-    """(queries per block, splits, rows per split) of the batched kernel.
-
-    A block keeps 2·kp (key, id) pairs per query in shared memory
-    (kp = next power of two >= max(k, 64)), which caps its queries at 64,
-    16 or 4 as k grows; it takes the smallest tile that holds all Q."""
-    kp = _next_pow2(max(k, BATCH_TILE))
-    cap = 64 if kp <= 64 else 16 if kp <= 256 else 4
-    qt = next((t for t in BATCH_QTILES if t >= qn and t <= cap), cap)
-    return (qt,) + split_plan(n, qn, qt)
+def batch_kp(k: int) -> int:
+    """List length of the batched kernel for ``k``: a power of two that
+    holds k and one insertion round's rows."""
+    return _next_pow2(max(k, ROUND_ROWS))
 
 
-def split_plan(n: int, qn: int, qt: int) -> tuple[int, int]:
-    """(splits, rows per split) of a query-batched kernel whose blocks take
-    ``qt`` queries each: about BATCH_BLOCKS blocks in all, each split a
-    whole number of BATCH_TILE-row tiles."""
-    tiles = max(1, _cdiv(n, BATCH_TILE))
-    want = max(1, _cdiv(BATCH_BLOCKS, _cdiv(qn, qt)))
-    rows = _cdiv(tiles, min(tiles, want)) * BATCH_TILE
+def batch_smem(qt: int, kp: int) -> int:
+    """Shared memory (bytes) of one block of shape ``qt`` at list length
+    ``kp``: two staging buffers, the tile's row norms, the lists, and seven
+    per-query words (the kernel's ``Shape::smem_bytes`` + static)."""
+    rows, depth, _ = BATCH_SHAPES[qt]
+    return 4 * (2 * depth * (rows + qt) + rows) + qt * 2 * kp * 8 + 28 * qt
+
+
+def wave_splits(n: int, qn: int, qt: int, tile: int, per_sm: int,
+                least: int = 1) -> tuple[int, int]:
+    """(splits, rows per split) of a block shape with ``qt`` queries and
+    ``tile``-row tiles, ``per_sm`` blocks resident per SM: splits that are
+    whole tiles, at least ``least`` of them, whose number fills whole waves
+    of the card's SMs, the fewest waves that keep that floor."""
+    slots, qtiles = SM_COUNT * per_sm, _cdiv(qn, qt)
+    tiles = max(1, _cdiv(n, tile))
+    waves = _cdiv(least * qtiles, slots)
+    want = min(tiles, max(least, waves * slots // qtiles))
+    rows = _cdiv(tiles, want) * tile
     return _cdiv(n, rows), rows
+
+
+def pick_shape(qn: int, fits) -> int:
+    """Queries per block of a batched top-k kernel with the wide / mid /
+    narrow shapes (64, 32 and 8 queries): the narrow one up to 16 queries,
+    the mid one up to 32, the wide one beyond; where a shape's lists would
+    not fit (``fits(qt)`` false), the next narrower."""
+    if qn <= NARROW_QUERIES:
+        return 8
+    shapes = (64, 32) if qn > 32 else (32,)
+    return next((t for t in shapes if fits(t)), 8)
+
+
+def batch_plan(n: int, qn: int, k: int) -> tuple[int, int, int]:
+    """(queries per block, splits, rows per split) of the batched kernel
+    (:func:`pick_shape` by the lists' shared memory at kp =
+    :func:`batch_kp`, then :func:`wave_splits` at the blocks per SM that
+    shape's shared memory and registers allow)."""
+    kp = batch_kp(min(k, MAX_K))
+    qt = pick_shape(qn, lambda t: batch_smem(t, kp) <= BLOCK_SMEM)
+    tile, _, minb = BATCH_SHAPES[qt]
+    per_sm = max(1, min(minb, SM_SMEM // (batch_smem(qt, kp)
+                                          + BLOCK_RESERVED)))
+    return (qt,) + wave_splits(n, qn, qt, tile, per_sm)
 
 
 def _check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}] for the fused scan "
                          f"kernels, got {k}")
+
+
+def _masked(keys: torch.Tensor, mask_i8: torch.Tensor | None,
+            qvalid_i8: torch.Tensor | None) -> torch.Tensor:
+    """(Q, N) keys with +inf where the row mask or the valid lane is 0."""
+    if mask_i8 is not None:
+        m = mask_i8 if mask_i8.ndim == 2 else mask_i8[None]
+        keys = keys.masked_fill(m == 0, float("inf"))
+    if qvalid_i8 is not None:
+        keys = keys.masked_fill((qvalid_i8 == 0)[:, None], float("inf"))
+    return keys
 
 
 def _split_topk(keys: torch.Tensor, k: int, splits: int,
@@ -143,21 +197,42 @@ scan_topk.launches = 0
 # query batch: replaces scan_topk_batch_pallas (src/repro/kernels/scan_topk.py)
 # ---------------------------------------------------------------------------
 
+def _batch_select(keys: torch.Tensor, mask_i8: torch.Tensor | None,
+                  qvalid_i8: torch.Tensor | None, k: int):
+    """(Q, N) order keys -> the batched kernel's output: +inf where the row
+    mask or the query's valid lane is 0, then each split's best k (the
+    splits of :func:`batch_plan`)."""
+    qn, n = keys.shape
+    _, splits, rows = batch_plan(n, qn, k)
+    return _split_topk(_masked(keys, mask_i8, qvalid_i8), k, splits, rows)
+
+
 def scan_topk_batch_plain(corpus: torch.Tensor, queries: torch.Tensor,
                           mask_i8: torch.Tensor | None,
                           qvalid_i8: torch.Tensor | None, k: int,
                           metric: Metric):
     """Plain PyTorch version of the batched kernel."""
+    return _batch_select(pairwise_order_keys(metric, corpus, queries),
+                         mask_i8, qvalid_i8, k)
+
+
+def scan_topk_batch_replayed(corpus: torch.Tensor, queries: torch.Tensor,
+                             mask_i8: torch.Tensor | None,
+                             qvalid_i8: torch.Tensor | None, k: int,
+                             metric: Metric):
+    """The batched kernel's output rebuilt on its own arithmetic:
+    ``quant.replay_keys`` of every (query, row) pair, masked, then each
+    split's best k.  On the card the kernel must equal it bit for bit,
+    keys and ids (``chip_smoke.py``, phase topk_bits); (Q, N) sized, for
+    small checks."""
+    from .quant import replay_keys      # quant imports this module
+
     n = corpus.shape[0]
     qn = queries.shape[0]
-    keys = pairwise_order_keys(metric, corpus, queries)          # (Q, N)
-    if mask_i8 is not None:
-        m = mask_i8 if mask_i8.ndim == 2 else mask_i8[None]
-        keys = keys.masked_fill(m == 0, float("inf"))
-    if qvalid_i8 is not None:
-        keys = keys.masked_fill((qvalid_i8 == 0)[:, None], float("inf"))
-    _, splits, rows = batch_plan(n, qn, k)
-    return _split_topk(keys, k, splits, rows)
+    rows = torch.arange(n, dtype=torch.int32, device=corpus.device)
+    keys = replay_keys(corpus, queries, rows.expand(qn, n).contiguous(),
+                       metric)
+    return _batch_select(keys, mask_i8, qvalid_i8, k)
 
 
 def scan_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
@@ -186,14 +261,16 @@ def scan_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
     keys = torch.empty((qn, splits * k), dtype=torch.float32, device=dev)
     ids = torch.empty((qn, splits * k), dtype=torch.int32, device=dev)
     mask_mode = 0 if mask_i8 is None else 1 if mask_i8.ndim == 1 else 2
+    # 16-byte loads: whole 4-float units along D and aligned bases
+    vec4 = (d % 4 == 0 and corpus.data_ptr() % 16 == 0
+            and queries.data_ptr() % 16 == 0)
     lib, launch = build.launcher("scan_topk_batch.cu",
                                  "scan_topk_batch_launch",
-                                 [P] * 3 + [I] + [P] * 3 + [I] * 8 + [P])
+                                 [P] * 3 + [I] + [P] * 3 + [I] * 9 + [P])
     err = launch(
         ptr(corpus), ptr(queries), ptr(mask_i8), mask_mode,
         ptr(qvalid_i8), ptr(keys), ptr(ids), n, d, qn, k,
-        METRIC_CODES[metric], qt, rows, splits,
-        stream(dev))
+        METRIC_CODES[metric], qt, rows, splits, int(vec4), stream(dev))
     build.check(lib, "scan_topk_batch", err)
     scan_topk_batch.launches += 1
     return keys, ids

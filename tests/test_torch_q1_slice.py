@@ -107,6 +107,38 @@ def test_bucketed_lists_match_reference(env, qn, bucket, use_pallas):
     assert st.explain().trace_counts == {bucket: 1}
 
 
+@pytest.fixture(scope="module", params=["l2", "cosine"])
+def metric_env(request):
+    """Both catalogs under another metric than the default inner product:
+    the batched kernel's keys run the L2 and cosine epilogues."""
+    from repro.core.schema import Metric as RefMetric
+    from repro_torch.core.schema import Metric
+
+    metric = request.param
+    return (ref_make_catalog(**SMALL, metric=RefMetric(metric)),
+            make_laion_catalog(**SMALL, metric=Metric(metric), device="cpu"))
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_bucketed_lists_match_reference_under_l2_and_cosine(metric_env,
+                                                            use_pallas):
+    """Q1's bucketed list under L2 and cosine: the reference's answer, and
+    bucketed == exact-shape bitwise inside the port."""
+    ref_cat, cat = metric_env
+    binds = _binds(9, seed=9)
+    ref_st = ref_connect(ref_cat, engine="brute",
+                         use_pallas=use_pallas).prepare(Q1, K=K)
+    st = connect(cat, engine="brute", use_pallas=use_pallas).prepare(Q1, K=K)
+    got = st.execute(binds)
+    ref = ref_st.execute(binds)
+    assert_topk_close(got.data, _ref_data(ref), atol=TOL, tie_tol=TOL)
+    assert got.explain().path == ref.explain().path == "bucketed"
+    assert got.explain().bucket == 16 and got["valid"].any()
+    exact = st.execute(binds, hints=ExecutionHints(exact_shape=True))
+    for key in ("ids", "sim", "valid"):
+        assert torch.equal(got[key], exact[key]), key
+
+
 def test_pad_queries_are_inert(env):
     _, cat = env
     st = connect(cat, engine="brute", use_pallas=True).prepare(Q1, K=K)

@@ -26,7 +26,8 @@ from repro.kernels import quant as ref_quant
 from repro_torch.core.schema import Metric
 from repro_torch.data.quantized import QuantizedCorpus, quantize_corpus
 from repro_torch.kernels import ops, quant
-from repro_torch.kernels.scan_topk import scan_topk_batch_plain
+from repro_torch.kernels.scan_topk import (BLOCK_SMEM, NARROW_QUERIES,
+                                           scan_topk_batch_plain)
 
 TOL = 1e-5
 MODES = ["int8", "bf16"]
@@ -247,12 +248,12 @@ def test_quant_plan_covers_and_fits(qn, n, count):
     assert rows % tile == 0 and tile <= rows <= quant.MAX_SPLIT_ROWS
     assert splits <= 65535                         # gridDim.y
     assert s_count == max(1, min(count, rows // 8))
-    if qn <= quant.NARROW_QUERIES:
+    if qn <= NARROW_QUERIES:
         assert qt == 8
-    elif qn <= quant.MID_QUERIES:
+    elif qn <= 32:
         assert qt in (32, 8)
     assert quant.quant_smem(qt, quant.quant_kp(qt, s_count)) \
-        <= quant.BLOCK_SMEM
+        <= BLOCK_SMEM
 
 
 def test_quant_plan_main_shape():

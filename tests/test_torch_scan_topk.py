@@ -18,6 +18,7 @@ from repro.kernels import ops as ref_ops
 from repro_torch.core.schema import Metric
 from repro_torch.index.flat import stable_smallest_k
 from repro_torch.kernels import ops
+from repro_torch.kernels import scan_topk as st
 from repro_torch.kernels.scan_topk import (MAX_K, batch_plan, scan_topk,
                                            scan_topk_batch, single_plan)
 from repro_torch.testing import assert_topk_close
@@ -227,3 +228,141 @@ def test_oracles_match_reference_and_fused_scan(metric):
     assert_topk_close({"ids": f_ids, "sim": f_sims, "valid": f_valid},
                       {"ids": ids, "sim": oracle_sims, "valid": valid},
                       atol=TOL, tie_tol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# the batched kernel's launch plan and its plain version under it
+# ---------------------------------------------------------------------------
+
+PLAN_QS = [1, 8, 16, 17, 32, 33, 100, 128, 130, 540]
+PLAN_NS = [1, 8, 5003, 1_000_000]
+PLAN_KS = [1, 50, 128, 129, 256, 257, 600, 1024]
+
+
+@pytest.mark.parametrize("k", PLAN_KS)
+@pytest.mark.parametrize("n", PLAN_NS)
+@pytest.mark.parametrize("qn", PLAN_QS)
+def test_batch_plan_covers_and_fits(qn, n, k):
+    """The plan covers every row with splits of whole row tiles of its
+    shape and fits CUDA's grid; the narrow shape takes Q <= 16 and the mid
+    one at most 32 queries; the lists (kp = next power of two >= max(k,
+    128)) and the staging fit one block's 232,448 bytes; a shape that
+    takes more queries is chosen wherever its lists fit."""
+    qt, splits, rows = batch_plan(n, qn, k)
+    tile = st.BATCH_SHAPES[qt][0]
+    kp = st.batch_kp(k)
+    assert kp == max(128, 1 << (k - 1).bit_length())
+    assert (splits - 1) * rows < n <= splits * rows
+    assert rows % tile == 0 and rows >= tile
+    assert splits <= 65535 and -(-qn // qt) <= 2**31 - 1    # the grid
+    assert st.batch_smem(qt, kp) <= 232_448
+    if qn <= 16:
+        assert qt == 8
+    elif qn <= 32:
+        assert qt == (32 if st.batch_smem(32, kp) <= 232_448 else 8)
+    else:
+        want = next((t for t in (64, 32)
+                     if st.batch_smem(t, kp) <= 232_448), 8)
+        assert qt == want
+
+
+def test_batch_plan_main_shapes():
+    """Q1's bucket of 128 at K = 50 over 1M rows: the wide shape, 66 splits
+    of 15,360 rows, both 64-query tiles in one wave of 132 blocks; buckets
+    1 and 8: the narrow shape at two blocks per SM, 245 splits; 17..32
+    queries: the mid shape; lists of kp = 256 fit 32 queries but not 64,
+    and kp >= 512 only the narrow shape."""
+    assert batch_plan(1_000_000, 128, 50) == (64, 66, 15360)
+    assert batch_plan(1_000_000, 100, 50) == (64, 66, 15360)
+    for qn in (1, 8):
+        assert batch_plan(1_000_000, qn, 50) == (8, 245, 4096)
+    assert batch_plan(1_000_000, 30, 50)[0] == 32
+    assert batch_plan(1_000_000, 100, 200)[0] == 32
+    assert batch_plan(1_000_000, 100, 300)[0] == 8
+    assert st.batch_smem(64, 128) == 174_848    # Wide::smem_bytes + static
+
+
+def _ordered(qn: int, n: int, d: int):
+    """A corpus whose every row beats the one before it for the query q
+    under every metric (t·q + 2(1 − t)·u, u ⊥ q, t rising from 0.5 to 1:
+    a larger inner product and cosine, a smaller L2 distance), and q
+    repeated ``qn`` times."""
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal(d).astype(np.float32)
+    q /= np.linalg.norm(q)
+    u = rng.standard_normal(d).astype(np.float32)
+    u -= (u @ q) * q
+    u /= np.linalg.norm(u)
+    t = np.linspace(0.5, 1.0, n, dtype=np.float32)[:, None]
+    corpus = (t * q + 2.0 * (1.0 - t) * u).astype(np.float32)
+    return corpus, np.repeat(q[None], qn, 0)
+
+
+# (N, D, Q, k): every block shape and list length of the plan (the narrow
+# shape at kp = 128 and 1,024, the mid one at kp = 128 and 256, the wide
+# one at kp = 128), k beyond a split's rows
+LARGE_K = [(3000, 16, 5, 1000), (2600, 24, 20, 200), (3100, 16, 40, 200),
+           (2900, 20, 40, 50), (2048, 16, 20, 10)]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("case", range(len(LARGE_K)))
+def test_batch_plan_shapes_match_reference(metric, case):
+    """The plain version under every block shape and list length of the
+    plan, per-query masks and a dead lane, through stage 2, against the
+    reference's Pallas kernel."""
+    n, d, qn, k = LARGE_K[case]
+    rng, corpus, queries = _inputs(30 + case, n, d, qn)
+    rm = _mask(rng, "per_query", qn, n)
+    qvalid = np.arange(qn) != 1
+    ref = ref_ops.fused_scan_topk_batch(
+        jnp.asarray(corpus), jnp.asarray(queries), k, jnp.asarray(rm),
+        RefMetric(metric), qvalid=jnp.asarray(qvalid))
+    got = ops.fused_scan_topk_batch(_t(corpus), _t(queries), k, _t(rm),
+                                    Metric(metric), qvalid=_t(qvalid))
+    assert_topk_close(_port_result(got), _ref_result(ref), atol=TOL,
+                      tie_tol=TOL)
+    assert not got[2][1].any()
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [50, 1000])
+def test_ordered_corpus_matches_reference(metric, k):
+    """Rows each beating the one before (on the card every insertion round
+    overflows its lists): the plain version through stage 2 gives the
+    reference's answer, the last k rows best first."""
+    corpus, queries = _ordered(4, 3000, 16)
+    ref = ref_ops.fused_scan_topk_batch(jnp.asarray(corpus),
+                                        jnp.asarray(queries), k, None,
+                                        RefMetric(metric))
+    got = ops.fused_scan_topk_batch(_t(corpus), _t(queries), k, None,
+                                    Metric(metric))
+    assert_topk_close(_port_result(got), _ref_result(ref), atol=TOL,
+                      tie_tol=TOL)
+    ids = got[0].numpy()
+    assert (np.abs(ids - np.arange(2999, 2999 - k, -1)) <= 3).all()
+
+
+@pytest.mark.parametrize("mask", MASKS)
+def test_replayed_reference_is_the_plain_kernel(mask):
+    """``scan_topk_batch_replayed`` (the card's bitwise reference: replay
+    keys of every pair, masked, each split's best k under ``batch_plan``)
+    has the plain version's layout and answer on the CPU, where both take
+    the plain keys: per split, the same entries up to near-ties."""
+    rng, corpus, queries = _inputs(17, 2000, 24, 20)
+    rm = _mask(rng, mask, 20, 2000)
+    rm = None if rm is None else _t(rm).to(torch.int8)
+    qvalid = torch.ones(20, dtype=torch.int8)
+    qvalid[3] = 0
+    for k in (7, 200):
+        a = (_t(corpus), _t(queries), rm, qvalid, k, Metric.L2)
+        got = st.scan_topk_batch_replayed(*a)
+        want = st.scan_topk_batch_plain(*a)
+        assert got[0].shape == want[0].shape == (20, batch_plan(
+            2000, 20, k)[1] * k)
+        slab = {"ids": got[1].reshape(-1, k), "sim": got[0].reshape(-1, k),
+                "valid": torch.isfinite(got[0].reshape(-1, k))}
+        ref = {"ids": want[1].reshape(-1, k), "sim": want[0].reshape(-1, k),
+               "valid": torch.isfinite(want[0].reshape(-1, k))}
+        assert_topk_close(slab, ref, atol=TOL, tie_tol=TOL)
+        assert (got[1][3] == -1).all()                   # the dead query
