@@ -84,6 +84,15 @@ one JSON line each:
            Q in {8, 40} and count in {150, 600, 1024} (lists of 256 and
            1,024 entries); row i of a Q-query call gives the single-query
            call's candidate_rows
+  range_bits  range_scan_batch bit for bit: its keys (int32 view), hits and
+           counts equal range_scan_batch_replayed (replay_keys over all
+           rows, then the mask, the valid lane and the radius), every
+           metric, masks none, shared and per-query with dead valid lanes,
+           radii at the 100th-best key (one on duplicate rows), below and
+           above every key, at the pairwise_bits shapes with Q in {1, 8,
+           16, 17, 37, 100, 128, 130} (every block shape, a second query
+           tile) and at 1,000,003 x 64 with Q in {8, 100}; row i of a
+           Q-query call equals the single-query call
   full     each kernel against its plain version at the paths' shapes
            (pairwise_keys at 100 x 1M x 512, every metric)
   slice    Q1–Q6 through the session API: single dicts, lists,
@@ -97,10 +106,11 @@ one JSON line each:
            into the full branch; Q1's coverage (queries whose fp32 top-K
            has a row outside the quantized candidates)
   times    per kernel: its time, its plain version's, the library
-           yardstick (timed only), the bound; scan_topk_batch also at
-           buckets 1, 8, 32 and 128 and quant_scan_topk_batch at Q in {1,
-           8, 100}, each beside its yardstick, and pairwise_keys at Q in
-           {1, 8, 100} beside one torch.matmul
+           yardstick (timed only), the bound; scan_topk_batch and
+           range_scan_batch also at buckets 1, 8, 32 and 128 and
+           quant_scan_topk_batch at Q in {1, 8, 100}, each beside its
+           yardstick, and pairwise_keys at Q in {1, 8, 100} beside one
+           torch.matmul
   e2e      execute latency and QPS per batch size (Q1, Q2, Q5) and per
            join lowering (Q3, Q4, Q6); beside each the kernel's and the
            stage-2 time at the same shapes (compaction, merge, full sort,
@@ -812,6 +822,88 @@ def main() -> None:
           "checks": ["= quant_scan_topk_batch_replayed, keys (int32 view) "
                      "and ids, every metric, mode and mask kind",
                      "row of batch = single query (candidate_rows)"]})
+
+    # -- range_bits: the batched range scan's keys and hits bit for bit ------
+    # against range_scan_batch_replayed (replay_keys over all rows, then the
+    # mask, the valid lane and the radius) at the pairwise_bits shapes, Q
+    # in {1, 8, 16, 17, 37, 100, 128, 130} (every block shape and a second
+    # query tile), every metric and mask kind with the last three lanes
+    # dead, radii at each query's 100th-best key (the first query's on the
+    # duplicates), below every key and above every key; at 1,000,003 x 64
+    # with Q in {8, 100} (splits of many tiles, a ragged N); and row i of a
+    # Q-query call equals the single-query call (one mask kind per metric)
+    range_cases = range_rows = 0
+
+    def range_bits(args, metric, what):
+        nonlocal range_cases
+        got = rs_mod.range_scan_batch(*args, metric)
+        want = rs_mod.range_scan_batch_replayed(*args, metric)
+        if not (torch.equal(bits(got[0]), bits(want[0]))
+                and torch.equal(got[1], want[1])
+                and torch.equal(got[2], want[2])):
+            raise AssertionError(f"{what}: not the replayed range scan")
+        range_cases += 1
+        return got
+
+    for n, d in ((5003, 130), (4099, 64), (3001, 512)):
+        corpus = unit((n, d))
+        corpus[n // 3: n // 3 + 40] = corpus[7]          # exact duplicates
+        for metric in Metric:
+            for qn in (1, 8, 16, 17, 37, 100, 128, 130):
+                qs = unit((qn, d))
+                qs[0] = corpus[7]
+                keys = pairwise_order_keys(metric, corpus, qs)
+                rk = radius_at(keys, 100)
+                rk[0] = keys[0, 7]                      # on the duplicates
+                radii = {"rank100": rk,
+                         "nothing": keys.min(dim=1).values - 1,
+                         "everything": keys.max(dim=1).values + 1}
+                qv8 = (torch.arange(qn, device=dev)
+                       < max(1, qn - 3)).to(torch.int8)
+                for mname in ("none", "shared", "per_query"):
+                    m8 = mask8(mname, qn, n)
+                    for rname, r in radii.items():
+                        what = (f"range bits {metric.value} n={n} d={d} "
+                                f"q={qn} {mname} {rname}")
+                        got = range_bits((corpus, qs, r.contiguous(), m8,
+                                          qv8), metric, what)
+                        if rname != "rank100" or mname != mask_of[metric]:
+                            continue
+                        for i in range(qn):
+                            one = rs_mod.range_scan_batch(
+                                corpus, qs[i:i + 1].contiguous(),
+                                r[i:i + 1].contiguous(),
+                                None if m8 is None else m8 if m8.ndim == 1
+                                else m8[i:i + 1].contiguous(),
+                                qv8[i:i + 1].contiguous(), metric)
+                            if not (torch.equal(bits(one[0][0]),
+                                                bits(got[0][i]))
+                                    and torch.equal(one[1][0], got[1][i])
+                                    and int(one[2][0]) == int(got[2][i])):
+                                raise AssertionError(
+                                    f"{what}: row {i} is not the "
+                                    "single-query call")
+                            range_rows += 1
+    n, d = 1_000_003, 64
+    corpus = unit((n, d))
+    for metric in Metric:
+        for qn in (8, 100):
+            qs = unit((qn, d))
+            keys = pairwise_order_keys(metric, corpus, qs)
+            rk = torch.topk(keys, RANGE_TARGET, dim=1,
+                            largest=False).values[:, -1].contiguous()
+            del keys
+            qv8 = (torch.arange(qn, device=dev)
+                   < max(1, qn - 3)).to(torch.int8)
+            range_bits((corpus, qs, rk, mask8(mask_of[metric], qn, n), qv8),
+                       metric, f"range bits {metric.value} n={n} d={d} "
+                       f"q={qn} {mask_of[metric]}")
+    del corpus
+    emit({"phase": "range_bits", "cases": range_cases,
+          "single_query_rows": range_rows,
+          "checks": ["= range_scan_batch_replayed, keys (int32 view), hits "
+                     "and counts, every metric, mask kind and radius kind",
+                     "row of batch = single query"]})
 
     # -- the catalog at full width -------------------------------------------
     t0 = time.perf_counter()
@@ -1558,6 +1650,28 @@ def main() -> None:
                                                          K, metric)),
             "library_ms": time_ms(lib_b, 2, 5), "bound_ms": b_ms,
             "bound_by": b_by}
+    # the batched range scan at one query (a Q2 list of 1), buckets 8, 32
+    # (30 live; the narrow and mid shapes) and 128 (100 live; the wide
+    # one), at the Q2 radius, beside the library yardstick
+    range_by_q = {}
+    for live, b in ((1, 1), (8, 8), (30, 32), (N_QUERIES, bucket)):
+        qs_, m_, rk_ = batch_q[:b], batch_mask[:b], q2_rk[:b]
+        v_ = (torch.arange(b, device=dev) < live).to(torch.int8)
+        b_ms, b_by = bound(N_ROWS * DIM * 4 + live * DIM * 4
+                           + live * N_ROWS * 6 + b * 9,
+                           2 * N_ROWS * DIM * live)
+
+        def lib_r():
+            keys = -(qs_ @ corpus.T)
+            hit = ((keys <= rk_[:, None]) & (m_ != 0)
+                   & (v_ != 0)[:, None])
+            return keys.masked_fill(~hit, float("inf")), hit
+        range_by_q[live] = {
+            "bucket": b, "plan": list(rs_mod.batch_plan(N_ROWS, b)),
+            "ms": time_ms(lambda: rs_mod.range_scan_batch(
+                corpus, qs_, rk_, m_, v_, metric)),
+            "library_ms": time_ms(lib_r, 2, 5), "bound_ms": b_ms,
+            "bound_by": b_by}
     # the pairwise kernel at a single query (Q4 brute_sort perleft), a few
     # and the 100 queries, each beside one torch.matmul
     pairwise_by_q = {}
@@ -1583,7 +1697,7 @@ def main() -> None:
                          N_ROWS, N_QUERIES))},
           "kernels": times, "kernels_bf16": times_bf16,
           "bucket8": bucket8, "fp32_by_q": fp32_by_q,
-          "quant_by_q": quant_by_q,
+          "range_by_q": range_by_q, "quant_by_q": quant_by_q,
           "pairwise_by_q": pairwise_by_q})
 
     # -- e2e -------------------------------------------------------------------

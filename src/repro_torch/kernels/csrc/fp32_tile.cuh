@@ -1,8 +1,8 @@
-// The register-blocked fp32 tile product of the query-batched key kernels
-// (range_batch.cuh: range_scan_batch.cu and its quantized twin
-// quant_keys_batch.cu), and the chunk depth and query norms that every
-// kernel keeping these keys bit for bit shares (scan_topk_batch.cu,
-// quant_scan_topk_batch.cu, pairwise_keys.cu, replay_keys.cu).
+// The register-blocked fp32 tile product of the quantized key kernel
+// (range_batch.cuh: quant_keys_batch.cu), and the chunk depth and query
+// norms that every kernel keeping these keys bit for bit shares
+// (scan_topk_batch.cu, range_scan_batch.cu, quant_scan_topk_batch.cu,
+// pairwise_keys.cu, replay_keys.cu).
 //
 // A block of kThreads threads scores a kRows-row corpus tile against its QT
 // queries with plain fp32 FMAs (no TF32, no tensor cores).  Thread

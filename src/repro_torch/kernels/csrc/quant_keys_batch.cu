@@ -11,16 +11,18 @@
 // Bound on the H100 at N = 1,000,000, D = 512, 100 live queries:
 // operations, 2·N·D·Q = 102 GFLOP of fp32 FMAs, 1.528 ms at 67 TFLOP/s,
 // against about 0.30 ms (int8) / 0.46 ms (bf16) to read the twin and the
-// (Q, N) mask and write the (Q, N) keys once.  Design: the fp32 range
-// kernel's body (range_batch.cuh) without the radius test, with an int8 or
+// (Q, N) mask and write the (Q, N) keys once.  Design: PR 11's fp32 range
+// kernel body (range_batch.cuh) without the radius test, with an int8 or
 // bf16 row loader (fp32_tile.cuh) that widens each element (times its row
 // scale for int8) as it is staged; query-major coalesced stores and 64-bit
-// offsets as in range_scan_batch.cu.
+// offsets.  Its launch plan is kernels/quant.py `keys_plan`.
 #include "range_batch.cuh"
 
 // Returns the launch's cudaError_t (0 on success).  `mode` is 0 for int8
 // rows with (n,) fp32 `scales`, 1 for bf16 rows (`scales` not read).
-// `out_keys` is (qn, n); the other arguments are range_scan_batch_launch's.
+// `out_keys` is (qn, n); `mask` is null for mask_mode 0, (n,) for 1 and
+// query-major (qn, n) for 2; `qvalid` is null or (qn,); `qt` (queries per
+// block) is 4, 16 or 64, with `splits` of `rows_per_split` rows.
 extern "C" int quant_keys_batch_launch(
     const void* qcorpus, const float* scales, int mode, const float* queries,
     const int8_t* mask, int mask_mode, const int8_t* qvalid,

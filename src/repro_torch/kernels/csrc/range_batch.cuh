@@ -1,6 +1,6 @@
-// The query-batched key kernel behind range_scan_batch.cu (fp32 rows; keys,
-// hits and counts against a per-query radius) and quant_keys_batch.cu
-// (int8 / bf16 rows; masked keys only, no radius).
+// The query-batched key kernel behind quant_keys_batch.cu (int8 / bf16
+// rows; masked keys only, no radius).  Its HITS form (keys, hits and counts
+// against a per-query radius) has no caller.
 //
 // A block owns QT queries and one contiguous corpus split and scores it in
 // 64-row tiles (fp32_tile.cuh).  The epilogue masks each (row, query) key

@@ -44,7 +44,6 @@ from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 from .distance import MAX_GRID_Y
 from .ops import _mask_i8, _radius_keys, fused_range_topk_batch
-from .range_scan import batch_plan as range_batch_plan
 from .scan_topk import (BLOCK_RESERVED, BLOCK_SMEM, MAX_K, SM_SMEM, _cdiv,
                         _check_k, _masked, _next_pow2, _split_topk,
                         pick_shape, wave_splits)
@@ -54,6 +53,25 @@ I32_MAX = 2 ** 31 - 1
 SEG = 8                        # rows per segment of the candidate extraction
 MAX_SPLIT_ROWS = SEG * MAX_K   # a split holds at most 1,024 segments
 MODE_CODES = {torch.int8: 0, torch.bfloat16: 1}
+
+
+# Launch geometry of the quantized key kernel (csrc/quant_keys_batch.cu on
+# range_batch.cuh, H100: 132 SMs).
+KEYS_TILE = 64               # rows a block scores per step
+KEYS_BLOCKS = 264            # 2 blocks per SM
+KEYS_QTILES = (4, 16, 64)    # queries per block (kernel templates)
+
+
+def keys_plan(n: int, qn: int) -> tuple[int, int, int]:
+    """(queries per block, splits, rows per split) of the quantized key
+    kernel: the smallest query tile that holds all Q (64 at most), about
+    KEYS_BLOCKS blocks in all, each split a whole number of KEYS_TILE-row
+    tiles."""
+    qt = next((t for t in KEYS_QTILES if t >= qn), KEYS_QTILES[-1])
+    tiles = max(1, _cdiv(n, KEYS_TILE))
+    want = max(1, _cdiv(KEYS_BLOCKS, _cdiv(qn, qt)))
+    rows = _cdiv(tiles, min(tiles, want)) * KEYS_TILE
+    return qt, _cdiv(n, rows), rows
 
 
 # Block shapes of the quantized top-k kernel (csrc/quant_scan_topk_batch.cu
@@ -248,7 +266,7 @@ def quant_keys_batch(qvecs: torch.Tensor, scales: torch.Tensor,
         return quant_keys_batch_plain(qvecs, scales, queries, mask_i8,
                                       qvalid_i8, metric)
     dev = qvecs.device
-    qt, splits, rows = range_batch_plan(n, qn)
+    qt, splits, rows = keys_plan(n, qn)
     keys = torch.empty((qn, n), dtype=torch.float32, device=dev)
     mask_mode = 0 if mask_i8 is None else 1 if mask_i8.ndim == 1 else 2
     lib, launch = build.launcher(

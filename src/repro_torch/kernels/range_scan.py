@@ -11,7 +11,9 @@ query-major, (N,) or (Q, N).  The compaction to a fixed result buffer is in
 
 A wrapper counts its kernel launches in a plain integer attribute
 (``range_scan.launches``, ``range_scan_batch.launches``), so a run can show
-that a path went through the kernels.
+that a path went through the kernels.  ``batch_plan`` is the batched
+kernel's launch plan, and ``range_scan_batch_replayed`` its bitwise
+reference on the card.
 """
 from __future__ import annotations
 
@@ -21,25 +23,41 @@ from ..core.expr import pairwise_order_keys
 from ..core.schema import Metric
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
-from .scan_topk import _cdiv
+from .scan_topk import (BLOCK_RESERVED, NARROW_QUERIES, SM_SMEM,
+                        wave_splits)
 
-# Launch geometry of the batched kernel (H100: 132 SMs).  The plain version
-# needs none: its outputs are whole (Q, N) matrices.
-BATCH_TILE = 64              # rows a batched block scores per step
-BATCH_BLOCKS = 264           # 2 blocks per SM
-BATCH_QTILES = (4, 16, 64)   # queries per batched block (kernel templates)
+# Block shapes of the batched kernel (csrc/range_scan_batch.cu `Wide`,
+# `Mid`, `Narrow`), by queries per block: (rows per tile, columns per staged
+# chunk, blocks per SM its registers are sized for).  The wide shape takes
+# buckets of 33 queries and more (64 and 128 in one query tile), the mid
+# one 17..32, the narrow one small batches.  The plain version needs no
+# plan: its outputs are whole (Q, N) matrices.
+BATCH_SHAPES = {128: (128, 16, 1), 32: (256, 16, 2), 8: (512, 16, 2)}
+MID_QUERIES = 32             # up to this many queries, the mid shape
+
+
+def batch_smem(qt: int) -> int:
+    """Shared memory (bytes) of one block of shape ``qt``: two staging
+    buffers, the tile's row norms and four per-query words (the kernel's
+    ``Shape::kSmemBytes`` + static)."""
+    rows, depth, _ = BATCH_SHAPES[qt]
+    return 4 * (2 * depth * (rows + qt) + rows) + 16 * qt
 
 
 def batch_plan(n: int, qn: int) -> tuple[int, int, int]:
     """(queries per block, splits, rows per split) of the batched kernel:
-    the smallest query tile that holds all Q (64 at most), about
-    BATCH_BLOCKS blocks in all, each split a whole number of BATCH_TILE-row
-    tiles."""
-    qt = next((t for t in BATCH_QTILES if t >= qn), BATCH_QTILES[-1])
-    tiles = max(1, _cdiv(n, BATCH_TILE))
-    want = max(1, _cdiv(BATCH_BLOCKS, _cdiv(qn, qt)))
-    rows = _cdiv(tiles, min(tiles, want)) * BATCH_TILE
-    return qt, _cdiv(n, rows), rows
+    the narrow shape up to 16 queries, the mid one up to 32, the wide one
+    beyond, and splits of whole row tiles whose number fills whole waves of
+    the card's SMs at the blocks per SM the shape allows
+    (:func:`~.scan_topk.wave_splits`).  The splits stay within a wave's
+    blocks, far under CUDA's grid limits."""
+    if n < 1 or qn < 1:
+        raise ValueError(f"batch_plan needs N, Q >= 1, got {n}, {qn}")
+    qt = (8 if qn <= NARROW_QUERIES else 32 if qn <= MID_QUERIES
+          else 128)
+    tile, _, minb = BATCH_SHAPES[qt]
+    per_sm = max(1, min(minb, SM_SMEM // (batch_smem(qt) + BLOCK_RESERVED)))
+    return (qt,) + wave_splits(n, qn, qt, tile, per_sm)
 
 
 def _hits(keys: torch.Tensor, radius_keys: torch.Tensor,
@@ -50,6 +68,19 @@ def _hits(keys: torch.Tensor, radius_keys: torch.Tensor,
         hit = hit & live
     return (keys.masked_fill(~hit, float("inf")), hit.to(torch.int8),
             hit.sum(-1, dtype=torch.int32))
+
+
+def _live(mask_i8: torch.Tensor | None,
+          qvalid_i8: torch.Tensor | None) -> torch.Tensor | None:
+    """(Q, N), (1, N) or (Q, 1) bool: the row mask ANDed with the valid
+    lane, None when neither is given."""
+    live = None
+    if mask_i8 is not None:
+        live = mask_i8 != 0 if mask_i8.ndim == 2 else (mask_i8 != 0)[None]
+    if qvalid_i8 is not None:
+        qlive = (qvalid_i8 != 0)[:, None]
+        live = qlive if live is None else live & qlive
+    return live
 
 
 # ---------------------------------------------------------------------------
@@ -112,13 +143,27 @@ def range_scan_batch_plain(corpus: torch.Tensor, queries: torch.Tensor,
                            qvalid_i8: torch.Tensor | None, metric: Metric):
     """Plain PyTorch version of the batched kernel."""
     keys = pairwise_order_keys(metric, corpus, queries)              # (Q, N)
-    live = None
-    if mask_i8 is not None:
-        live = mask_i8 != 0 if mask_i8.ndim == 2 else (mask_i8 != 0)[None]
-    if qvalid_i8 is not None:
-        qlive = (qvalid_i8 != 0)[:, None]
-        live = qlive if live is None else live & qlive
-    return _hits(keys, radius_keys[:, None], live)
+    return _hits(keys, radius_keys[:, None], _live(mask_i8, qvalid_i8))
+
+
+def range_scan_batch_replayed(corpus: torch.Tensor, queries: torch.Tensor,
+                              radius_keys: torch.Tensor,
+                              mask_i8: torch.Tensor | None,
+                              qvalid_i8: torch.Tensor | None,
+                              metric: Metric):
+    """The batched kernel's output rebuilt on its own arithmetic:
+    ``quant.replay_keys`` of every (query, row) pair, then the mask, the
+    valid lane and the radius test.  On the card the kernel must equal it
+    bit for bit, keys, hits and counts (``chip_smoke.py``, phase
+    range_bits); (Q, N) sized, for small checks."""
+    from .quant import replay_keys      # quant imports this module
+
+    n = corpus.shape[0]
+    qn = queries.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=corpus.device)
+    keys = replay_keys(corpus, queries, rows.expand(qn, n).contiguous(),
+                       metric)
+    return _hits(keys, radius_keys[:, None], _live(mask_i8, qvalid_i8))
 
 
 def range_scan_batch(corpus: torch.Tensor, queries: torch.Tensor,
@@ -149,13 +194,20 @@ def range_scan_batch(corpus: torch.Tensor, queries: torch.Tensor,
     hits = torch.empty((qn, n), dtype=torch.int8, device=dev)
     counts = torch.zeros(qn, dtype=torch.int32, device=dev)
     mask_mode = 0 if mask_i8 is None else 1 if mask_i8.ndim == 1 else 2
+    # 16-byte loads: whole 4-float units along D and aligned bases; 16-byte
+    # key and 4-byte hit stores: whole 4-row runs along N
+    vec4 = (d % 4 == 0 and corpus.data_ptr() % 16 == 0
+            and queries.data_ptr() % 16 == 0)
+    vec_out = (n % 4 == 0 and keys.data_ptr() % 16 == 0
+               and hits.data_ptr() % 4 == 0)
     lib, launch = build.launcher("range_scan_batch.cu",
                                  "range_scan_batch_launch",
-                                 [P] * 4 + [I] + [P] * 4 + [I] * 7 + [P])
+                                 [P] * 4 + [I] + [P] * 4 + [I] * 9 + [P])
     err = launch(
         ptr(corpus), ptr(queries), ptr(radius_keys), ptr(mask_i8), mask_mode,
         ptr(qvalid_i8), ptr(keys), ptr(hits), ptr(counts), n, d, qn,
-        METRIC_CODES[metric], qt, rows, splits, stream(dev))
+        METRIC_CODES[metric], qt, rows, splits, int(vec4), int(vec_out),
+        stream(dev))
     build.check(lib, "range_scan_batch", err)
     range_scan_batch.launches += 1
     return keys, hits, counts

@@ -7,9 +7,11 @@ Pallas range kernels in interpret mode, the port's plain kernel versions on
 the CPU) and False.  Radii sit inside the widest gap between adjacent
 similarities near the target hit count, so no row lies within fp32 error of
 the radius: across packages results agree under ``assert_range_close`` at
-1e-5 (D = 32) with counts and counters exactly equal.  Inside the port the
-reference's bitwise rules hold: bucketed = exact-shape = ``execute_batch``,
-and Q3 batch = perleft under ``use_pallas=False``.
+1e-5 (D = 32) with counts and counters exactly equal.  The Q2 lists and the
+Q3 bind-set lists also run under L2 and cosine (catalogs rebuilt under that
+metric), at 1e-4 on sims with ids and counts exactly equal.  Inside the port
+the reference's bitwise rules hold: bucketed = exact-shape =
+``execute_batch``, and Q3 batch = perleft under ``use_pallas=False``.
 """
 import numpy as np
 import pytest
@@ -17,12 +19,15 @@ import torch
 
 from repro.api import ExecutionHints as RefHints
 from repro.api import connect as ref_connect
+from repro.core.schema import Metric as RefMetric
 from repro.data import make_laion_catalog as ref_make_catalog
 from repro_torch.api import ExecutionHints, connect
+from repro_torch.core.schema import Metric
 from repro_torch.data import make_laion_catalog
 from repro_torch.testing import assert_range_close
 
 TOL = 1e-5
+METRIC_TOL = {"ip": TOL, "l2": 1e-4, "cosine": 1e-4}   # sims
 SMALL = dict(n_rows=3000, n_queries=8, dim=32, n_modes=8, num_categories=4,
              seed=0)
 Q2 = ("SELECT sample_id FROM images WHERE DISTANCE(embedding, ${qv}) <= ${r} "
@@ -47,6 +52,28 @@ def _gap_radius(sims: np.ndarray, rank: int) -> float:
     return float((window[j] + window[j + 1]) / 2)
 
 
+def _better(corpus: np.ndarray, left: np.ndarray, metric: str):
+    """Raw metric values of the left rows against the corpus in float64,
+    larger = better: the similarity (ip, cosine) or the negated squared
+    distance (l2)."""
+    left = left.astype(np.float64)
+    ip = left @ corpus.T
+    if metric == "ip":
+        return ip
+    lsq = (left * left).sum(-1)[..., None]
+    csq = (corpus * corpus).sum(-1)
+    if metric == "l2":
+        return -(lsq - 2.0 * ip + csq)
+    return ip / np.sqrt(lsq * csq)
+
+
+def _metric_radius(better: np.ndarray, metric: str, rank: int) -> float:
+    """:func:`_gap_radius` over ``_better`` values, as a raw radius: a
+    squared distance under l2."""
+    r = _gap_radius(better, rank)
+    return -r if metric == "l2" else r
+
+
 @pytest.fixture(scope="module")
 def env():
     cat = make_laion_catalog(**SMALL, device="cpu")
@@ -57,18 +84,47 @@ def env():
             "left_sims": left.astype(np.float64) @ corpus.T,
             "price": cat.table("laion")["price"].numpy(),
             "cdate": cat.table("laion")["capture_date"].numpy(),
-            "qdate": cat.table("queries")["capture_date"].numpy()}
+            "qdate": cat.table("queries")["capture_date"].numpy(),
+            "metric": "ip"}
+
+
+@pytest.fixture(scope="module")
+def metric_envs(env):
+    """``env`` under a metric: inner product is ``env`` itself; L2 and
+    cosine rebuild both catalogs under that metric (the same vectors and
+    columns), once each."""
+    cache = {"ip": env}
+
+    def get(metric: str) -> dict:
+        if metric not in cache:
+            cache[metric] = dict(
+                env, metric=metric,
+                cat=make_laion_catalog(**SMALL, metric=Metric(metric),
+                                       device="cpu"),
+                ref_cat=ref_make_catalog(**SMALL, metric=RefMetric(metric)))
+        return cache[metric]
+    return get
+
+
+def _assert_exact_ids(got, ref, key: str) -> None:
+    """Ids (or a join's tids), valid slots and counts equal the
+    reference's exactly."""
+    for k in (key, "valid", "count"):
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(ref[k]),
+                                      err_msg=k)
 
 
 def _q2_binds(env, qn: int, seed: int = 1, filtered: bool = True):
     rng = np.random.default_rng(seed)
+    metric = env.get("metric", "ip")
     out = []
     for i in range(qn):
         q = (env["left"][i % env["left"].shape[0]]
              + 0.01 * rng.standard_normal(env["left"].shape[1])
              ).astype(np.float32)
-        b = {"qv": q, "r": np.float32(_gap_radius(env["corpus"] @ q,
-                                                  int(rng.integers(20, 80))))}
+        b = {"qv": q, "r": np.float32(_metric_radius(
+            _better(env["corpus"], q, metric), metric,
+            int(rng.integers(20, 80))))}
         if filtered:
             b["p"] = np.float32(np.quantile(env["price"],
                                             rng.uniform(0.2, 0.9)))
@@ -114,13 +170,19 @@ def test_q2_single_dict_matches_reference(env, use_pallas, filtered):
 
 @pytest.mark.parametrize("qn,bucket", [(1, 1), (3, 4), (8, 8)])
 @pytest.mark.parametrize("use_pallas", [True, False])
-def test_q2_lists_match_reference(env, qn, bucket, use_pallas):
+@pytest.mark.parametrize("metric", ["ip", "l2", "cosine"])
+def test_q2_lists_match_reference(metric_envs, metric, qn, bucket,
+                                  use_pallas):
+    env = metric_envs(metric)
+    tol = METRIC_TOL[metric]
     st, ref_st = _statements(env, Q2, use_pallas)
     binds = _q2_binds(env, qn, seed=qn)
     got, ref = st.execute(binds), ref_st.execute(binds)
     radius = np.array([b["r"] for b in binds])
-    assert_range_close(got.data, ref.data, radius=radius, atol=TOL,
+    assert_range_close(got.data, ref.data, radius=radius, atol=tol,
                        tie_tol=TOL)
+    _assert_exact_ids(got, ref, "ids")
+    assert int(got["count"].min()) > 0
     rep, ref_rep = got.explain(), ref.explain()
     assert rep.path == ref_rep.path == "bucketed"
     assert rep.bucket == ref_rep.bucket == bucket
@@ -135,7 +197,7 @@ def test_q2_lists_match_reference(env, qn, bucket, use_pallas):
     one = st.execute(binds[0])
     assert_range_close({k: v[0] for k, v in got.data.items()
                         if k != "stats"}, one.data, radius=radius[0],
-                       atol=TOL, tie_tol=TOL)
+                       atol=tol, tie_tol=TOL)
 
 
 @pytest.mark.parametrize("filtered", [True, False])
@@ -203,18 +265,23 @@ def test_q3_single_dict_matches_reference(env, lowering, use_pallas):
 
 @pytest.mark.parametrize("lowering", ["batch", "perleft"])
 @pytest.mark.parametrize("use_pallas", [True, False])
-def test_q3_bind_set_lists_match_reference(env, lowering, use_pallas):
+@pytest.mark.parametrize("metric", ["ip", "l2", "cosine"])
+def test_q3_bind_set_lists_match_reference(metric_envs, metric, lowering,
+                                           use_pallas):
     """Lists of bind sets with two radii (the reference's
     test_execute_batch_join_matches_singles shape): (Q, L, P) results."""
-    radii = [_gap_radius(env["left_sims"], 8 * 30),
-             _gap_radius(env["left_sims"], 8 * 80)]
+    env = metric_envs(metric)
+    better = _better(env["corpus"], env["left"], metric)
+    radii = [_metric_radius(better, metric, 8 * 30),
+             _metric_radius(better, metric, 8 * 80)]
     binds = [{"r": np.float32(r)} for r in radii]
     st, ref_st = _statements(env, Q3, use_pallas, join_lowering=lowering)
     got, ref = st.execute(binds), ref_st.execute(binds)
     assert got["tid"].shape == (2, SMALL["n_queries"], 512)
     assert_range_close(got.data, ref.data,
                        radius=np.array(radii, np.float32)[:, None],
-                       atol=TOL, tie_tol=TOL)
+                       atol=METRIC_TOL[metric], tie_tol=TOL)
+    _assert_exact_ids(got, ref, "tid")
     assert (got["count"][0] <= got["count"][1]).all()
     exact = st.execute(binds, hints=ExecutionHints(exact_shape=True))
     _assert_bitwise(got.data, exact.data)

@@ -227,6 +227,15 @@ def test_quant_plan_caps_splits():
     assert s_count == rows // 8 < 2048
 
 
+def test_launch_geometry_covers_the_corpus():
+    for n, qn in ((1_000_000, 128), (1_000_000, 100), (5003, 3), (64, 1),
+                  (1_000_000, 400)):
+        qt, splits, rows = quant.keys_plan(n, qn)
+        assert qt in (4, 16, 64) and (qt >= qn or qt == 64)
+        assert splits * rows >= n > (splits - 1) * rows and rows % 64 == 0
+    assert quant.keys_plan(1_000_000, 128)[:2] == (64, 132)
+
+
 PLAN_QS = [1, 8, 16, 17, 100, 128, 129, 540]
 PLAN_NS = [1, 8, 5003, 1_000_000]
 PLAN_COUNTS = [1, 20, 100, 128, 129, 512, 1024]

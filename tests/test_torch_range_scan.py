@@ -10,6 +10,9 @@ gap between adjacent keys near the target rank, so fp32 summation order
 cannot flip a hit: hits and counts must be exactly equal, raw sims on the
 hits agree to 1e-5 (unit-scale fp32 data at D <= 130).
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +22,11 @@ from repro.core.schema import Metric as RefMetric
 from repro.kernels import ops as ref_ops
 from repro_torch.core.schema import Metric
 from repro_torch.kernels import ops
+from repro_torch.kernels import range_scan as rs
+from repro_torch.kernels.distance import MAX_GRID_Y
 from repro_torch.kernels.range_scan import (batch_plan, range_scan,
                                             range_scan_batch)
+from repro_torch.kernels.scan_topk import BLOCK_SMEM, SM_COUNT
 
 TOL = 1e-5
 METRICS = ["ip", "l2", "cosine"]
@@ -232,13 +238,100 @@ def test_oracle_matches_reference(metric):
     assert torch.equal(f_hit, hit) and int(f_cnt) == int(hit.sum())
 
 
-def test_launch_geometry_covers_the_corpus():
-    for n, qn in ((1_000_000, 128), (1_000_000, 100), (5003, 3), (64, 1),
-                  (1_000_000, 400)):
-        qt, splits, rows = batch_plan(n, qn)
-        assert qt in (4, 16, 64) and (qt >= qn or qt == 64)
-        assert splits * rows >= n > (splits - 1) * rows and rows % 64 == 0
-    assert batch_plan(1_000_000, 128)[:2] == (64, 132)
+# ---------------------------------------------------------------------------
+# the batched kernel's launch plan and its bitwise reference
+# ---------------------------------------------------------------------------
+
+PLAN_QS = [1, 2, 8, 16, 17, 32, 33, 64, 100, 128, 130, 400]
+PLAN_NS = [1, 127, 128, 5003, 1_000_000, 1_000_003]
+
+
+@pytest.mark.parametrize("n", PLAN_NS)
+@pytest.mark.parametrize("qn", PLAN_QS)
+def test_batch_plan_covers_and_fits(qn, n):
+    """The plan covers every row once with splits of whole row tiles of
+    its shape, keeps the grid within CUDA's limits and one wave of the
+    card's SMs (at most two blocks each), fits the shape's
+    shared memory in one block, and takes the narrow shape up to 16
+    queries, the mid one up to 32 and the 128-query one beyond (buckets 64
+    and 128 in one query tile)."""
+    qt, splits, rows = batch_plan(n, qn)
+    tile = rs.BATCH_SHAPES[qt][0]
+    assert (splits - 1) * rows < n <= splits * rows
+    assert rows % tile == 0 and rows >= tile
+    assert 1 <= splits <= MAX_GRID_Y and -(-qn // qt) <= 2**31 - 1
+    assert -(-qn // qt) * splits <= 2 * SM_COUNT        # one wave
+    assert rs.batch_smem(qt) <= BLOCK_SMEM
+    assert qt == (8 if qn <= 16 else 32 if qn <= 32 else 128)
+    if qn in (64, 128):
+        assert qt == 128 and -(-qn // qt) == 1
+
+
+
+def test_batch_plan_main_shapes():
+    """Q2's bucket of 128 over 1M rows: the wide shape, 131 splits of 7,680
+    rows, one wave of 132 SMs at one block each; bucket 8: the narrow
+    shape at two blocks per SM, 245 splits; bucket 32: the mid shape."""
+    assert batch_plan(1_000_000, 128) == (128, 131, 7680)
+    assert batch_plan(1_000_000, 100) == (128, 131, 7680)
+    assert batch_plan(1_000_000, 64) == (128, 131, 7680)
+    for qn in (1, 8):
+        assert batch_plan(1_000_000, qn) == (8, 245, 4096)
+    assert batch_plan(1_000_000, 32) == (32, 261, 3840)
+    assert rs.batch_smem(128) == 4 * (2 * 16 * 256 + 128) + 16 * 128
+    with pytest.raises(ValueError, match="N, Q >= 1"):
+        batch_plan(0, 8)
+
+
+def test_batch_shapes_mirror_the_kernel():
+    """``BATCH_SHAPES`` holds the kernel's ``Wide``, ``Mid`` and
+    ``Narrow`` shapes: (queries, rows, columns per chunk, blocks per
+    SM)."""
+    src = (Path(rs.__file__).with_name("csrc")
+           / "range_scan_batch.cu").read_text()
+    shapes = {}
+    for m in re.finditer(r"using (Wide|Mid|Narrow) = Shape<([^>]*)>;", src):
+        bq, br, _qm, _rm, _lr, bk, minb = (int(v) for v in
+                                           m.group(2).split(","))
+        shapes[bq] = (br, bk, minb)
+    assert shapes == rs.BATCH_SHAPES
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("mask", MASKS)
+def test_replayed_oracle_matches_plain_and_reference(metric, mask):
+    """``range_scan_batch_replayed`` (the card's bitwise reference: replay
+    keys of every pair, then the mask, the valid lane and the radius) has
+    the plain version's hits and counts, and its keys within 1e-5, on the
+    CPU; and it gives the reference's Pallas kernel's answer (interpret
+    mode), with the last query a dead lane."""
+    case = METRICS.index(metric) * len(MASKS) + MASKS.index(mask)
+    n, d, qn = SHAPES[case % len(SHAPES)]
+    rng, corpus, queries = _inputs(70 + case, n, d, qn)
+    rm = _mask(rng, mask, qn, n)
+    radius = _tie_safe_radius(_keys(corpus, queries, metric), metric,
+                              rank=50 + 30 * (case % 3))
+    qvalid = np.arange(qn) < qn - 1
+    m = Metric(metric)
+    rk = ops._radius_keys(_t(radius), m, qn, torch.device("cpu"))
+    a = (_t(corpus), _t(queries), rk,
+         None if rm is None else _t(rm).to(torch.int8),
+         _t(qvalid).to(torch.int8))
+    keys, hits, counts = rs.range_scan_batch_replayed(*a, m)
+    p_keys, p_hits, p_counts = rs.range_scan_batch_plain(*a, m)
+    assert keys.dtype == torch.float32 and hits.dtype == torch.int8
+    assert torch.equal(hits, p_hits) and torch.equal(counts, p_counts)
+    assert torch.equal(torch.isinf(keys), torch.isinf(p_keys))
+    live = torch.isfinite(keys)
+    np.testing.assert_allclose(keys[live].numpy(), p_keys[live].numpy(),
+                               rtol=0, atol=TOL)
+    assert not hits[-1].any() and int(counts[-1]) == 0
+    ref = ref_ops.fused_range_scan_batch(
+        jnp.asarray(corpus), jnp.asarray(queries), jnp.asarray(radius),
+        _j(rm), RefMetric(metric), qvalid=_j(qvalid), **REF_BLOCKS)
+    hit = hits.bool()
+    _assert_same_hits((hit, ops._raw(keys, hit, m), counts), ref,
+                      f"replayed {metric} {mask}")
 
 
 def test_wrappers_reject_bad_inputs():
