@@ -93,6 +93,14 @@ one JSON line each:
            16, 17, 37, 100, 128, 130} (every block shape, a second query
            tile) and at 1,000,003 x 64 with Q in {8, 100}; row i of a
            Q-query call equals the single-query call
+  keys_bits  quant_keys_batch bit for bit: its keys (int32 view) equal
+           quant_keys_batch_replayed (replay_keys over the dequantized
+           rows, then the mask and the valid lane) and range_scan_batch's
+           keys on the dequantized twin with every radius at +inf, int8 and
+           bf16, every metric, masks none, shared and per-query with dead
+           valid lanes, at the pairwise_bits shapes with Q in {1, 8, 16,
+           17, 37, 64, 100, 128, 130} and at 1,000,003 x 64 with Q in {8,
+           100}; row i of a Q-query call equals the single-query call
   full     each kernel against its plain version at the paths' shapes
            (pairwise_keys at 100 x 1M x 512, every metric)
   slice    Q1–Q6 through the session API: single dicts, lists,
@@ -107,14 +115,16 @@ one JSON line each:
            has a row outside the quantized candidates)
   times    per kernel: its time, its plain version's, the library
            yardstick (timed only), the bound; scan_topk_batch and
-           range_scan_batch also at buckets 1, 8, 32 and 128 and
+           range_scan_batch also at buckets 1, 8, 32 and 128,
+           quant_keys_batch at buckets 1, 8, 32, 64 and 128 and
            quant_scan_topk_batch at Q in {1, 8, 100}, each beside its
            yardstick, and pairwise_keys at Q in {1, 8, 100} beside one
-           torch.matmul
+           torch.matmul; every kernel and yardstick both as one call
+           between an event pair and per call over a back-to-back run
   e2e      execute latency and QPS per batch size (Q1, Q2, Q5) and per
            join lowering (Q3, Q4, Q6); beside each the kernel's and the
            stage-2 time at the same shapes (compaction, merge, full sort,
-           category rank), and the peak memory; the quantized Q1–Q4 paths'
+           category rank), and the peak memory; the quantized Q1–Q6 paths'
            beside the fp32 ones (Q4: one bind set and the list of two)
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero without the last line.
@@ -220,6 +230,24 @@ def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def run_ms(fn, one_ms: float) -> float:
+    """Device time per call over a run of back-to-back calls between one
+    pair of CUDA events (20 calls, or 5 where one takes over 2 ms): the
+    host's work before each launch overlaps the device's work on the one
+    before, as in a caller's loop."""
+    count = 5 if one_ms > 2.0 else 20
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(count):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / count
 
 
 def latency_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -905,6 +933,84 @@ def main() -> None:
                      "and counts, every metric, mask kind and radius kind",
                      "row of batch = single query"]})
 
+    # -- keys_bits: the quantized key kernel's keys bit for bit -------------
+    # against quant_keys_batch_replayed (replay_keys over the dequantized
+    # twin, then the mask and the valid lane) and range_scan_batch's keys on
+    # the dequantized twin with every radius at +inf, in int8 and bf16, at
+    # the pairwise_bits shapes, Q in {1, 8, 16, 17, 37, 64, 100, 128, 130}
+    # (every block shape, the wide shape's skipped query groups, a second
+    # query tile), every metric and mask kind with the last three lanes
+    # dead; at 1,000,003 x 64 with Q in {8, 100}; and row i of a Q-query
+    # call equals the single-query call (one mask kind per metric)
+    keys_cases = keys_rows = 0
+
+    def keys_bits(qc, args, metric, what):
+        nonlocal keys_cases
+        got = qt_mod.quant_keys_batch(qc.qvecs, qc.scales, *args, metric)
+        want = qt_mod.quant_keys_batch_replayed(qc.qvecs, qc.scales, *args,
+                                                metric)
+        deq = qc.qvecs.to(torch.float32) * qc.scales
+        inf = torch.full((args[0].shape[0],), float("inf"), device=dev)
+        ranged = rs_mod.range_scan_batch(deq, args[0], inf, *args[1:],
+                                         metric)[0]
+        if not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"{what}: not the replayed keys")
+        if not torch.equal(bits(got), bits(ranged)):
+            raise AssertionError(f"{what}: not range_scan_batch's keys on "
+                                 "the dequantized twin")
+        keys_cases += 1
+        return got
+
+    for n, d in ((5003, 130), (4099, 64), (3001, 512)):
+        corpus = unit((n, d))
+        corpus[n // 3: n // 3 + 40] = corpus[7]          # exact duplicates
+        for mode in MODES:
+            qc = quantize_corpus(corpus, mode)
+            for metric in Metric:
+                for qn in (1, 8, 16, 17, 37, 64, 100, 128, 130):
+                    qs = unit((qn, d))
+                    qs[0] = corpus[7]
+                    qv8 = (torch.arange(qn, device=dev)
+                           < max(1, qn - 3)).to(torch.int8)
+                    for mname in ("none", "shared", "per_query"):
+                        m8 = mask8(mname, qn, n)
+                        what = (f"keys bits {mode} {metric.value} n={n} "
+                                f"d={d} q={qn} {mname}")
+                        got = keys_bits(qc, (qs, m8, qv8), metric, what)
+                        if mname != mask_of[metric]:
+                            continue
+                        for i in range(qn):
+                            one = qt_mod.quant_keys_batch(
+                                qc.qvecs, qc.scales, qs[i:i + 1].contiguous(),
+                                None if m8 is None else m8 if m8.ndim == 1
+                                else m8[i:i + 1].contiguous(),
+                                qv8[i:i + 1].contiguous(), metric)
+                            if not torch.equal(bits(one[0]), bits(got[i])):
+                                raise AssertionError(
+                                    f"{what}: row {i} is not the "
+                                    "single-query call")
+                            keys_rows += 1
+    n, d = 1_000_003, 64
+    corpus = unit((n, d))
+    for mode in MODES:
+        qc = quantize_corpus(corpus, mode)
+        for metric in Metric:
+            for qn in (8, 100):
+                qv8 = (torch.arange(qn, device=dev)
+                       < max(1, qn - 3)).to(torch.int8)
+                keys_bits(qc, (unit((qn, d)), mask8(mask_of[metric], qn, n),
+                               qv8), metric,
+                          f"keys bits {mode} {metric.value} n={n} d={d} "
+                          f"q={qn} {mask_of[metric]}")
+        del qc
+    del corpus
+    emit({"phase": "keys_bits", "cases": keys_cases,
+          "single_query_rows": keys_rows,
+          "checks": ["= quant_keys_batch_replayed, keys (int32 view), "
+                     "every mode, metric and mask kind",
+                     "= range_scan_batch keys on the dequantized twin at "
+                     "+inf radii", "row of batch = single query"]})
+
     # -- the catalog at full width -------------------------------------------
     t0 = time.perf_counter()
     cat = make_laion_catalog(n_rows=N_ROWS, n_queries=N_QUERIES, dim=DIM,
@@ -1419,6 +1525,7 @@ def main() -> None:
             ("single", q4s, q4_list[0], None),
             ("list2", q4s, q4_list, None)])
         q5s, q6s = qdb.prepare(Q5), qdb.prepare(Q6)
+        qstmts[mode] += (q5s, q6s)
         results["q5"] = drive(f"q5_{mode}", [
             ("single0", q5s, q5_binds[0], None),
             (f"list{N_QUERIES}", q5s, q5_binds, None)])
@@ -1589,10 +1696,12 @@ def main() -> None:
         out = {}
         for kname, (kernel, plain, lib, (b_ms, b_by)) in table.items():
             reps = (2, 5) if kname.endswith("batch") else (3, 10)
-            out[kname] = {"ms": time_ms(kernel),
-                          "plain_ms": time_ms(plain, *reps),
-                          "library_ms": time_ms(lib, *reps),
-                          "bound_ms": b_ms, "bound_by": b_by}
+            row = out[kname] = {"ms": time_ms(kernel),
+                                "plain_ms": time_ms(plain, *reps),
+                                "library_ms": time_ms(lib, *reps),
+                                "bound_ms": b_ms, "bound_by": b_by}
+            row["run_ms"] = run_ms(kernel, row["ms"])
+            row["library_run_ms"] = run_ms(lib, row["library_ms"])
         return out
 
     times = timed(calls)
@@ -1609,6 +1718,15 @@ def main() -> None:
             "ms": time_ms(lambda: qt_mod.quant_scan_topk_batch(
                 qc.qvecs, qc.scales, q8, m8, v8, 2 * K, metric)),
             "bytes_bound_ms": (twin_bytes(qc) + 8 * N_ROWS) / bw * 1e3}
+    def with_runs(kernel, lib, **row) -> dict:
+        """A kernel and its library yardstick, each one call between an
+        event pair and per call over a back-to-back run."""
+        row["ms"] = time_ms(kernel)
+        row["run_ms"] = run_ms(kernel, row["ms"])
+        row["library_ms"] = time_ms(lib, 2, 5)
+        row["library_run_ms"] = run_ms(lib, row["library_ms"])
+        return row
+
     # the quantized top-k at one query (a quantized single dict), bucket 8
     # and bucket 128 (100 live), each mode beside the library yardstick
     quant_by_q = {}
@@ -1621,12 +1739,11 @@ def main() -> None:
             b_ms, b_by = bound(
                 twin_bytes(qc) + live * DIM * 4 + live * N_ROWS + b
                 + live * splits_ * s_ * 8, 2 * N_ROWS * DIM * live)
-            quant_by_q[live][mode] = {
-                "ms": time_ms(lambda: qt_mod.quant_scan_topk_batch(
-                    qc.qvecs, qc.scales, qs_, m_, v_, 2 * K, metric)),
-                "library_ms": time_ms(
-                    lambda: lib_quant_topk(qc, qs_, m_, v_), 2, 5),
-                "bound_ms": b_ms, "bound_by": b_by}
+            quant_by_q[live][mode] = with_runs(
+                lambda: qt_mod.quant_scan_topk_batch(
+                    qc.qvecs, qc.scales, qs_, m_, v_, 2 * K, metric),
+                lambda: lib_quant_topk(qc, qs_, m_, v_),
+                bound_ms=b_ms, bound_by=b_by)
     # the fp32 batched top-k at one query (a list of 1), buckets 8 and 32
     # (30 live; the narrow and mid shapes) and 128 (100 live), beside the
     # library yardstick
@@ -1644,12 +1761,10 @@ def main() -> None:
             keys = keys.masked_fill(m_ == 0, float("inf"))
             keys = keys.masked_fill((v_ == 0)[:, None], float("inf"))
             return torch.topk(keys, K, dim=1, largest=False)
-        fp32_by_q[live] = {
-            "bucket": b, "plan": list(st_mod.batch_plan(N_ROWS, b, K)),
-            "ms": time_ms(lambda: st_mod.scan_topk_batch(corpus, qs_, m_, v_,
-                                                         K, metric)),
-            "library_ms": time_ms(lib_b, 2, 5), "bound_ms": b_ms,
-            "bound_by": b_by}
+        fp32_by_q[live] = with_runs(
+            lambda: st_mod.scan_topk_batch(corpus, qs_, m_, v_, K, metric),
+            lib_b, bucket=b, plan=list(st_mod.batch_plan(N_ROWS, b, K)),
+            bound_ms=b_ms, bound_by=b_by)
     # the batched range scan at one query (a Q2 list of 1), buckets 8, 32
     # (30 live; the narrow and mid shapes) and 128 (100 live; the wide
     # one), at the Q2 radius, beside the library yardstick
@@ -1666,24 +1781,40 @@ def main() -> None:
             hit = ((keys <= rk_[:, None]) & (m_ != 0)
                    & (v_ != 0)[:, None])
             return keys.masked_fill(~hit, float("inf")), hit
-        range_by_q[live] = {
-            "bucket": b, "plan": list(rs_mod.batch_plan(N_ROWS, b)),
-            "ms": time_ms(lambda: rs_mod.range_scan_batch(
-                corpus, qs_, rk_, m_, v_, metric)),
-            "library_ms": time_ms(lib_r, 2, 5), "bound_ms": b_ms,
-            "bound_by": b_by}
+        range_by_q[live] = with_runs(
+            lambda: rs_mod.range_scan_batch(corpus, qs_, rk_, m_, v_,
+                                            metric),
+            lib_r, bucket=b, plan=list(rs_mod.batch_plan(N_ROWS, b)),
+            bound_ms=b_ms, bound_by=b_by)
+    # the quantized key kernel at one query (a quantized single dict), and
+    # buckets 8, 32 (30 live), 64 and 128 (100 live) of Q2's shapes, each
+    # mode beside the library yardstick (dequantize, matmul, masked_fill)
+    keys_by_q = {}
+    for live, b in ((1, 1), (8, 8), (30, 32), (64, 64), (N_QUERIES, bucket)):
+        qs_, m_ = batch_q[:b], batch_mask[:b]
+        v_ = (torch.arange(b, device=dev) < live).to(torch.int8)
+        keys_by_q[live] = {"bucket": b,
+                           "plan": list(rs_mod.batch_plan(N_ROWS, b))}
+        for mode, qc in twins.items():
+            b_ms, b_by = bound(
+                twin_bytes(qc) + live * DIM * 4 + live * N_ROWS + b
+                + live * N_ROWS * 4, 2 * N_ROWS * DIM * live)
+            keys_by_q[live][mode] = with_runs(
+                lambda: qt_mod.quant_keys_batch(qc.qvecs, qc.scales, qs_, m_,
+                                                v_, metric),
+                lambda: dequantized_keys(qc, qs_, m_, v_),
+                bound_ms=b_ms, bound_by=b_by)
     # the pairwise kernel at a single query (Q4 brute_sort perleft), a few
     # and the 100 queries, each beside one torch.matmul
     pairwise_by_q = {}
     for qn in (1, 8, N_QUERIES):
         qs_ = left[:qn]
         t_bytes = (N_ROWS * DIM * 4 + qn * DIM * 4 + qn * N_ROWS * 4) / bw
-        pairwise_by_q[qn] = {
-            "ms": time_ms(lambda: dist_mod.pairwise_keys(qs_, corpus,
-                                                         metric)),
-            "matmul_ms": time_ms(lambda: torch.matmul(qs_, corpus.T)),
-            "bound_ms": max(t_bytes, 2 * qn * N_ROWS * DIM / flops) * 1e3,
-            "plan": list(dist_mod.pairwise_plan(N_ROWS, qn))}
+        pairwise_by_q[qn] = with_runs(
+            lambda: dist_mod.pairwise_keys(qs_, corpus, metric),
+            lambda: torch.matmul(qs_, corpus.T),
+            bound_ms=max(t_bytes, 2 * qn * N_ROWS * DIM / flops) * 1e3,
+            plan=list(dist_mod.pairwise_plan(N_ROWS, qn)))
     emit({"phase": "times", "device": name, "nvidia_smi": smi,
           "shapes": {"n": N_ROWS, "d": DIM, "k": K, "bucket": bucket,
                      "live_queries": live_q, "qt": qt, "splits": splits,
@@ -1698,6 +1829,7 @@ def main() -> None:
           "kernels": times, "kernels_bf16": times_bf16,
           "bucket8": bucket8, "fp32_by_q": fp32_by_q,
           "range_by_q": range_by_q, "quant_by_q": quant_by_q,
+          "keys_by_q": keys_by_q,
           "pairwise_by_q": pairwise_by_q})
 
     # -- e2e -------------------------------------------------------------------
@@ -1938,7 +2070,7 @@ def main() -> None:
 
     # the quantized paths, each beside the fp32 number measured above
     for mode in MODES:
-        q1s, q2s, q3s, q4s = qstmts[mode]
+        q1s, q2s, q3s, q4s, q5s, q6s = qstmts[mode]
         lat = {"single": latency_ms(lambda: q1s.execute(binds[0]))}
         for qn in BATCHES:
             lat[f"batch{qn}"] = latency_ms(lambda: q1s.execute(binds[:qn]))
@@ -1995,6 +2127,24 @@ def main() -> None:
         emit({"phase": "e2e", "path": f"q4_{mode}", "device": name,
               "nvidia_smi": smi, "rescore_factor": c4, "k": K,
               "runs": q4_runs})
+        # quantized Q5 (a single dict and the lists) and Q6 (the batch
+        # lowering and the list of 4 radii), beside fp32
+        q5_runs, q6_runs = {}, {}
+        for key, b, nq in [("single", q5_binds[0], 1)] + [
+                (f"batch{qn}", q5_binds[:qn], qn) for qn in BATCHES]:
+            ms = latency_ms(lambda: q5s.execute(b), iters=5)
+            q5_runs[key] = {"latency_ms": ms, "qps": nq * 1e3 / ms,
+                            "peak_mb": peak_mb(lambda: q5s.execute(b)),
+                            "fp32_latency_ms": q5_e2e[key]["latency_ms"]}
+        for key, b, sets in (("batch", {"r": r}, 1), ("list4", list4, 4)):
+            ms = latency_ms(lambda: q6s.execute(b), iters=5 if sets == 1
+                            else 3)
+            q6_runs[key] = {"latency_ms": ms,
+                            "left_rows_per_s": sets * N_QUERIES * 1e3 / ms,
+                            "peak_mb": peak_mb(lambda: q6s.execute(b)),
+                            "fp32_latency_ms": q6_e2e[key]["latency_ms"]}
+        emit({"phase": "e2e", "path": f"q5_q6_{mode}", "device": name,
+              "nvidia_smi": smi, "q5": q5_runs, "q6": q6_runs})
 
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": SOURCES[kname],

@@ -5,11 +5,11 @@ NVIDIA card: keys, hits and counts bit for bit, and times in turns.
     python3 scripts/range_compare.py [--parent DIR] [--out FILE]
 
 DIR is a checkout of an earlier commit (for example ``git archive <commit>
-| tar x -C build/parent``).  Its ``csrc/range_scan_batch.cu`` (with the
-headers beside it: ``range_batch.cuh``, ``fp32_tile.cuh``) is built with
-the same nvcc flags into ``build/parent_kernels/`` and launched through its
-own C entry point with that version's launch plan (4, 16 or 64 queries per
-block, about 264 blocks of 64-row tiles).
+| tar x -C build/parent``) whose kernel has this one's C entry point and
+launch plan (``range_scan.batch_plan``; the kernel as redesigned on the
+128 × 128 tile and later).  Its ``csrc/range_scan_batch.cu`` (with the
+headers beside it) is built with the same nvcc flags into
+``build/parent_kernels/`` and launched through its own C entry point.
 
 Checks, at (n, d) in {(5003, 130), (4099, 64), (3001, 512)}, Q in {1, 8,
 16, 17, 37, 100, 128, 130} (every block shape and a second query tile),
@@ -58,20 +58,6 @@ N_ROWS, DIM, RANK = 1_000_000, 512, 120
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67.0e12   # H100 SXM data sheet
 
 
-def cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def parent_plan(n: int, qn: int) -> tuple[int, int, int]:
-    """(queries per block, splits, rows per split) of the earlier
-    kernel."""
-    qt = next((t for t in (4, 16, 64) if t >= qn), 64)
-    tiles = max(1, cdiv(n, 64))
-    want = max(1, cdiv(264, cdiv(qn, qt)))
-    rows = cdiv(tiles, min(tiles, want)) * 64
-    return qt, cdiv(n, rows), rows
-
-
 def build_parent(parent: Path, nvcc: str, flags) -> tuple:
     src = parent / "src/repro_torch/kernels/csrc/range_scan_batch.cu"
     out_dir = ROOT / "build" / "parent_kernels"
@@ -85,7 +71,7 @@ def build_parent(parent: Path, nvcc: str, flags) -> tuple:
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.range_scan_batch_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 4 + [I] + [P] * 4 + [I] * 7 + [P]
+    fn.argtypes = [P] * 4 + [I] + [P] * 4 + [I] * 9 + [P]
     fn.restype = ctypes.c_int
     return fn, ptxas_lines(proc.stdout + proc.stderr)
 
@@ -156,7 +142,7 @@ def main() -> None:
     def parent_range(corpus, qs, rk, mask, valid, metric):
         n, d = corpus.shape
         qn = qs.shape[0]
-        qt, splits, rows = parent_plan(n, qn)
+        qt, splits, rows = rs_mod.batch_plan(n, qn)
         keys = torch.empty((qn, n), dtype=torch.float32, device=dev)
         hits = torch.empty((qn, n), dtype=torch.int8, device=dev)
         counts = torch.zeros(qn, dtype=torch.int32, device=dev)
@@ -166,8 +152,8 @@ def main() -> None:
             None if mask is None else mask.data_ptr(), mode,
             None if valid is None else valid.data_ptr(), keys.data_ptr(),
             hits.data_ptr(), counts.data_ptr(), n, d, qn,
-            METRIC_CODES[metric], qt, rows, splits,
-            torch.cuda.current_stream().cuda_stream)
+            METRIC_CODES[metric], qt, rows, splits, int(d % 4 == 0),
+            int(n % 4 == 0), torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"earlier kernel launch: error {err}")
         return keys, hits, counts
@@ -306,7 +292,6 @@ def main() -> None:
             row["earlier_ms"] = [time_ms(old)]
             row["ms"] = [time_ms(this), time_ms(this)]
             row["earlier_ms"].append(time_ms(old))
-            row["parent_plan"] = list(parent_plan(N_ROWS, bucket))
         else:
             row["ms"] = [time_ms(this), time_ms(this)]
 

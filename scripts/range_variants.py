@@ -5,11 +5,12 @@ the kernel as committed.
     python3 scripts/range_variants.py [--out FILE]
 
 Each variant is the committed ``csrc/range_scan_batch.cu`` with a few lines
-replaced, built with the same nvcc flags into ``build/range_variants/``
-(all builds started together) and launched through its C entry point with
-the committed launch plan, or with the plan of another shape or blocks per
-SM where the variant says so.  A variant that does not build is reported
-with its compiler's last lines.  Variants:
+of it or of the tile it includes (``csrc/range_tile.cuh``) replaced, built
+with the same nvcc flags into ``build/range_variants/<variant>/`` (all
+builds started together) and launched through its C entry point with the
+committed launch plan, or with the plan of another shape or blocks per SM
+where the variant says so.  A variant that does not build is reported with
+its compiler's last lines.  Variants:
 
 * ``no_stores``: the epilogue computes every key and hit but stores none
   (timed only): the product, the staging, the mask loads and the barriers;
@@ -50,8 +51,10 @@ WIDE = "using Wide = Shape<128, 128, 8, 8, 4, 16, 1>;"
 MID = "using Mid = Shape<32, 256, 4, 8, 4, 16, 2>;"
 NARROW = "using Narrow = Shape<8, 512, 4, 4, 16, 16, 2>;"
 # skip the stores, keeping every key and hit live
-NO_STORES = [("        cnt[j] += __popc(hw);\n",
-              "        cnt[j] += __popc(hw) + (key[0] == 1234.5f);\n"
+NO_STORES = [("        if constexpr (HITS) cnt[j] += __popc(hw);\n",
+              "        if constexpr (HITS) cnt[j] += __popc(hw);\n"
+              "        if (key[0] == 1234.5f && key[3] == 1.5f)\n"
+              "          out_keys[o] = key[1];\n"
               "        continue;\n")]
 
 
@@ -81,6 +84,49 @@ VARIANTS = {
 }
 TIMED_ONLY = ("no_stores",)
 LIVE = {1: 1, 8: 8, 32: 30, 128: 100}    # live queries per bucket
+
+
+def build_variants(source: str, variants: dict, out_dir: Path, build,
+                   entry: str, argtypes: list) -> tuple[dict, dict]:
+    """Write each variant of ``csrc/<source>`` (its replacements applied
+    to the source or to the headers it includes, wherever the old text
+    stands once) with the headers into ``out_dir/<variant>/``, build them
+    all at once, and load them.  Returns ({variant: C launcher},
+    {variant: build report})."""
+    files = {name: (build.CSRC / name).read_text()
+             for name in (source,) + build.HEADERS}
+    procs = {}
+    for name, (subs, *_) in variants.items():
+        texts = dict(files)
+        for old, new in subs:
+            where = [f for f, t in texts.items() if t.count(old) == 1]
+            if len(where) != 1 or sum(t.count(old)
+                                      for t in texts.values()) != 1:
+                raise RuntimeError(f"{name}: `{old[:40]}` not found once")
+            texts[where[0]] = texts[where[0]].replace(old, new)
+        vdir = out_dir / name
+        vdir.mkdir(parents=True, exist_ok=True)
+        for f, t in texts.items():
+            (vdir / f).write_text(t)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.FLAGS, "-o", str(vdir / "kernel.so"),
+             str(vdir / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    launchers, report = {}, {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            report[name] = {"built": False, "log": log.splitlines()[-5:]}
+            continue
+        fn = getattr(ctypes.CDLL(str(out_dir / name / "kernel.so")), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        launchers[name] = fn
+        report[name] = {"built": True, "ptxas": sorted({
+            ln.split("info    :")[-1].strip() for ln in log.splitlines()
+            if "registers" in ln or ("spill stores" in ln
+                                     and " 0 bytes spill stores" not in ln)})}
+    return launchers, report
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -124,39 +170,11 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    out_dir = ROOT / "build" / "range_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for header in build.HEADERS:
-        (out_dir / header).write_text((build.CSRC / header).read_text())
-    source = (build.CSRC / "range_scan_batch.cu").read_text()
-    procs = {}
-    for name, (subs, *_) in VARIANTS.items():
-        text = source
-        for old, new in subs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: `{old[:40]}` not found once")
-            text = text.replace(old, new)
-        (out_dir / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.FLAGS, "-o", str(out_dir / f"{name}.so"),
-             str(out_dir / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    launchers, report = {}, {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            report[name] = {"built": False, "log": log.splitlines()[-5:]}
-            continue
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        fn = lib.range_scan_batch_launch
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 4 + [I] + [P] * 4 + [I] * 9 + [P]
-        fn.restype = ctypes.c_int
-        launchers[name] = fn
-        report[name] = {"built": True, "ptxas": sorted({
-            ln.split("info    :")[-1].strip() for ln in log.splitlines()
-            if "registers" in ln or ("spill stores" in ln
-                                     and " 0 bytes spill stores" not in ln)})}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    launchers, report = build_variants(
+        "range_scan_batch.cu", VARIANTS, ROOT / "build" / "range_variants",
+        build, "range_scan_batch_launch",
+        [P] * 4 + [I] + [P] * 4 + [I] * 9 + [P])
     emit({"phase": "build", "nvidia_smi": smi, "report": report})
 
     dev = torch.device("cuda")

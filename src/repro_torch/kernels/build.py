@@ -29,7 +29,7 @@ SOURCES = ("scan_topk.cu", "scan_topk_batch.cu", "range_scan.cu",
            "range_scan_batch.cu", "quant_scan_topk_batch.cu",
            "quant_keys_batch.cu", "replay_keys.cu", "pairwise_keys.cu")
 HEADERS = ("topk_common.cuh", "fp32_tile.cuh", "select_tile.cuh",
-           "range_batch.cuh")
+           "range_tile.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -43,10 +43,11 @@
 //
 // Keys bit for bit: each (row, query) dot product and each row's squared
 // norm is one sequential fmaf chain over d = 0 .. ceil(D / 32)·32 − 1, zeros
-// past D, as fp32_tile.cuh sums it (no split-K); ‖q‖² comes from the same
-// repro_tile::query_norms; the epilogue is unchanged.  So any query tile
-// gives the same bits, a row of a batch equals the single-query call, and
-// for inner product and cosine the keys equal replay_keys.cu's.
+// past D, as every batched key kernel sums it (fp32_tile.cuh; no
+// split-K); ‖q‖² comes from the same repro_tile::query_norms; the
+// epilogue is unchanged.  So any query tile gives the same bits, a row
+// of a batch equals the single-query call, and for inner product and
+// cosine the keys equal replay_keys.cu's.
 #include "fp32_tile.cuh"
 
 namespace {

@@ -56,13 +56,14 @@
 //
 // Keys bit for bit: the dequantized element is the one rounded product
 // float(q) · scale (int8; the byte is widened exactly by integer
-// arithmetic) or the exact widening (bf16) of fp32_tile.cuh's row loaders;
+// arithmetic) or the exact widening (bf16) of select_tile.cuh's `dequant`;
 // each (row, query) dot product and each row's squared norm is one
 // sequential fmaf chain over d = 0 .. ceil(D / 32)·32 − 1, zeros past D, as
-// fp32_tile.cuh sums it (no split-K, no TF32); ‖q‖² comes from the same
-// repro_tile::query_norms and the key from the same repro_topk::order_key.
-// So a segment's key is the minimum of replay_keys.cu's keys of its rows on
-// the dequantized corpus, at every batch size and plan.
+// every batched key kernel sums it (no split-K, no TF32); ‖q‖² comes from
+// the same repro_tile::query_norms and the key from the same
+// repro_topk::order_key.  So a segment's key is the minimum of
+// replay_keys.cu's keys of its rows on the dequantized corpus, at every
+// batch size and plan.
 #include "select_tile.cuh"
 
 namespace {
@@ -125,32 +126,6 @@ struct Units {
   static constexpr int UPT = (RU + QU + kThreads - 1) / kThreads;
   static_assert(RU % 32 == 0 && QU % 32 == 0, "unit kinds switch by warp");
 };
-
-// The UC fp32 values of a 16-byte twin unit.  int8: float(q) · scale, one
-// rounded product; the byte is widened exactly as 2^23 + (q + 128) − (2^23
-// + 128) (integer ops and one exact subtraction instead of the
-// quarter-rate conversion).  bf16: the 16 bits as the high half of a float.
-template <typename T>
-__device__ __forceinline__ void dequant(const uint4& raw, float scale,
-                                        float (&v)[16 / sizeof(T)]) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (sizeof(T) == 1) {
-      const unsigned x = w[i] ^ 0x80808080u;  // each byte q + 128
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float q = __fsub_rn(
-            __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u | b)),
-            8388736.0f);
-        v[4 * i + b] = __fmul_rn(q, scale);
-      }
-    } else {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-}
 
 template <class S, int METRIC, typename T>
 __global__ void __launch_bounds__(kThreads, S::MINB) quant_topk_kernel(

@@ -6,7 +6,7 @@
 // the keys the fp32 kernels (scan_topk_batch.cu, range_scan_batch.cu) give
 // the same (row, query) pairs, so that a quantized answer is the fp32
 // answer bit for bit.  A gather plus torch.matmul would sum each dot in
-// another order.  Instead each pair runs the chain fp32_tile.cuh runs: the
+// another order.  Instead each pair runs the chain of fp32_tile.cuh: the
 // dot and the row's squared norm as one sequential fmaf chain over
 // d = 0 .. D − 1, one fmaf(0, 0, ·) more where the tile pads D to a whole
 // 32-column chunk (it can turn −0 into +0), the query's squared norm from

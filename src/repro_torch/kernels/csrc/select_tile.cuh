@@ -1,7 +1,8 @@
-// Device helpers of the two query-batched top-k kernels on register
-// micro-tiles (scan_topk_batch.cu, fp32 rows; quant_scan_topk_batch.cu,
-// int8 / bf16 rows): the micro-tile's 16-byte fragment loads, the row mask
-// as 4-byte words, and the one-warp merge of a query's candidate list.
+// Device helpers of the query-batched kernels on register micro-tiles
+// (scan_topk_batch.cu, fp32 rows; quant_scan_topk_batch.cu, int8 / bf16
+// rows; range_tile.cuh, both): the micro-tile's 16-byte fragment loads,
+// the row mask as 4-byte words, the dequantization of an int8 or bf16
+// unit, and the one-warp merge of a query's candidate list.
 #pragma once
 
 #include "fp32_tile.cuh"
@@ -43,6 +44,33 @@ __device__ __forceinline__ unsigned mask4(const int8_t* p, int avail) {
       w |= static_cast<unsigned>(static_cast<uint8_t>(__ldg(p + e)))
            << (8 * e);
   return w;
+}
+
+// The 16 / sizeof(T) fp32 values of a 16-byte unit of an int8 or bf16
+// row.  int8: float(q) · scale, one rounded product; the byte is widened
+// exactly as 2^23 + (q + 128) − (2^23 + 128) (integer ops and one exact
+// subtraction instead of the quarter-rate conversion).  bf16: the 16 bits
+// as the high half of a float.
+template <typename T>
+__device__ __forceinline__ void dequant(const uint4& raw, float scale,
+                                        float (&v)[16 / sizeof(T)]) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 1) {
+      const unsigned x = w[i] ^ 0x80808080u;  // each byte q + 128
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float q = __fsub_rn(
+            __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u | b)),
+            8388736.0f);
+        v[4 * i + b] = __fmul_rn(q, scale);
+      }
+    } else {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
 }
 
 // Merge one query's list by one warp: `keys` / `ids` hold kp sorted

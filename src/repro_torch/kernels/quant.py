@@ -44,6 +44,7 @@ from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 from .distance import MAX_GRID_Y
 from .ops import _mask_i8, _radius_keys, fused_range_topk_batch
+from .range_scan import batch_plan
 from .scan_topk import (BLOCK_RESERVED, BLOCK_SMEM, MAX_K, SM_SMEM, _cdiv,
                         _check_k, _masked, _next_pow2, _split_topk,
                         pick_shape, wave_splits)
@@ -53,25 +54,6 @@ I32_MAX = 2 ** 31 - 1
 SEG = 8                        # rows per segment of the candidate extraction
 MAX_SPLIT_ROWS = SEG * MAX_K   # a split holds at most 1,024 segments
 MODE_CODES = {torch.int8: 0, torch.bfloat16: 1}
-
-
-# Launch geometry of the quantized key kernel (csrc/quant_keys_batch.cu on
-# range_batch.cuh, H100: 132 SMs).
-KEYS_TILE = 64               # rows a block scores per step
-KEYS_BLOCKS = 264            # 2 blocks per SM
-KEYS_QTILES = (4, 16, 64)    # queries per block (kernel templates)
-
-
-def keys_plan(n: int, qn: int) -> tuple[int, int, int]:
-    """(queries per block, splits, rows per split) of the quantized key
-    kernel: the smallest query tile that holds all Q (64 at most), about
-    KEYS_BLOCKS blocks in all, each split a whole number of KEYS_TILE-row
-    tiles."""
-    qt = next((t for t in KEYS_QTILES if t >= qn), KEYS_QTILES[-1])
-    tiles = max(1, _cdiv(n, KEYS_TILE))
-    want = max(1, _cdiv(KEYS_BLOCKS, _cdiv(qn, qt)))
-    rows = _cdiv(tiles, min(tiles, want)) * KEYS_TILE
-    return qt, _cdiv(n, rows), rows
 
 
 # Block shapes of the quantized top-k kernel (csrc/quant_scan_topk_batch.cu
@@ -253,12 +235,29 @@ def quant_keys_batch_plain(qvecs, scales, queries, mask_i8, qvalid_i8,
     return _plain_keys(qvecs, scales, queries, mask_i8, qvalid_i8, metric)
 
 
+def quant_keys_batch_replayed(qvecs, scales, queries, mask_i8, qvalid_i8,
+                              metric: Metric):
+    """The quantized key kernel's output rebuilt on the fp32 kernels' own
+    arithmetic: :func:`replay_keys` of every (query, row) pair over the
+    dequantized corpus, then the mask and the valid lane.  On the card the
+    kernel must equal it bit for bit (``chip_smoke.py``, phase keys_bits);
+    (Q, N) sized, for small checks."""
+    n = qvecs.shape[0]
+    qn = queries.shape[0]
+    deq = qvecs.to(torch.float32) * scales.reshape(-1, 1)
+    rows = torch.arange(n, dtype=torch.int32, device=qvecs.device)
+    keys = replay_keys(deq, queries, rows.expand(qn, n).contiguous(), metric)
+    return _masked(keys, mask_i8, qvalid_i8)
+
+
 def quant_keys_batch(qvecs: torch.Tensor, scales: torch.Tensor,
                      queries: torch.Tensor, mask_i8: torch.Tensor | None,
                      qvalid_i8: torch.Tensor | None, metric: Metric):
     """Masked quantized order keys, query-major: inputs as
     :func:`quant_scan_topk_batch`.  Returns (Q, N) fp32 keys, +inf where
-    the mask or the query's valid lane is 0 (no radius test)."""
+    the mask or the query's valid lane is 0 (no radius test).  The kernel
+    is the fp32 batched range scan's tile with an int8 / bf16 row loader,
+    launched on that kernel's plan (:func:`~.range_scan.batch_plan`)."""
     n, d = qvecs.shape
     qn = queries.shape[0]
     scales = _check_quant(qvecs, scales, queries, mask_i8, qvalid_i8)
@@ -266,16 +265,22 @@ def quant_keys_batch(qvecs: torch.Tensor, scales: torch.Tensor,
         return quant_keys_batch_plain(qvecs, scales, queries, mask_i8,
                                       qvalid_i8, metric)
     dev = qvecs.device
-    qt, splits, rows = keys_plan(n, qn)
+    qt, splits, rows = batch_plan(n, qn)
     keys = torch.empty((qn, n), dtype=torch.float32, device=dev)
     mask_mode = 0 if mask_i8 is None else 1 if mask_i8.ndim == 1 else 2
+    # 16-byte loads: whole units along D (16 int8 or 8 bf16 columns) and
+    # aligned bases; 16-byte key stores: whole 4-row runs along N
+    vec = (d % (16 // qvecs.element_size()) == 0
+           and qvecs.data_ptr() % 16 == 0 and queries.data_ptr() % 16 == 0)
+    vec_out = n % 4 == 0 and keys.data_ptr() % 16 == 0
     lib, launch = build.launcher(
         "quant_keys_batch.cu", "quant_keys_batch_launch",
-        [P, P, I, P, P, I, P, P] + [I] * 7 + [P])
+        [P, P, I, P, P, I, P, P] + [I] * 9 + [P])
     err = launch(
         ptr(qvecs), ptr(scales), MODE_CODES[qvecs.dtype], ptr(queries),
         ptr(mask_i8), mask_mode, ptr(qvalid_i8), ptr(keys), n, d, qn,
-        METRIC_CODES[metric], qt, rows, splits, stream(dev))
+        METRIC_CODES[metric], qt, rows, splits, int(vec), int(vec_out),
+        stream(dev))
     build.check(lib, "quant_keys_batch", err)
     quant_keys_batch.launches += 1
     return keys

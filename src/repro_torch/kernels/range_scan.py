@@ -26,12 +26,13 @@ from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 from .scan_topk import (BLOCK_RESERVED, NARROW_QUERIES, SM_SMEM,
                         wave_splits)
 
-# Block shapes of the batched kernel (csrc/range_scan_batch.cu `Wide`,
-# `Mid`, `Narrow`), by queries per block: (rows per tile, columns per staged
-# chunk, blocks per SM its registers are sized for).  The wide shape takes
-# buckets of 33 queries and more (64 and 128 in one query tile), the mid
-# one 17..32, the narrow one small batches.  The plain version needs no
-# plan: its outputs are whole (Q, N) matrices.
+# Block shapes of the batched kernel and of the quantized key kernel on the
+# same tile (csrc/range_tile.cuh `Wide`, `Mid`, `Narrow`), by queries per
+# block: (rows per tile, columns per staged chunk, blocks per SM its
+# registers are sized for).  The wide shape takes buckets of 33 queries and
+# more (64 and 128 in one query tile), the mid one 17..32, the narrow one
+# small batches.  The plain versions need no plan: their outputs are whole
+# (Q, N) matrices.
 BATCH_SHAPES = {128: (128, 16, 1), 32: (256, 16, 2), 8: (512, 16, 2)}
 MID_QUERIES = 32             # up to this many queries, the mid shape
 
@@ -45,12 +46,12 @@ def batch_smem(qt: int) -> int:
 
 
 def batch_plan(n: int, qn: int) -> tuple[int, int, int]:
-    """(queries per block, splits, rows per split) of the batched kernel:
-    the narrow shape up to 16 queries, the mid one up to 32, the wide one
-    beyond, and splits of whole row tiles whose number fills whole waves of
-    the card's SMs at the blocks per SM the shape allows
-    (:func:`~.scan_topk.wave_splits`).  The splits stay within a wave's
-    blocks, far under CUDA's grid limits."""
+    """(queries per block, splits, rows per split) of the batched kernel
+    and of ``quant.quant_keys_batch``: the narrow shape up to 16 queries,
+    the mid one up to 32, the wide one beyond, and splits of whole row
+    tiles whose number fills whole waves of the card's SMs at the blocks
+    per SM the shape allows (:func:`~.scan_topk.wave_splits`).  The splits
+    stay within a wave's blocks, far under CUDA's grid limits."""
     if n < 1 or qn < 1:
         raise ValueError(f"batch_plan needs N, Q >= 1, got {n}, {qn}")
     qt = (8 if qn <= NARROW_QUERIES else 32 if qn <= MID_QUERIES

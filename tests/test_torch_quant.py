@@ -14,6 +14,9 @@ inputs.
   for bit: the replay reproduces the fp32 plain kernels' keys exactly, and
   the range path's full branch is the fp32 range kernel itself.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +28,8 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import quant as ref_quant
 from repro_torch.core.schema import Metric
 from repro_torch.data.quantized import QuantizedCorpus, quantize_corpus
-from repro_torch.kernels import ops, quant
+from repro_torch.kernels import ops, quant, range_scan
+from repro_torch.kernels.distance import MAX_GRID_Y
 from repro_torch.kernels.scan_topk import (BLOCK_SMEM, NARROW_QUERIES,
                                            scan_topk_batch_plain)
 
@@ -146,6 +150,22 @@ def test_range_slack_matches_reference(mode, metric):
                                atol=1e-12)
 
 
+def _ref_quant_keys(ref_q, queries, mask, qvalid, metric: str):
+    """The reference's ``quant_keys_batch_pallas`` in interpret mode on its
+    own padded layout, cut back to (Q, N)."""
+    n, qn = ref_q.qvecs.shape[0], queries.shape[0]
+    bq, bn = ref_ops._block_sizes(n, qn, 128, 1024)
+    ref = ref_quant.quant_keys_batch_pallas(
+        ref_ops._pad_dim(ref_ops._pad_dim(ref_q.qvecs, 128, 1), bn, 0),
+        ref_ops._pad_dim(ref_q.scales, bn, 0),
+        ref_ops._pad_dim(ref_ops._pad_dim(jnp.asarray(queries), 128, 1),
+                         bq, 0),
+        ref_ops._mask_nq_i8(_j(mask), n, qn, bn, bq),
+        ref_ops._qvalid_row_i8(_j(qvalid), qn, bq), RefMetric(metric),
+        block_q=bq, block_n=bn, interpret=True)
+    return np.asarray(ref)[:n, :qn].T
+
+
 # ---------------------------------------------------------------------------
 # stage 1: the plain kernel versions
 # ---------------------------------------------------------------------------
@@ -162,20 +182,47 @@ def test_plain_quant_keys_match_reference_kernel(mode, metric):
     got = quant.quant_keys_batch(
         got_q.qvecs, got_q.scales, torch.from_numpy(queries),
         ops._mask_i8(_t(mask)), ops._mask_i8(_t(qvalid)), Metric(metric))
-    bq, bn = ref_ops._block_sizes(n, qn, 128, 1024)
-    ref = ref_quant.quant_keys_batch_pallas(
-        ref_ops._pad_dim(ref_ops._pad_dim(ref_q.qvecs, 128, 1), bn, 0),
-        ref_ops._pad_dim(ref_q.scales, bn, 0),
-        ref_ops._pad_dim(ref_ops._pad_dim(jnp.asarray(queries), 128, 1),
-                         bq, 0),
-        ref_ops._mask_nq_i8(_j(mask), n, qn, bn, bq),
-        ref_ops._qvalid_row_i8(_j(qvalid), qn, bq), RefMetric(metric),
-        block_q=bq, block_n=bn, interpret=True)
-    ref = np.asarray(ref)[:n, :qn].T
+    ref = _ref_quant_keys(ref_q, queries, mask, qvalid, metric)
     assert got.shape == (qn, n)
     np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(ref))
     live = np.isfinite(ref)
     np.testing.assert_allclose(got.numpy()[live], ref[live], atol=TOL)
+
+
+# (N, D, Q) per mask kind: ragged N (N % 4 != 0), ragged D (not a whole
+# 16-byte unit of either twin)
+KEYS_SHAPE_OF = {"none": (701, 130, 5), "shared": (333, 17, 4),
+                 "per_query": (517, 40, 6)}
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "shared", "per_query"])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_keys_replayed_matches_plain_and_reference(mode, metric,
+                                                         mask_kind):
+    """``quant_keys_batch_replayed`` (the card's bitwise reference:
+    ``replay_keys`` of every pair over the dequantized twin, then the mask
+    and the valid lane) has the plain version's dead lanes and its keys
+    within 1e-5, and the reference's Pallas kernel's (interpret mode), with
+    two dead lanes, on a ragged N and D."""
+    rng = np.random.default_rng(11)
+    n, d, qn = KEYS_SHAPE_OF[mask_kind]
+    corpus, queries = _unit(rng, (n, d)), _unit(rng, (qn, d))
+    mask = _mask(rng, mask_kind, qn, n)
+    qvalid = np.ones(qn, bool)
+    qvalid[[1, qn - 1]] = False
+    got_q, ref_q = _twins(corpus, mode)
+    a = (got_q.qvecs, got_q.scales, torch.from_numpy(queries),
+         ops._mask_i8(_t(mask)), ops._mask_i8(_t(qvalid)), Metric(metric))
+    got = quant.quant_keys_batch_replayed(*a).numpy()
+    plain = quant.quant_keys_batch_plain(*a).numpy()
+    ref = _ref_quant_keys(ref_q, queries, mask, qvalid, metric)
+    assert got.shape == (qn, n) and got.dtype == np.float32
+    assert np.isinf(got[[1, qn - 1]]).all()
+    for want in (plain, ref):
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+        live = np.isfinite(want)
+        np.testing.assert_allclose(got[live], want[live], rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -227,18 +274,38 @@ def test_quant_plan_caps_splits():
     assert s_count == rows // 8 < 2048
 
 
-def test_launch_geometry_covers_the_corpus():
-    for n, qn in ((1_000_000, 128), (1_000_000, 100), (5003, 3), (64, 1),
-                  (1_000_000, 400)):
-        qt, splits, rows = quant.keys_plan(n, qn)
-        assert qt in (4, 16, 64) and (qt >= qn or qt == 64)
-        assert splits * rows >= n > (splits - 1) * rows and rows % 64 == 0
-    assert quant.keys_plan(1_000_000, 128)[:2] == (64, 132)
-
-
 PLAN_QS = [1, 8, 16, 17, 100, 128, 129, 540]
 PLAN_NS = [1, 8, 5003, 1_000_000]
 PLAN_COUNTS = [1, 20, 100, 128, 129, 512, 1024]
+
+
+@pytest.mark.parametrize("n", PLAN_NS)
+@pytest.mark.parametrize("qn", PLAN_QS)
+def test_launch_geometry_covers_the_corpus(qn, n):
+    """The quantized key kernel runs on the fp32 range tile
+    (csrc/range_tile.cuh) and its launch plan, ``range_scan.batch_plan``:
+    a block shape the tile defines (``BATCH_SHAPES`` against its ``using``
+    lines), chosen by Q, query tiles that cover every query, and splits of
+    whole row tiles that cover every row within the grid's limits and one
+    block's shared memory."""
+    csrc = Path(quant.__file__).with_name("csrc")
+    src = (csrc / "quant_keys_batch.cu").read_text()
+    assert '#include "range_tile.cuh"' in src and "launch_any<" in src
+    shapes = {}
+    for m in re.finditer(r"using (Wide|Mid|Narrow) = Shape<([^>]*)>;",
+                         (csrc / "range_tile.cuh").read_text()):
+        bq, br, _qm, _rm, _lr, bk, minb = (int(v) for v in
+                                           m.group(2).split(","))
+        shapes[bq] = (br, bk, minb)
+    assert shapes == range_scan.BATCH_SHAPES
+    qt, splits, rows = range_scan.batch_plan(n, qn)
+    tile = shapes[qt][0]
+    assert qt == (8 if qn <= NARROW_QUERIES else 32 if qn <= 32 else 128)
+    assert -(-qn // qt) * qt >= qn > (-(-qn // qt) - 1) * qt
+    assert (splits - 1) * rows < n <= splits * rows
+    assert rows % tile == 0 and rows >= tile
+    assert 1 <= splits <= MAX_GRID_Y
+    assert range_scan.batch_smem(qt) <= BLOCK_SMEM
 
 
 @pytest.mark.parametrize("count", PLAN_COUNTS)

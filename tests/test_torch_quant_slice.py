@@ -187,6 +187,8 @@ def metric_env(request):
     cat = make_laion_catalog(**SMALL, metric=Metric(metric), device="cpu")
     return {"metric": metric, "cat": cat,
             "ref_cat": ref_make_catalog(**SMALL, metric=RefMetric(metric)),
+            "corpus": cat.table("laion")["embedding"].numpy().astype(
+                np.float64),
             "left": cat.table("queries")["embedding"].numpy(),
             "price": cat.table("laion")["price"].numpy()}
 
@@ -210,6 +212,61 @@ def test_q1_quant_matches_reference_under_l2_and_cosine(metric_env, mode):
     _assert_bitwise(got.data, fp32.execute(binds).data, metric_env["metric"])
     one = st.execute(binds[0])
     _assert_bitwise(one.data,
+                    _first(fp32.execute(binds[:1], hints=EXACT).data),
+                    "single dict")
+
+
+def _metric_radius(corpus: np.ndarray, left: np.ndarray, metric: str,
+                   rank: int) -> float:
+    """A raw radius of ``metric`` (a squared distance under l2, else a
+    similarity) in the middle of the widest gap around ``rank``."""
+    left = np.atleast_2d(left).astype(np.float64)
+    ip = left @ corpus.T
+    lsq = (left * left).sum(-1)[:, None]
+    csq = (corpus * corpus).sum(-1)
+    if metric == "l2":
+        return -_gap(-(lsq - 2.0 * ip + csq), rank)
+    return _gap(ip / np.sqrt(lsq * csq), rank)
+
+
+@pytest.mark.parametrize("case", ["q2", "q3"])
+@pytest.mark.parametrize("mode", MODES)
+def test_q2_q3_quant_match_reference_under_l2_and_cosine(metric_env, mode,
+                                                         case):
+    """Quantized Q2 (a list of 5 binds, bucket 8) and Q3 (a list of two
+    radii) under L2 and cosine: the reference's quantized answer (ids,
+    valid and counts exact, sims to 1e-5) and the port's fp32 answer bit
+    for bit, for the list and for a single dict (the fp32 exact-shape list
+    of one)."""
+    metric, corpus = metric_env["metric"], metric_env["corpus"]
+    rng = np.random.default_rng(7)
+    left = metric_env["left"]
+    if case == "q2":
+        binds = []
+        for i in range(5):
+            q = (left[i] + 0.01 * rng.standard_normal(left.shape[1])
+                 ).astype(np.float32)
+            binds.append({"qv": q, "p": np.float32(np.quantile(
+                metric_env["price"], rng.uniform(0.3, 0.9))),
+                "r": np.float32(_metric_radius(
+                    corpus, q, metric, int(rng.integers(20, 60))))})
+    else:
+        binds = [{"r": np.float32(_metric_radius(corpus, left, metric,
+                                                 rank))}
+                 for rank in (8 * 30, 8 * 80)]
+    opts = dict(engine="brute", use_pallas=True)
+    st = connect(metric_env["cat"], quant=mode, **opts).prepare(SQL[case])
+    got = st.execute(binds)
+    ref = ref_connect(metric_env["ref_cat"], quant=mode,
+                      **opts).prepare(SQL[case]).execute(binds)
+    _assert_close(case, got.data, dict(ref.data), binds)
+    for key in ("valid", "count"):
+        np.testing.assert_array_equal(np.asarray(got[key]),
+                                      np.asarray(ref[key]), err_msg=key)
+    assert int(got["count"].max()) > 0
+    fp32 = connect(metric_env["cat"], **opts).prepare(SQL[case])
+    _assert_bitwise(got.data, fp32.execute(binds).data, f"{case} {metric}")
+    _assert_bitwise(st.execute(binds[0]).data,
                     _first(fp32.execute(binds[:1], hints=EXACT).data),
                     "single dict")
 

@@ -286,9 +286,11 @@ def test_batch_plan_main_shapes():
 def test_batch_shapes_mirror_the_kernel():
     """``BATCH_SHAPES`` holds the kernel's ``Wide``, ``Mid`` and
     ``Narrow`` shapes: (queries, rows, columns per chunk, blocks per
-    SM)."""
-    src = (Path(rs.__file__).with_name("csrc")
-           / "range_scan_batch.cu").read_text()
+    SM).  They live in the tile header that the kernel includes."""
+    csrc = Path(rs.__file__).with_name("csrc")
+    assert '#include "range_tile.cuh"' in (
+        csrc / "range_scan_batch.cu").read_text()
+    src = (csrc / "range_tile.cuh").read_text()
     shapes = {}
     for m in re.finditer(r"using (Wide|Mid|Narrow) = Shape<([^>]*)>;", src):
         bq, br, _qm, _rm, _lr, bk, minb = (int(v) for v in
