@@ -40,7 +40,8 @@ quant_keys_batch for Q2 and Q3, replay_keys for both; a Q2 band wider than
 the replay budget runs range_scan_batch itself).  Every quantized answer
 must equal the fp32 ``use_pallas=True`` answer of the same call bit for bit.
 Q4, Q5 and Q6's batched lowerings run under both modes too, held the same
-way.
+way.  Then Q1 and Q2 run over the IVF index under the paper's own engines
+(``ivf`` below).
 
 The radius is the paper's: the median over the 100 queries of each query's
 120th-best similarity (benchmarks/common.py, range_match_target).  Phases,
@@ -113,6 +114,25 @@ one JSON line each:
            for bit to the fp32 use_pallas=True answer; a Q2 call forced
            into the full branch; Q1's coverage (queries whose fp32 top-K
            has a row outside the quantized candidates)
+  ivf      the IVF index built on the card (256 lists, 10 k-means
+           iterations; the repo's laion settings) and registered on the
+           tables Q1 and Q2 scan, then Q1 and Q2 under engine chase, vbase
+           and pase (single dicts, lists of 1, 8, 64, 100), held to five
+           gates: at probe_batch 1 each row of chase's list of 100 equals
+           its single dict (probes, evals, count and valid exactly);
+           termination "bound" returns the flat fp32 kernels' answers (Q2
+           as a set); termination "counter" returns rows that pass the
+           predicate with their flat sims (recall@50 and mean probes
+           reported); chase under int8 and bf16 equals fp32 chase with
+           torch.equal; ExecutionHints(probe_budget=4) and a per-query
+           tuple cap every query's probes.  The probes launch no kernel;
+           pase Q2 is the flat range scan.  Lines ``ivf_build`` (k-means,
+           assign and list times, cap, list sizes), ``e2e_ivf`` (latency,
+           QPS, peak memory, probe rounds and host syncs per execute, per
+           engine and list size, beside the flat path; latency at each
+           active-check cadence) and ``ivf_profile`` (chase at the list of
+           100: gather, product, merge and host shares by CUDA events,
+           device time per operator by torch.profiler)
   times    per kernel: its time, its plain version's, the library
            yardstick (timed only), the bound; scan_topk_batch and
            range_scan_batch also at buckets 1, 8, 32 and 128,
@@ -198,6 +218,11 @@ REPLACES = {"scan_topk": "src/repro/kernels/scan_topk.py:241",
             "replay_keys": "src/repro/kernels/quant.py:208",
             "pairwise_keys": "src/repro/kernels/distance.py:48"}
 MODES = ("int8", "bf16")
+# the IVF index of this workload (src/repro/configs/chase_laion.py, copied)
+NLIST, KMEANS_ITERS = 256, 10
+IVF_PROBE = dict(max_probes=64, capacity=4096, stop_after_no_improve=6,
+                 out_range_stop=4, min_probes=8)
+IVF_ENGINES = ("chase", "vbase", "pase")
 RESCORE = (2, 3, 4, 6, 8)     # Q1 candidate multiples tried, smallest first
 # published dense peaks (NVIDIA data sheets): bytes/s, fp32 CUDA-core FLOP/s
 PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12),
@@ -306,6 +331,298 @@ def range_err(got, want, radius_keys, tol: float, what: str) -> float:
     if not err <= tol:
         raise AssertionError(f"{what}: keys differ by {err} > {tol}")
     return err
+
+
+
+def bitwise(a: dict, b: dict, what: str) -> None:
+    """Every leaf of ``a`` equal to ``b``'s with ``torch.equal``."""
+    for key, v in a.items():
+        if isinstance(v, dict):
+            bitwise(v, b[key], what)
+        elif not torch.equal(v, b[key]):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def without_stats(data: dict) -> dict:
+    return {key: v for key, v in data.items() if key != "stats"}
+
+
+def best_first(data: dict) -> dict:
+    """An IVF range answer (hits in probe discovery order) as a best-first
+    buffer: each row's hits sorted by descending sim, ties by position."""
+    keys = torch.where(data["valid"], -data["sim"], float("inf"))
+    order = torch.sort(keys, dim=-1, stable=True).indices
+    out = {key: torch.take_along_dim(data[key], order, -1)
+           for key in ("ids", "sim", "valid")}
+    return {**out, "count": data["count"]}
+
+
+def ivf_phase(cat, qv, p, r, sims, near_q, drive, launches, smi: str,
+              name: str) -> None:
+    """The ``ivf`` phase: build the IVF index on the card, register it on
+    the tables Q1 and Q2 scan, and drive Q1 and Q2 under ``chase``,
+    ``vbase`` and ``pase`` through the session API (a single dict and
+    lists of 1, 8, 64 and 100), held to five gates; then print the
+    ``ivf_build``, ``e2e_ivf`` and ``ivf_profile`` lines."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.api import ExecutionHints, connect
+    from repro_torch.core.expr import distance_values, evaluate_batch
+    from repro_torch.core.physical import ProbeConfig
+    from repro_torch.core.schema import Metric
+    from repro_torch.index import assign, build_ivf, kmeans
+    from repro_torch.index import ivf as ivf_mod
+    from repro_torch.testing import assert_range_close, assert_topk_close
+
+    metric = Metric.INNER_PRODUCT
+    table = cat.table("products")
+    corpus = table["embedding"]
+    price_np = table["price"].cpu().numpy()
+    sims_np = sims.cpu().numpy()
+    exact = ExecutionHints(exact_shape=True)
+
+    # -- build --------------------------------------------------------------
+    def clock(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    gen = torch.Generator().manual_seed(0)
+    cents, kmeans_ms = clock(lambda: kmeans(gen, corpus, NLIST,
+                                            iters=KMEANS_ITERS))
+    _, assign_ms = clock(lambda: assign(corpus, cents))
+    index, build_ms = clock(lambda: build_ivf(None, corpus, NLIST, metric,
+                                              centroids=cents))
+    members = index.lists[index.lists >= 0].long()
+    if not torch.equal(torch.sort(members).values,
+                       torch.arange(N_ROWS, device=corpus.device)):
+        raise AssertionError("ivf: the lists do not partition the corpus")
+    sizes = index.list_sizes.float()
+    emit({"phase": "ivf_build", "device": name, "nvidia_smi": smi,
+          "nlist": NLIST, "kmeans_iters": KMEANS_ITERS,
+          "kmeans_ms": kmeans_ms, "assign_ms": assign_ms,
+          "lists_ms": build_ms - assign_ms, "cap": index.cap,
+          "max_list": int(sizes.max()), "mean_list": float(sizes.mean()),
+          "empty_lists": int((sizes == 0).sum())})
+    for tname in ("products", "images"):
+        cat.register_index(tname, "embedding", index)
+
+    # -- drive every engine ---------------------------------------------------
+    probe = ProbeConfig(**IVF_PROBE)
+    binds = [{"qv": qv[i], "p": p} for i in range(N_QUERIES)]
+    q2_binds = [{"qv": qv[i], "r": r, "p": p} for i in range(N_QUERIES)]
+    stmts, res = {}, {}
+    for engine in IVF_ENGINES:
+        db_e = connect(cat, engine=engine, use_pallas=True, probe=probe)
+        stmts[engine] = (db_e.prepare(Q1, K=K), db_e.prepare(Q2))
+        singles = N_QUERIES if engine == "chase" else 1
+        for qname, st, bl in (("q1", stmts[engine][0], binds),
+                              ("q2", stmts[engine][1], q2_binds)):
+            runs = [(f"single{i}", st, bl[i], None) for i in range(singles)]
+            runs += [(f"list{qn}", st, bl[:qn], None) for qn in BATCHES]
+            res[qname, engine] = {
+                label: out for label, _s, _b, _h, out in
+                drive(f"ivf_{qname}_{engine}", runs)}
+    for path in launches:
+        if path.startswith("ivf_") and path != "ivf_q2_pase" \
+                and any(launches[path].values()):
+            raise AssertionError(f"{path} launched {launches[path]}: the "
+                                 f"IVF probes run no kernel")
+    if launches["ivf_q2_pase"]["range_scan_batch"] < 1:
+        raise AssertionError("pase Q2 did not run the flat range kernel")
+    for (qname, engine), by_label in res.items():
+        for label, out in by_label.items():
+            if (qname, engine) != ("q2", "pase") and not bool(
+                    (out["stats"]["probes"] > 0).all()):
+                raise AssertionError(f"ivf {qname} {engine} {label}: a query "
+                                     f"probed no cluster")
+
+    # gate 1: at probe_batch 1, row q of the list of 100 = query q's single
+    for qname in ("q1", "q2"):
+        batch = res[qname, "chase"][f"list{N_QUERIES}"]
+        for q in range(N_QUERIES):
+            one, row = res[qname, "chase"][f"single{q}"].data, \
+                batch.query(q).data
+            what = f"ivf gate 1 {qname} query {q}"
+            if qname == "q1":
+                assert_topk_close(one, row, atol=1e-4, tie_tol=1e-4,
+                                  what=what)
+            else:
+                assert_range_close(one, row, radius=r, atol=1e-4,
+                                   tie_tol=1e-4, what=what)
+                for key in ("count", "valid"):
+                    if not torch.equal(one[key], row[key]):
+                        raise AssertionError(f"{what}: {key} differs")
+
+    # gate 2: bound termination returns the flat fp32 kernel's answer
+    bound_db = connect(cat, engine="chase", use_pallas=True,
+                       probe=ProbeConfig(**IVF_PROBE, termination="bound"))
+    flat_db = connect(cat, engine="brute", use_pallas=True, probe=probe)
+    flat = {"q1": flat_db.prepare(Q1, K=K).execute(binds),
+            "q2": flat_db.prepare(Q2).execute(q2_binds)}
+    got = bound_db.prepare(Q1, K=K).execute(binds)
+    assert_topk_close(without_stats(got.data), without_stats(flat["q1"].data),
+                      atol=1e-4, tie_tol=1e-4, what="ivf gate 2 q1")
+    got2 = bound_db.prepare(Q2).execute(q2_binds)
+    assert_range_close(best_first(got2.data), without_stats(flat["q2"].data),
+                       radius=r, atol=1e-4, tie_tol=1e-4, near=near_q,
+                       what="ivf gate 2 q2")
+    bound_probes = {"q1": float(got["stats"]["probes"].float().mean()),
+                    "q2": float(got2["stats"]["probes"].float().mean())}
+
+    # gate 3: counter termination returns real answers
+    flat_ids = flat["q1"]["ids"].cpu().numpy()
+    flat_count = flat["q2"]["count"].cpu().numpy()
+    quality = {}
+    for (qname, engine), by_label in res.items():
+        out = by_label[f"list{N_QUERIES}"]
+        ids = out["ids"].cpu().numpy()
+        valid = out["valid"].cpu().numpy()
+        got_sims = out["sim"].cpu().numpy()
+        rows = np.nonzero(valid)
+        hit_ids = ids[rows]
+        what = f"ivf gate 3 {qname} {engine}"
+        if not (price_np[hit_ids] < p).all():
+            raise AssertionError(f"{what}: a row fails price < p")
+        err = float(np.abs(got_sims[rows] - sims_np[rows[0], hit_ids]).max())
+        if not err <= 1e-4:
+            raise AssertionError(f"{what}: sims {err} off the flat sims")
+        if qname == "q2" and (got_sims[rows] < r - 1e-4).any():
+            raise AssertionError(f"{what}: a hit below the radius")
+        if qname == "q1":
+            recall = np.mean([len(np.intersect1d(ids[q][valid[q]],
+                                                 flat_ids[q])) / K
+                              for q in range(N_QUERIES)])
+        else:
+            recall = float(valid.sum() / flat_count.sum())
+        quality[f"{qname}_{engine}"] = {
+            "recall": float(recall), "max_abs_err": err,
+            "probes_mean": float(out["stats"]["probes"].float().mean()),
+            "evals_mean": float(
+                out["stats"]["distance_evals"].float().mean())}
+
+    # gate 4: quantization composes: chase probes in fp32 under quant
+    for mode in MODES:
+        qdb = connect(cat, engine="chase", use_pallas=True, quant=mode,
+                      probe=probe)
+        for qname, sql, bl, fp32 in (
+                ("q1", Q1, binds, stmts["chase"][0]),
+                ("q2", Q2, q2_binds, stmts["chase"][1])):
+            st = qdb.prepare(sql, K=K) if qname == "q1" else qdb.prepare(sql)
+            bitwise(st.execute(bl).data,
+                    res[qname, "chase"][f"list{N_QUERIES}"].data,
+                    f"ivf gate 4 {qname} {mode} list{N_QUERIES}")
+            want = fp32.execute([bl[0]], hints=exact).query(0).data
+            bitwise(st.execute(bl[0]).data, want,
+                    f"ivf gate 4 {qname} {mode} single")
+
+    # gate 5: the straggler valve caps every query's probes
+    per_query = tuple(1 + q % 6 for q in range(N_QUERIES))
+    for qname, st, bl in (("q1", stmts["chase"][0], binds),
+                          ("q2", stmts["chase"][1], q2_binds)):
+        for budget in (4, per_query):
+            out = st.execute(bl, hints=ExecutionHints(probe_budget=budget))
+            cap_ = torch.as_tensor(budget, device=corpus.device)
+            probes = out["stats"]["probes"]
+            if not bool(((probes <= cap_) & (probes >= 1)).all()):
+                raise AssertionError(f"ivf gate 5 {qname} budget "
+                                     f"{budget}: probes {probes.tolist()}")
+    emit({"phase": "ivf", "radius": float(r), "cap": index.cap,
+          "bound_probes_mean": bound_probes, "counter": quality,
+          "gates": ["batch = single", "bound = flat", "counter answers real",
+                    "quantized = fp32", "probe budget"]})
+
+    # -- e2e_ivf: each engine beside the flat path --------------------------
+    flat_stmts = (flat_db.prepare(Q1, K=K), flat_db.prepare(Q2))
+    calls = [("single", 0)] + [(f"list{qn}", qn) for qn in BATCHES]
+    e2e = {}
+    for engine, (s1, s2) in list(stmts.items()) + [("brute", flat_stmts)]:
+        for qname, st, bl in (("q1", s1, binds), ("q2", s2, q2_binds)):
+            for label, qn in calls:
+                b = bl[0] if qn == 0 else bl[:qn]
+                iters = 3 if qn >= 64 else 10
+                ms = latency_ms(lambda: st.execute(b), iters=iters)
+                ivf_mod.loop_stats.update(rounds=0, syncs=0)
+                st.execute(b)
+                torch.cuda.synchronize()
+                loops = dict(ivf_mod.loop_stats)
+                e2e[f"{qname}_{engine}_{label}"] = {
+                    "latency_ms": ms, "qps": max(qn, 1) * 1e3 / ms,
+                    "peak_mb": peak_mb(lambda: st.execute(b)), **loops}
+    # the host's read of active.any(): every round against every few
+    cadence, every = {}, ivf_mod.ACTIVE_CHECK_EVERY
+    for n in (1, 2, 4, 8):
+        ivf_mod.ACTIVE_CHECK_EVERY = n
+        for qname, st, bl in (("q1", stmts["chase"][0], binds),
+                              ("q2", stmts["chase"][1], q2_binds)):
+            for label, b in (("single", bl[0]), (f"list{N_QUERIES}", bl)):
+                cadence[f"{qname}_{label}_every{n}"] = latency_ms(
+                    lambda: st.execute(b), iters=10 if label == "single"
+                    else 5)
+    ivf_mod.ACTIVE_CHECK_EVERY = every
+    emit({"phase": "e2e_ivf", "device": name, "nvidia_smi": smi,
+          "check_every": every, "runs": e2e,
+          "latency_ms_by_check_every": cadence})
+
+    # -- ivf_profile: where one execute's time goes, chase list of 100 --------
+    bucket = 1 << (N_QUERIES - 1).bit_length()
+    qs = torch.from_numpy(qv[np.minimum(np.arange(bucket),
+                                        N_QUERIES - 1)]).to(corpus.device)
+    order = ivf_mod._cluster_order(index, qs)[0]
+    pred = stmts["chase"][0].compiled.analysis.structured_predicate
+    mask = evaluate_batch(pred, table, {"p": np.full(bucket, p, np.float32)},
+                          bucket)
+    ids = index.lists[order[:, 0].long()]                     # (Q, cap)
+    safe = ids.clamp_min(0).long()
+    vecs = corpus[safe]
+    keys = -distance_values(metric, vecs, qs[:, None, :])
+    best_k = torch.full((bucket, K), float("inf"), device=corpus.device)
+    best_i = torch.full((bucket, K), -1, dtype=torch.int32,
+                        device=corpus.device)
+    part = {"order": time_ms(lambda: ivf_mod._cluster_order(index, qs)),
+            "gather": time_ms(lambda: (corpus[safe], torch.take_along_dim(
+                mask, safe, dim=1))),
+            "product": time_ms(lambda: distance_values(metric, vecs,
+                                                       qs[:, None, :])),
+            "merge": time_ms(lambda: ivf_mod._merge_topk(
+                best_k, best_i, keys, ids, ids >= 0, K))}
+    del vecs, keys
+    profile = {}
+    for qname, st, bl in (("q1", stmts["chase"][0], binds),
+                          ("q2", stmts["chase"][1], q2_binds)):
+        b = bl[:N_QUERIES]
+        lat = latency_ms(lambda: st.execute(b), iters=3)
+        ivf_mod.loop_stats.update(rounds=0, syncs=0)
+        st.execute(b)
+        torch.cuda.synchronize()
+        rounds = ivf_mod.loop_stats["rounds"]
+        ms = {"order": part["order"],
+              **{key: rounds * part[key]
+                 for key in ("gather", "product", "merge")}}
+        ms["host_and_other"] = lat - sum(ms.values())
+        # the same execute under torch.profiler: device time by operator
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            st.execute(b)
+            torch.cuda.synchronize()
+        by_op = {ev.key: ev.self_device_time_total / 1e3
+                 for ev in prof.key_averages()
+                 if ev.key.startswith("aten::") and ev.self_device_time_total}
+        top = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:12])
+        profile[qname] = {
+            "latency_ms": lat, "rounds": rounds,
+            "events_ms": ms, "events_share": {key: v / lat
+                                              for key, v in ms.items()},
+            "round_ms": {key: part[key]
+                         for key in ("gather", "product", "merge")},
+            "profiler_device_ms": sum(by_op.values()),
+            "profiler_top_ops_ms": top}
+    emit({"phase": "ivf_profile", "device": name, "nvidia_smi": smi,
+          "bucket": bucket, "cap": index.cap, "runs": profile})
+    # hand the probes' cached blocks back: the later phases time other paths
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1403,13 +1720,6 @@ def main() -> None:
                                   db.cache_info().misses)))})
 
     # -- slice_quant: the same paths under int8 and bf16 ----------------------
-    def bitwise(a, b, what: str) -> None:
-        for key, v in a.items():
-            if isinstance(v, dict):
-                bitwise(v, b[key], what)
-            elif not torch.equal(v, b[key]):
-                raise AssertionError(f"{what}: {key} differs from fp32")
-
     def first(tree):
         return {key: first(v) if isinstance(v, dict) else v[0]
                 for key, v in tree.items()}
@@ -1557,6 +1867,9 @@ def main() -> None:
           "launches": {key: v for key, v in launches.items()
                        if key.endswith(MODES)},
           "runs": qchecked})
+
+    # -- ivf: the IVF index and the chase, vbase and pase engines -------------
+    ivf_phase(cat, qv, p, r, sims, near_q, drive, launches, smi, name)
 
     # -- times ----------------------------------------------------------------
     nb, _rows = st_mod.single_plan(N_ROWS)

@@ -12,10 +12,11 @@ Statement``, ONE ``Statement.execute`` front door.
   reuses the compiled plan AND its bucket executors.
 
 Every query class (Q1–Q6) prepares under every engine, the default
-``EngineOptions()`` included, on the flat path until the IVF index is
-ported.  Serving, the adaptive optimizer, the on-disk plan cache and the
-live corpus belong to later slices of the port and raise
-``NotImplementedError``.
+``EngineOptions()`` included: Q1 and Q2 probe a registered IVF index under
+``chase``, ``vbase`` and ``pase``, and everything else runs the flat path
+(Q3–Q6 over an index under those engines raise).  Serving, the adaptive
+optimizer, the on-disk plan cache and the live corpus belong to later
+slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -17,12 +17,12 @@ its meaning — a second batch in the same bucket builds nothing.
 
 The port compiles all six query classes (Q1 VKNN-SF, Q2 DR-SF, the Q3
 distance join, the Q4 KNN join, Q5 category partition, the Q6 category
-join) on the flat path, with or without ``EngineOptions.quant``.  No IVF
-index can be registered yet, so every engine lowers as the reference lowers
-a missing index: ``chase``, ``vbase``, ``pase`` and ``brute`` run the flat
-scan, ``brute_sort`` the Q4 full sort.  An index would raise
-``NotImplementedError`` naming its ROADMAP.md item, as the dist option does
-(live corpora cannot be registered yet).
+join) on the flat path, with or without ``EngineOptions.quant``, and Q1 and
+Q2 over a registered IVF index under ``chase``, ``vbase`` and ``pase``.
+Without an index every engine lowers as the reference lowers a missing
+index: the flat scan, ``brute_sort`` the Q4 full sort.  Q3–Q6 over an index
+under an index engine, and the dist option, raise ``NotImplementedError``
+naming their ROADMAP.md item (live corpora cannot be registered yet).
 """
 from __future__ import annotations
 
@@ -65,12 +65,13 @@ def _scan_of(a: Analysis) -> tuple[str, str]:
 def _catalog_dep_keys(a: Analysis, options: EngineOptions) -> tuple:
     """The catalog registration keys a compiled plan captures — what
     :meth:`CompiledQuery.ensure_fresh` watches for version bumps: the
-    scanned table, both tables of a join, and under ``quant`` the scanned
-    column's quantized twin."""
+    scanned table, both tables of a join, the scanned column's index, and
+    under ``quant`` its quantized twin."""
     if a.query_class in _SINGLE_TABLE:
         keys = (("table", a.table),)
     else:
         keys = (("table", a.left_table), ("table", a.right_table))
+    keys += (("index",) + _scan_of(a),)
     if options.quant is not None:
         keys += (("quantized",) + _scan_of(a),)
     return keys
@@ -245,6 +246,11 @@ class BucketedExecutor:
         bucket = _bucket_for(qn)
         padded = {k: _pad_leading(v, bucket) for k, v in binds.items()}
         valid = np.arange(bucket) < qn
+        if probe_budget is not None:
+            budget = np.asarray(probe_budget, np.int32)
+            if budget.ndim >= 1 and budget.shape[0] == qn:
+                budget = _pad_leading(budget, bucket)
+            probe_budget = budget
         out = self.executable(bucket)(self.arrays, padded, valid,
                                       probe_budget)
         return out, bucket, valid
@@ -305,12 +311,13 @@ class CompiledQuery:
         """Re-bind this plan to the catalog's current registrations.
 
         * unchanged versions — no-op, returns False;
-        * a re-registered quantized twin — re-gathers the plan's tensors
-          into the same ``arrays`` dict (the executor holds that very
-          object), counts it in ``rebinds`` and returns True;
-        * a re-registered table — raises :class:`StalePlanError` (the
-          builders hold the old table's columns; only a re-prepare fixes
-          it)."""
+        * a re-registered index or quantized twin — re-gathers the plan's
+          tensors into the same ``arrays`` dict (the executor holds that
+          very object), counts it in ``rebinds`` and returns True;
+        * a re-registered table, or an index appearing where the plan
+          compiled without one (the array set changes) — raises
+          :class:`StalePlanError` (the builders chose their lowering and
+          hold the old table's columns; only a re-prepare fixes it)."""
         if self._catalog is None:
             return False
         current = self._catalog.version_snapshot(self._dep_keys)
@@ -324,9 +331,16 @@ class CompiledQuery:
                 f"table(s) {stale} were re-registered after this plan "
                 f"compiled; the plan's predicate columns are frozen at the "
                 f"old table — re-prepare the statement")
+        new_arrays = _gather_arrays(self.analysis, self._catalog,
+                                    self.options)
+        if set(new_arrays) != set(self._arrays):
+            raise StalePlanError(
+                f"catalog registration change altered the plan's array set "
+                f"({sorted(self._arrays)} -> {sorted(new_arrays)}); index "
+                f"presence selects the lowering at compile time — "
+                f"re-prepare the statement")
         self._arrays.clear()
-        self._arrays.update(_gather_arrays(self.analysis, self._catalog,
-                                           self.options))
+        self._arrays.update(new_arrays)
         self._bound_versions = self._catalog.version_snapshot(self._dep_keys)
         self.rebinds += 1
         return True
@@ -409,10 +423,10 @@ class CompiledQuery:
 def _gather_arrays(a: Analysis, catalog: Catalog,
                    options: EngineOptions) -> dict:
     """The device tensors a compiled pipeline reads: the scanned corpus, a
-    join's left embeddings, Q5/Q6's category column, and under ``quant``
-    the scanned column's quantized twin — built and registered on the
-    catalog at the first prepare that needs it, shared by every later
-    one."""
+    join's left embeddings, the scanned column's IVF index when one is
+    registered, Q5/Q6's category column, and under ``quant`` the scanned
+    column's quantized twin — built and registered on the catalog at the
+    first prepare that needs it, shared by every later one."""
     if a.query_class in _SINGLE_TABLE:
         scanned = catalog.table(a.table)
         arrays = {"corpus": scanned[a.vector_column]}
@@ -420,6 +434,9 @@ def _gather_arrays(a: Analysis, catalog: Catalog,
         scanned = catalog.table(a.right_table)
         arrays = {"left": catalog.table(a.left_table)[a.left_vector],
                   "corpus": scanned[a.right_vector]}
+    index = catalog.index_for(*_scan_of(a))
+    if index is not None:
+        arrays["index"] = index
     if a.query_class in (QueryClass.CATEGORY_PARTITION,
                          QueryClass.CATEGORY_JOIN):
         arrays["categories"] = scanned[a.category_column.name]
@@ -496,9 +513,10 @@ def _validate_quant(options: EngineOptions) -> None:
 
     The quantized scan IS the fused batched kernel path: it has no plain
     twin, and the comparison engines' plan-structural inefficiencies would
-    be silently bypassed.  IVF probes stay fp32-exact under quant, so
-    engine 'chase' composes in the reference (the port's IVF engines are a
-    later slice)."""
+    be silently bypassed.  IVF probes stay fp32-exact under quant (their
+    key-dependent early stop would be perturbed by quantized keys), so
+    engine 'chase' composes: over an index it probes in fp32, and only the
+    flat scans are quantized."""
     if options.quant is None:
         if options.rescore_factor < 1:
             raise ValueError(
@@ -550,16 +568,20 @@ _INDEX_ENGINES = ("chase", "vbase", "pase", "chase_no_updatestate")
 
 def _validate_slice(a: Analysis, catalog: Catalog,
                     options: EngineOptions) -> None:
-    """Reject what the port does not lower yet.  Without an index on the
-    scanned column every engine takes the reference's missing-index
-    branch, the flat scan (``brute_sort`` its full sort)."""
+    """Reject what the port does not lower yet.  Q1 and Q2 lower over an
+    IVF index under every engine; Q3–Q6 over an index under an index
+    engine are a later slice.  Without an index on the scanned column every
+    engine takes the reference's missing-index branch, the flat scan
+    (``brute_sort`` its full sort)."""
     if a.query_class == QueryClass.NON_HYBRID:
         raise NotImplementedError(
             "plan did not match a hybrid pattern; use the interpreter engine")
     if (options.engine in _INDEX_ENGINES
+            and a.query_class not in (QueryClass.VKNN_SF, QueryClass.DR_SF)
             and catalog.index_for(*_scan_of(a)) is not None):
-        raise not_ported(f"engine {options.engine!r} over an IVF index",
-                         "5 (IVF engines)")
+        raise not_ported(
+            f"{a.query_class.value} under engine {options.engine!r} over an "
+            f"IVF index", "5 (IVF joins and category paths)")
     if options.dist is not None:
         raise not_ported("EngineOptions.dist (sharded scans)", "13")
 

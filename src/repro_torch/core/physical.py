@@ -5,18 +5,30 @@ tensors on the catalog's device; the batched builders take
 ``(arrays, binds, qvalid=None, probe_budget=None)`` with every bind carrying
 a leading Q axis.
 
-The port lowers all six query classes — Q1 (VKNN-SF), Q2 (DR-SF), Q3
+Engine modes reproduce the paper's comparison systems as query plans:
+
+* ``chase``  — the fused predicate probe of the IVF index, its similarity
+               reused downstream (the map operator);
+* ``vbase``  — the same incremental probe, but the sort above the scan
+               recomputes the similarity (Fig. 1c) and, on Q2, the filter
+               runs as a separate operator after an unfiltered scan;
+* ``pase``   — an unfiltered fetch of K' = oversample·K, post-filtered
+               (Fig. 1b); its range queries cannot use the index (§2.3);
+* ``brute``  — the compiled, fused, index-less full scan.
+
+Q1 (VKNN-SF) and Q2 (DR-SF) take those branches when an IVF index is
+registered on the scanned column (``index/ivf.py``; the probes are plain
+torch).  Without one, under ``brute``, and on every other class — Q3
 (distance join), Q4 (KNN join), Q5 (category partition), Q6 (category
-join) — on the flat path: the compiled, fused, index-less full scan, which
-the reference's parity suites treat as ground truth.  No IVF index can be
-registered yet (ROADMAP.md queue 1 item 5), so every engine takes the
-reference's missing-index branch: the flat scan, or under ``brute_sort``
-Q4's full sort.  With ``use_pallas`` the scans run on the fused CUDA
-kernels (the option keeps the reference's name); without it, on the plain
-torch :class:`~repro_torch.index.flat.FlatIndex`.  With ``quant`` the
-batched scans stream the corpus's int8 or bf16 twin and re-rank in exact
-fp32 (``kernels/quant.py``): the answers stay the fp32 kernels' bit for
-bit.
+join), whose IVF lowerings are a later slice (ROADMAP.md queue 1 item 5)
+and which the compiler refuses over an index under an index engine — every
+engine takes the reference's missing-index branch: the flat scan, or under
+``brute_sort`` Q4's full sort.  With ``use_pallas`` the flat scans run on
+the fused CUDA kernels (the option keeps the reference's name); without
+it, on the plain torch :class:`~repro_torch.index.flat.FlatIndex`.  With
+``quant`` the batched flat scans stream the corpus's int8 or bf16 twin and
+re-rank in exact fp32 (``kernels/quant.py``): the answers stay the fp32
+kernels' bit for bit.  The IVF probes stay fp32 under ``quant``.
 """
 from __future__ import annotations
 
@@ -25,32 +37,16 @@ from typing import Any, Callable
 
 import torch
 
-from ..index.flat import FlatIndex, compact_range, masked_topk
-from .expr import (Bindings, Column, Expr, Param, as_tensor, evaluate,
-                   evaluate_batch, evaluate_expr, order_key,
-                   pairwise_order_keys, stacked_param)
+from ..index.flat import (FlatIndex, compact_range, masked_topk,
+                          stable_smallest_k)
+from ..index.ivf import (ProbeConfig, ivf_range, ivf_range_batch, ivf_topk,
+                         ivf_topk_batch)
+from .expr import (Bindings, Column, Expr, Param, as_tensor,
+                   distance_values, evaluate, evaluate_batch, evaluate_expr,
+                   full_fp32, in_range, order_key, pairwise_order_keys,
+                   stacked_param)
 from .schema import Catalog, Metric, Table
 from .semantics import Analysis, QueryClass
-
-
-@dataclasses.dataclass(frozen=True)
-class ProbeConfig:
-    """Static IVF probe parameters (the engine's physical-operator knobs).
-
-    Carried in :class:`EngineOptions` (and so in its fingerprint) exactly as
-    in the reference.  The flat range plans read ``capacity``; the IVF
-    probes that read the rest are a later slice."""
-    max_probes: int = 64            # hard cap on clusters visited
-    min_probes: int = 4             # converge-first phase (Alg.1 lines 2-3)
-    stop_after_no_improve: int = 4  # top-k adaptive-queue stop (VBASE analogue)
-    out_range_stop: int = 2         # Alg.1 `IsAboveN` N, cluster-granular
-    capacity: int = 4096            # range-probe result buffer
-    termination: str = "counter"    # 'counter' (faithful) | 'bound' (exact)
-    probe_batch: int = 1            # clusters gathered per probe round
-    no_new_category_stop: int = 2   # Alg.2: clusters w/o new category
-    num_categories: int = 0         # static category cardinality (Alg.2)
-    k_per_category: int = 10        # Alg.2 K
-    probe_budget: int = 0           # per-query cluster budget (0 = unlimited)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,12 +319,71 @@ def _radius_batch(radius_expr: Expr, table: Table, binds: dict,
 
 
 # ---------------------------------------------------------------------------
+# the IVF engines' post-processing (Q1, Q2)
+# ---------------------------------------------------------------------------
+
+def _resort_redundant(metric: Metric, corpus, qs, ids, valid, k: int):
+    """VBASE's Fig. 1c inefficiency: the sort operator recomputes
+    vec <*> query for the (Q, k) tuples the scan already scored."""
+    safe = ids.clamp_min(0).long()
+    with full_fp32():
+        raw = distance_values(metric, corpus[safe], qs[:, None, :])
+    keys = torch.where(valid, order_key(metric, raw), float("inf"))
+    keys2, idx = stable_smallest_k(keys, k)
+    ids2 = torch.take_along_dim(ids, idx.long(), dim=-1)
+    valid2 = torch.isfinite(keys2)
+    sims = torch.where(valid2, -keys2 if metric.is_similarity() else keys2,
+                       0.0)
+    return torch.where(valid2, ids2, -1), sims, valid2
+
+
+def _pase_post(metric: Metric, ids, sims, valid, rm, k: int):
+    """PASE's post-filter over its (Q, K') unfiltered fetch: drop the rows
+    the predicate rejects and keep the first k survivors (the fetch is in
+    ascending key order already)."""
+    if rm is not None:
+        valid = valid & torch.where(
+            ids >= 0, torch.take_along_dim(rm, ids.clamp_min(0).long(), -1),
+            False)
+    valid = valid & (torch.cumsum(valid, -1) <= k)
+    keys = torch.where(valid, order_key(metric, sims), float("inf"))
+    vals, sel = stable_smallest_k(keys, k)
+    v = torch.isfinite(vals)
+    sel = sel.clamp_min(0).long()
+    return (torch.where(v, torch.take_along_dim(ids, sel, -1), -1),
+            torch.where(v, torch.take_along_dim(sims, sel, -1), 0.0), v)
+
+
+def _vbase_range_post(metric: Metric, corpus, qs, ids, valid, radius, rm):
+    """VBASE's range filter as a separate operator above an unfiltered
+    scan: it recomputes each buffered row's similarity for the range check,
+    then applies the predicate.  Returns (sims, valid, count)."""
+    safe = ids.clamp_min(0).long()
+    with full_fp32():
+        raw = distance_values(metric, corpus[safe], qs[:, None, :])
+    v = valid & in_range(metric, raw, radius[:, None])
+    if rm is not None:
+        v = v & torch.take_along_dim(rm, safe, dim=-1)
+    return torch.where(v, raw, 0.0), v, v.sum(-1, dtype=torch.int32)
+
+
+def _extra_evals(stats: dict, extra: int, qvalid) -> dict:
+    """``stats`` with ``extra`` distance evals added to every live query."""
+    ev = stats["distance_evals"]
+    add = torch.full_like(ev, extra)
+    if qvalid is not None:
+        add = torch.where(qvalid, add, 0)
+    return {**stats, "distance_evals": ev + add}
+
+
+# ---------------------------------------------------------------------------
 # Q1 — VKNN-SF
 # ---------------------------------------------------------------------------
 
 def build_vknn_sf(a: Analysis, catalog: Catalog, opts: EngineOptions,
                   binds_static: Bindings) -> Callable:
-    """Q1 (VKNN-SF) single-query pipeline: the brute-force filtered top-k."""
+    """Q1 (VKNN-SF) single-query pipeline: the filtered top-k by engine
+    mode (the IVF probe with an index, else the flat scan)."""
     table = catalog.table(a.table)
     metric = _metric_of(catalog, a.table, a.vector_column)
     k = _static_int(a.k, binds_static, "K")
@@ -336,18 +391,38 @@ def build_vknn_sf(a: Analysis, catalog: Catalog, opts: EngineOptions,
     qparam = a.query_expr
     if not isinstance(qparam, Param):
         raise ValueError("VKNN-SF query must be a parameter")
+    index = catalog.index_for(a.table, a.vector_column)
+    cfg = opts.probe
 
     def fn(arrays, binds):
         corpus = arrays["corpus"]
         dev = corpus.device
         q = as_tensor(binds[qparam.name], dev)
         row_mask = mask_fn(binds) if mask_fn else None
-        ids, sims, valid = _flat_topk(opts, FlatIndex(metric, corpus), q, k,
-                                      row_mask)
-        stats = {"probes": torch.tensor(0, dtype=torch.int32, device=dev),
-                 "distance_evals": torch.tensor(corpus.shape[0],
-                                                dtype=torch.int32,
-                                                device=dev)}
+        if opts.engine == "chase" and index is not None:
+            ids, sims, valid, stats = ivf_topk(arrays["index"], corpus, q, k,
+                                               row_mask, cfg)
+        elif opts.engine == "vbase" and index is not None:
+            ids, _sims, valid, stats = ivf_topk(arrays["index"], corpus, q,
+                                                k, row_mask, cfg)
+            ids, sims, valid = (v[0] for v in _resort_redundant(
+                metric, corpus, q[None], ids[None], valid[None], k))
+            stats = _extra_evals(stats, k, None)
+        elif opts.engine == "pase" and index is not None:
+            kk = min(opts.pase_oversample * k, corpus.shape[0])
+            ids_o, sims_o, valid_o, stats = ivf_topk(arrays["index"], corpus,
+                                                     q, kk, None, cfg)
+            ids, sims, valid = (v[0] for v in _pase_post(
+                metric, ids_o[None], sims_o[None], valid_o[None],
+                None if row_mask is None else row_mask[None], k))
+        else:  # brute (the LingoDB-V analogue) or no index
+            ids, sims, valid = _flat_topk(opts, FlatIndex(metric, corpus), q,
+                                          k, row_mask)
+            stats = {"probes": torch.tensor(0, dtype=torch.int32,
+                                            device=dev),
+                     "distance_evals": torch.tensor(corpus.shape[0],
+                                                    dtype=torch.int32,
+                                                    device=dev)}
         return {"ids": ids, "sim": sims, "valid": valid, "stats": stats}
 
     return fn
@@ -355,7 +430,8 @@ def build_vknn_sf(a: Analysis, catalog: Catalog, opts: EngineOptions,
 
 def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
                         binds_static: Bindings) -> Callable:
-    """Q1 batched: Q bind sets in one query-batched scan."""
+    """Q1 batched: Q bind sets on the batched IVF probe, or in one
+    query-batched flat scan."""
     table = catalog.table(a.table)
     metric = _metric_of(catalog, a.table, a.vector_column)
     k = _static_int(a.k, binds_static, "K")
@@ -363,10 +439,10 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
     qparam = a.query_expr
     if not isinstance(qparam, Param):
         raise ValueError("VKNN-SF query must be a parameter")
+    index = catalog.index_for(a.table, a.vector_column)
+    cfg = opts.probe
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
-        # probe_budget: flat scans have no probe lane (ignored, as in the
-        # reference's brute branch)
         corpus = arrays["corpus"]
         dev = corpus.device
         n = corpus.shape[0]
@@ -375,27 +451,45 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         if qvalid is not None:
             qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
         row_mask = mask_fn(binds, qn) if mask_fn else None       # (Q, N)
-        if (opts.use_pallas and opts.quant is None and qn == 1
-                and qvalid is None and row_mask is None):
-            # single-query fast path: one query without a predicate runs
-            # the single-query kernel instead of a one-query batch (not
-            # under quant, whose only lowering is the batched one)
-            from ..kernels.ops import fused_scan_topk
-            i1, s1, v1 = fused_scan_topk(corpus, qs[0], k, None, metric)
-            ids, sims, valid = i1[None], s1[None], v1[None]
-        elif opts.use_pallas:
-            ids, sims, valid = _flat_topk_batch(opts, arrays, metric, corpus,
-                                                qs, k, row_mask,
-                                                qvalid=qvalid)
-        else:
-            ids, sims, valid = FlatIndex(metric, corpus).topk(qs, k,
-                                                               row_mask)
-            if qvalid is not None:
-                valid = valid & qvalid[:, None]
-                ids = torch.where(valid, ids, -1)
-                sims = torch.where(valid, sims, 0.0)
-        stats = {"probes": torch.zeros((qn,), dtype=torch.int32, device=dev),
-                 "distance_evals": _flat_evals(qvalid, qn, n, dev)}
+        probe = dict(cfg=cfg, probe_budget=probe_budget, qvalid=qvalid)
+        if opts.engine == "chase" and index is not None:
+            ids, sims, valid, stats = ivf_topk_batch(
+                arrays["index"], corpus, qs, k, row_mask, **probe)
+        elif opts.engine == "vbase" and index is not None:
+            ids, _sims, valid, stats = ivf_topk_batch(
+                arrays["index"], corpus, qs, k, row_mask, **probe)
+            ids, sims, valid = _resort_redundant(metric, corpus, qs, ids,
+                                                 valid, k)
+            stats = _extra_evals(stats, k, qvalid)
+        elif opts.engine == "pase" and index is not None:
+            kk = min(opts.pase_oversample * k, n)
+            ids_o, sims_o, valid_o, stats = ivf_topk_batch(
+                arrays["index"], corpus, qs, kk, None, **probe)
+            ids, sims, valid = _pase_post(metric, ids_o, sims_o, valid_o,
+                                          row_mask, k)
+        else:  # brute or no index; probe_budget has no lane on a flat scan
+            if (opts.use_pallas and opts.quant is None and qn == 1
+                    and qvalid is None and row_mask is None):
+                # single-query fast path: one query without a predicate
+                # runs the single-query kernel instead of a one-query batch
+                # (not under quant, whose only lowering is the batched one)
+                from ..kernels.ops import fused_scan_topk
+                i1, s1, v1 = fused_scan_topk(corpus, qs[0], k, None, metric)
+                ids, sims, valid = i1[None], s1[None], v1[None]
+            elif opts.use_pallas:
+                ids, sims, valid = _flat_topk_batch(
+                    opts, arrays, metric, corpus, qs, k, row_mask,
+                    qvalid=qvalid)
+            else:
+                ids, sims, valid = FlatIndex(metric, corpus).topk(
+                    qs, k, row_mask)
+                if qvalid is not None:
+                    valid = valid & qvalid[:, None]
+                    ids = torch.where(valid, ids, -1)
+                    sims = torch.where(valid, sims, 0.0)
+            stats = {"probes": torch.zeros((qn,), dtype=torch.int32,
+                                           device=dev),
+                     "distance_evals": _flat_evals(qvalid, qn, n, dev)}
         return {"ids": ids, "sim": sims, "valid": valid, "stats": stats}
 
     return fn
@@ -407,15 +501,18 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
 
 def build_dr_sf(a: Analysis, catalog: Catalog, opts: EngineOptions,
                 binds_static: Bindings) -> Callable:
-    """Q2 (DR-SF) single-query pipeline: the filtered range scan.  As in
-    the reference, the single-query brute plan runs the exact plain scan
+    """Q2 (DR-SF) single-query pipeline: the filtered range probe by engine
+    mode.  As in the reference, the flat single-query plan (``pase``,
+    ``brute`` or no index) runs the exact plain scan
     (``FlatIndex.range_mask``) whatever ``use_pallas`` says: the reference
     lowers it without a kernel."""
     table = catalog.table(a.table)
     metric = _metric_of(catalog, a.table, a.vector_column)
     mask_fn = _row_mask_fn(a.structured_predicate, table)
     qparam = a.query_expr
-    capacity = opts.probe.capacity
+    index = catalog.index_for(a.table, a.vector_column)
+    cfg = opts.probe
+    capacity = cfg.capacity
     radius_expr = a.radius
 
     def fn(arrays, binds):
@@ -425,25 +522,46 @@ def build_dr_sf(a: Analysis, catalog: Catalog, opts: EngineOptions,
         q = as_tensor(binds[qparam.name], dev)
         radius = evaluate(radius_expr, table, binds)
         row_mask = mask_fn(binds) if mask_fn else None
-        hit, raw = FlatIndex(metric, corpus).range_mask(q, radius, row_mask)
-        ids, sims, valid = _compact(hit, raw, metric, min(capacity, n))
-        stats = {"probes": torch.tensor(0, dtype=torch.int32, device=dev),
-                 "distance_evals": torch.tensor(n, dtype=torch.int32,
-                                                device=dev)}
-        return {"ids": ids, "sim": sims, "valid": valid,
-                "count": hit.sum(dtype=torch.int32), "stats": stats}
+        if opts.engine == "chase" and index is not None:
+            ids, sims, valid, count, stats = ivf_range(
+                arrays["index"], corpus, q, radius, row_mask, cfg)
+        elif opts.engine == "vbase" and index is not None:
+            # scan without the fused predicate; the filter is an operator
+            # of its own that recomputes each row's similarity
+            ids, _sims, valid, _count, stats = ivf_range(
+                arrays["index"], corpus, q, radius, None, cfg)
+            sims, valid, count = (v[0] for v in _vbase_range_post(
+                metric, corpus, q[None], ids[None], valid[None],
+                torch.as_tensor(radius, dtype=torch.float32,
+                                device=dev).reshape(1),
+                None if row_mask is None else row_mask[None]))
+            stats = _extra_evals(stats, capacity, None)
+        else:
+            # PASE/pgvector cannot route range queries to the index (§2.3)
+            hit, raw = FlatIndex(metric, corpus).range_mask(q, radius,
+                                                            row_mask)
+            ids, sims, valid = _compact(hit, raw, metric, min(capacity, n))
+            count = hit.sum(dtype=torch.int32)
+            stats = {"probes": torch.tensor(0, dtype=torch.int32,
+                                            device=dev),
+                     "distance_evals": torch.tensor(n, dtype=torch.int32,
+                                                    device=dev)}
+        return {"ids": ids, "sim": sims, "valid": valid, "count": count,
+                "stats": stats}
 
     return fn
 
 
 def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
                       binds_static: Bindings) -> Callable:
-    """Q2 batched: Q bind sets on the query-batched range kernel."""
+    """Q2 batched: Q bind sets on the batched IVF probe, or on the
+    query-batched range kernel."""
     table = catalog.table(a.table)
     metric = _metric_of(catalog, a.table, a.vector_column)
     mask_fn = _row_mask_batch_fn(a.structured_predicate, table)
     qparam = a.query_expr
-    capacity = opts.probe.capacity
+    index = catalog.index_for(a.table, a.vector_column)
+    cfg = opts.probe
     radius_expr = a.radius
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
@@ -455,9 +573,21 @@ def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         if qvalid is not None:
             qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
         row_mask = mask_fn(binds, qn) if mask_fn else None       # (Q, N)
-        ids, sims, valid, count, stats = _flat_range_topk_batch(
-            opts, metric, corpus, qs, radius, row_mask, capacity,
-            qvalid=qvalid, arrays=arrays)
+        probe = dict(cfg=cfg, probe_budget=probe_budget, qvalid=qvalid)
+        if opts.engine == "chase" and index is not None:
+            ids, sims, valid, count, stats = ivf_range_batch(
+                arrays["index"], corpus, qs, radius, row_mask, **probe)
+        elif opts.engine == "vbase" and index is not None:
+            ids, _sims, valid, _count, stats = ivf_range_batch(
+                arrays["index"], corpus, qs, radius, None, **probe)
+            sims, valid, count = _vbase_range_post(
+                metric, corpus, qs, ids, valid, radius, row_mask)
+            stats = _extra_evals(stats, cfg.capacity, qvalid)
+        else:
+            # PASE/pgvector cannot route range queries to the index (§2.3)
+            ids, sims, valid, count, stats = _flat_range_topk_batch(
+                opts, metric, corpus, qs, radius, row_mask, cfg.capacity,
+                qvalid=qvalid, arrays=arrays)
         return {"ids": ids, "sim": sims, "valid": valid, "count": count,
                 "stats": stats}
 

@@ -7,8 +7,8 @@ validity mask, never a physical shrink.
 
 The :class:`Catalog` keeps the reference's versioned registration clock so
 compiled plans can detect a re-registered table or re-bind a re-registered
-quantized twin.  Index, live-corpus and sharded registrations belong to
-later slices of the port and raise ``NotImplementedError`` until then.
+IVF index or quantized twin.  Live-corpus and sharded registrations belong
+to later slices of the port and raise ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -146,14 +146,16 @@ class Catalog:
     clock.
 
     Every registration bumps a monotonic catalog clock and stamps the
-    touched key (``("table", name)`` or ``("quantized", table, column)``);
-    compiled plans snapshot the versions of the keys they captured and
-    compare at execute time (``CompiledQuery.ensure_fresh``), so a
-    re-registered table raises ``StalePlanError`` instead of serving frozen
-    data, and a re-registered twin re-binds in place."""
+    touched key (``("table", name)``, ``("index", table, column)`` or
+    ``("quantized", table, column)``); compiled plans snapshot the versions
+    of the keys they captured and compare at execute time
+    (``CompiledQuery.ensure_fresh``), so a re-registered table raises
+    ``StalePlanError`` instead of serving frozen data, and a re-registered
+    index or twin re-binds in place."""
 
     def __init__(self):
         self._tables: dict[str, Table] = {}
+        self._indexes: dict[tuple, Any] = {}
         self._quantized: dict[tuple, Any] = {}
         self._clock = 0
         self._versions: dict[tuple, int] = {}
@@ -191,13 +193,17 @@ class Catalog:
         return name in self._tables
 
     def register_index(self, table: str, column: str, index: Any) -> None:
-        """IVF indexes belong to the next slice of the port."""
-        raise not_ported("Catalog.register_index (IVF)", "5")
+        """Attach (or replace) an ANN index (an
+        :class:`~repro_torch.index.ivf.IVFIndex`) on a (table, vector
+        column) pair.  Bumps ``("index", table, column)``: compiled plans
+        carry the index in their bound ``arrays`` dict and re-bind a
+        replacement on their next execute."""
+        self._indexes[(table, column)] = index
+        self._bump(("index", table, column))
 
     def index_for(self, table: str, column: str):
-        """The ANN index registered for (table, column): always None until
-        the IVF slice lands."""
-        return None
+        """The ANN index registered for (table, column), or None."""
+        return self._indexes.get((table, column))
 
     def register_quantized(self, table: str, column: str, quant: Any,
                            key: Any = None) -> None:

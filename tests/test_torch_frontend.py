@@ -13,7 +13,7 @@ from repro.core.expr import evaluate as ref_evaluate
 from repro.data import make_laion_catalog as ref_make_catalog
 from repro_torch.core import analyze, parse_sql, plan_fingerprint, rewrite
 from repro_torch.core.expr import evaluate, evaluate_batch
-from repro_torch.core.schema import ColumnKind, Metric
+from repro_torch.core.schema import Catalog, ColumnKind, Metric
 from repro_torch.data import (catalog_from_numpy, make_laion_catalog,
                               selectivity_threshold)
 
@@ -139,14 +139,19 @@ def test_predicates_match_reference_single_and_batched(catalogs):
 
 def test_unported_registrations_raise(catalogs):
     _, cat = catalogs
-    for call in (lambda: cat.register_index("laion", "vec", object()),
-                 lambda: cat.register_live("laion", "vec", object()),
+    for call in (lambda: cat.register_live("laion", "vec", object()),
                  lambda: cat.register_sharded("laion", "vec", object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
-    assert cat.index_for("laion", "vec") is None
     assert cat.live_for("laion", "vec") is None
     assert cat.quantized_for("laion", "vec", "int8") is None   # ported
+    # ported: an index registration is stored and bumps its version key
+    assert cat.index_for("laion", "vec") is None
+    fresh, index = Catalog(), object()
+    fresh.register_index("laion", "vec", index)
+    assert fresh.index_for("laion", "vec") is index
+    assert fresh.version(("index", "laion", "vec")) > 0
+    assert fresh.index_for("laion", "embedding") is None
 
 
 @pytest.mark.parametrize("metric", ["ip", "l2", "cosine"])

@@ -18,6 +18,7 @@ from repro.api import connect as ref_connect
 from repro.data import make_laion_catalog as ref_make_catalog
 from repro_torch.api import ExecutionHints, connect
 from repro_torch.data import make_laion_catalog
+from repro_torch.index import build_ivf
 from repro_torch.testing import assert_topk_close
 
 TOL = 1e-5
@@ -228,16 +229,30 @@ def test_stale_table_reprepares(env):
 def test_unported_surfaces_raise(env):
     _, cat = env
     # the default engine (chase) and the Q4-Q6 classes run on the flat path
-    # now; the IVF index they would probe is still to come
+    # without an index; over one, chase probes it on Q1 and Q2 and the
+    # joins and category paths are still to come
     assert connect(cat).prepare(Q1, K=K).compiled.options.engine == "chase"
-    connect(cat, engine="brute").prepare(               # Q4, a KNN join
-        "SELECT qid, tid FROM (SELECT users.id AS qid, "
-        "movies.sample_id AS tid, RANK() OVER (PARTITION BY users.id "
-        "ORDER BY DISTANCE(users.embedding, movies.embedding)) AS rank "
-        "FROM users JOIN movies ON users.preferred_rating = movies.rating"
-        ") AS ranked WHERE ranked.rank <= 5")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cat.register_index("products", "embedding", object())
+    q4 = ("SELECT qid, tid FROM (SELECT users.id AS qid, "
+          "movies.sample_id AS tid, RANK() OVER (PARTITION BY users.id "
+          "ORDER BY DISTANCE(users.embedding, movies.embedding)) AS rank "
+          "FROM users JOIN movies ON users.preferred_rating = movies.rating"
+          ") AS ranked WHERE ranked.rank <= 5")
+    q5 = ("SELECT qid, category FROM (SELECT sample_id AS qid, "
+          "calorie_level AS category, RANK() OVER (PARTITION BY "
+          "calorie_level ORDER BY DISTANCE(embedding, ${qv})) AS rank "
+          "FROM recipes WHERE DISTANCE(embedding, ${qv}) <= ${r}"
+          ") AS ranked WHERE ranked.rank <= 4")
+    connect(cat, engine="brute").prepare(q4)             # Q4, a KNN join
+    local = make_laion_catalog(**SMALL, device="cpu")
+    index = build_ivf(torch.Generator().manual_seed(0),
+                      local.table("laion")["embedding"], 8, iters=2)
+    for name in ("products", "movies", "recipes"):
+        local.register_index(name, "embedding", index)
+        assert local.index_for(name, "embedding") is index
+    assert connect(local).prepare(Q1, K=K).compiled._arrays["index"] is index
+    for sql in (q4, q5):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            connect(local).prepare(sql)
     with pytest.raises(NotImplementedError, match="item 13"):
         connect(cat, engine="brute", use_pallas=True,
                 dist=object()).prepare(Q1, K=K)

@@ -16,6 +16,7 @@ Inside the port: bucketed = exact-shape = stacked, batch = perleft bit for
 bit under ``use_pallas=False``, and quantized = fp32 bit for bit.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -480,9 +481,28 @@ def test_q6_pad_bind_sets_are_inert(env):
 # Q4–Q6 under quant: the fp32 answers bit for bit
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _metric_catalog(metric: str):
+    return make_laion_catalog(**SMALL, metric=Metric(metric), device="cpu")
+
+
+def _in_metric(metric: str, b: dict, query=None) -> dict:
+    """An inner-product bind set with its radius in ``metric``'s raw units
+    (the corpus rows are unit vectors): a squared distance under l2, the
+    inner product over ``|q|`` under cosine.  Without ``query`` the query
+    side is the unit-norm left rows."""
+    if "r" not in b or metric == "ip":
+        return b
+    qn = 1.0 if query is None else float(np.linalg.norm(query))
+    r = float(b["r"])
+    r = 1.0 + qn * qn - 2.0 * r if metric == "l2" else r / qn
+    return {**b, "r": np.float32(r)}
+
+
 @pytest.mark.parametrize("query", ["q4", "q5", "q6"])
 @pytest.mark.parametrize("mode", ["int8", "bf16"])
-def test_quant_equals_fp32(env, mode, query):
+@pytest.mark.parametrize("metric", ["ip", "l2", "cosine"])
+def test_quant_equals_fp32(env, metric, mode, query):
     sql, single, many = {
         "q4": (Q4Y, {"y": np.int32(2000)},
                [{"y": np.int32(1980)}, {"y": np.int32(2010)}]),
@@ -490,8 +510,11 @@ def test_quant_equals_fp32(env, mode, query):
         "q6": (Q6, {"r": np.float32(_q6_radius(env))},
                [{"r": np.float32(_q6_radius(env, k))} for k in (30, 90)]),
     }[query]
-    fp32 = connect(env["cat"], engine="brute", use_pallas=True).prepare(sql)
-    quant = connect(env["cat"], engine="brute", use_pallas=True,
+    single = _in_metric(metric, single, single.get("qv"))
+    many = [_in_metric(metric, b, b.get("qv")) for b in many]
+    cat = env["cat"] if metric == "ip" else _metric_catalog(metric)
+    fp32 = connect(cat, engine="brute", use_pallas=True).prepare(sql)
+    quant = connect(cat, engine="brute", use_pallas=True,
                     quant=mode).prepare(sql)
     # a quantized plan's single dict runs its batched lowering at Q = 1, so
     # it is held against the fp32 batch of one (the fp32 single-dict Q5
@@ -559,13 +582,18 @@ def test_default_options_run_q4_to_q6(env, query):
 
 def test_an_index_engine_over_a_registered_index_is_not_ported(
         env, monkeypatch):
-    """Once an IVF index can be registered, the engines that would probe it
-    raise until the IVF slice lands; brute and brute_sort still run."""
+    """Over a registered IVF index the engines that would probe it lower
+    Q1 and Q2 (tests/test_torch_ivf_slice.py) and raise on Q3–Q6 until
+    their IVF slice lands; brute and brute_sort still run."""
     cat = env["cat"]
     monkeypatch.setattr(cat, "index_for", lambda table, column: object())
     for engine in ("chase", "vbase", "pase"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            compile_query(Q1, cat, EngineOptions(engine=engine))
+        for sql in (Q3, Q4, Q5, Q6):
+            with pytest.raises(NotImplementedError, match="item 5"):
+                compile_query(sql, cat, EngineOptions(engine=engine))
+        for sql in (Q1, Q2):
+            compiled = compile_query(sql, cat, EngineOptions(engine=engine))
+            assert "index" in compiled._arrays
     for engine in ("brute", "brute_sort"):
         compile_query(Q4, cat, dataclasses.replace(EngineOptions(),
                                                    engine=engine))
