@@ -40,8 +40,8 @@ quant_keys_batch for Q2 and Q3, replay_keys for both; a Q2 band wider than
 the replay budget runs range_scan_batch itself).  Every quantized answer
 must equal the fp32 ``use_pallas=True`` answer of the same call bit for bit.
 Q4, Q5 and Q6's batched lowerings run under both modes too, held the same
-way.  Then Q1 and Q2 run over the IVF index under the paper's own engines
-(``ivf`` below).
+way.  Then Q1–Q6 run over the IVF index under the paper's own engines
+(``ivf`` and ``ivf_joins`` below).
 
 The radius is the paper's: the median over the 100 queries of each query's
 120th-best similarity (benchmarks/common.py, range_match_target).  Phases,
@@ -133,6 +133,34 @@ one JSON line each:
            active-check cadence) and ``ivf_profile`` (chase at the list of
            100: gather, product, merge and host shares by CUDA events,
            device time per operator by torch.profiler)
+  ivf_joins  the same index registered on the tables Q4, Q5 and Q6 scan;
+           Q3, Q4 and Q6 over the 100 query rows in the batch and perleft
+           lowerings under chase, vbase and pase (Q6 also
+           chase_no_updatestate), a list of 4 bind sets (400 left rows;
+           Q4 with its release_year bind) under chase, and Q5 as single
+           dicts and lists of 1, 8, 64, 100 under the four engines, held to
+           six gates: batch = perleft row for row (Q3, Q6 under chase and
+           vbase, Q4 under chase; Q5: row q of the list of 100 = query q's
+           single dict), counters included; termination "bound" (every
+           cluster allowed) returns the flat answers (Q4 top-k; Q3 hit sets
+           where the flat buffer holds every hit; Q5 and Q6 each category
+           list chase returns, where no buffer overflowed; the categories
+           chase never saw are counted; chase_no_updatestate too, with
+           chase's probes and latency beside its own: Algorithm 2's
+           effect); termination "counter" returns rows
+           that pass the predicate and the radius with their flat sims
+           (recall and mean probes reported, chase beside
+           chase_no_updatestate); chase under int8 and bf16 equals fp32
+           chase with torch.equal; ExecutionHints(probe_budget=4) and a
+           per-bind-set tuple cap every left row's probes; the probes
+           launch no kernel and each flat fallback (pase Q3, Q5, Q6, vbase
+           and pase Q4) launches the kernels its path launches with no
+           index.  Lines ``e2e_ivf_joins`` (latency, left rows per second,
+           peak memory, probe rounds and host syncs per execute, per query,
+           engine, lowering and list, beside the flat path) and
+           ``ivf_category_profile`` (chase Q6 at 100 left rows: cluster
+           order, gather, product, one-hot, per-category key merge, append
+           and host shares by CUDA events)
   times    per kernel: its time, its plain version's, the library
            yardstick (timed only), the bound; scan_topk_batch and
            range_scan_batch also at buckets 1, 8, 32 and 128,
@@ -363,7 +391,8 @@ def ivf_phase(cat, qv, p, r, sims, near_q, drive, launches, smi: str,
     the tables Q1 and Q2 scan, and drive Q1 and Q2 under ``chase``,
     ``vbase`` and ``pase`` through the session API (a single dict and
     lists of 1, 8, 64 and 100), held to five gates; then print the
-    ``ivf_build``, ``e2e_ivf`` and ``ivf_profile`` lines."""
+    ``ivf_build``, ``e2e_ivf`` and ``ivf_profile`` lines.  Returns the
+    index."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from repro_torch.api import ExecutionHints, connect
@@ -622,6 +651,423 @@ def ivf_phase(cat, qv, p, r, sims, near_q, drive, launches, smi: str,
     emit({"phase": "ivf_profile", "device": name, "nvidia_smi": smi,
           "bucket": bucket, "cap": index.cap, "runs": profile})
     # hand the probes' cached blocks back: the later phases time other paths
+    torch.cuda.empty_cache()
+    return index
+
+
+def same_rows(a: dict, b: dict, what: str) -> float:
+    """Every integer and bool leaf of ``a`` equal to ``b``'s, the float
+    leaves (sims) within 1e-4; returns the largest sim difference."""
+    err = 0.0
+    for key, v in a.items():
+        if isinstance(v, dict):
+            err = max(err, same_rows(v, b[key], f"{what} {key}"))
+        elif v.is_floating_point():
+            d = float((v - b[key]).abs().max()) if v.numel() else 0.0
+            if not d <= 1e-4:
+                raise AssertionError(f"{what}: {key} differs by {d}")
+            err = max(err, d)
+        elif not torch.equal(v, b[key]):
+            raise AssertionError(f"{what}: {key} differs")
+    return err
+
+
+def ivf_joins_phase(cat, qv, r, sims, index, drive, launches, smi: str,
+                    name: str) -> None:
+    """The ``ivf_joins`` phase: the ``ivf`` phase's index registered also
+    on the tables Q4, Q5 and Q6 scan, and Q3, Q4 and Q6 over the 100 query
+    rows in the batch and perleft lowerings (and a list of 4 bind sets
+    under ``chase``), Q5 as single dicts and lists of 1, 8, 64 and 100,
+    under ``chase``, ``vbase``, ``pase`` and (Q5, Q6)
+    ``chase_no_updatestate``, held to six gates; then print the
+    ``e2e_ivf_joins`` and ``ivf_category_profile`` lines."""
+    from repro_torch.api import ExecutionHints, connect
+    from repro_torch.core.expr import distance_values
+    from repro_torch.core.physical import ProbeConfig
+    from repro_torch.core.schema import Metric
+    from repro_torch.index import ivf as ivf_mod
+    from repro_torch.testing import assert_topk_close
+
+    for tname in ("recipes", "movies"):
+        cat.register_index(tname, "embedding", index)
+    dev = sims.device
+    qtab, laion = cat.table("queries"), cat.table("laion")
+    left = qtab["embedding"]
+    cuisine, level = laion["cuisine"], laion["calorie_level"]
+    qcuisine = qtab["cuisine"]
+    q3_mask = laion["capture_date"][None, :] > qtab["capture_date"][:, None]
+    q4_mask = laion["rating"][None, :] == qtab["preferred_rating"][:, None]
+    q5_mask = (cuisine != EX)[None, :].expand(N_QUERIES, -1)
+    q6_mask = cuisine[None, :] != qcuisine[:, None]
+    probe = ProbeConfig(**IVF_PROBE)
+    perleft = ExecutionHints(join_lowering="perleft")
+    radii = np.array([r - 0.01, r, r + 0.01, r + 0.02], np.float32)
+    years = (1980, 1990, 2000, 2010)
+    join_binds = {"q3": {"r": r}, "q4": {}, "q6": {"r": r}}
+    list4 = {"q3": [{"r": x} for x in radii],
+             "q4": [{"y": np.int32(y)} for y in years],
+             "q6": [{"r": x} for x in radii]}
+    q5_binds = [{"qv": qv[i], "r": r, "ex": np.int32(EX)}
+                for i in range(N_QUERIES)]
+    sql = {"q3": Q3, "q4": Q4, "q5": Q5, "q6": Q6}
+    engines = {"q3": IVF_ENGINES, "q4": IVF_ENGINES,
+               "q5": IVF_ENGINES + ("chase_no_updatestate",),
+               "q6": IVF_ENGINES + ("chase_no_updatestate",)}
+    dbs = {e: connect(cat, engine=e, use_pallas=True, probe=probe)
+           for e in engines["q6"]}
+    stmts, res = {}, {}
+
+    # -- drive every engine and lowering ------------------------------------
+    for q in ("q3", "q4", "q6"):
+        for e in engines[q]:
+            for low, hints in (("batch", None), ("perleft", perleft)):
+                st = dbs[e].prepare(sql[q], hints=hints)
+                stmts[q, e, low] = st
+                (_l, _s, _b, _h, out), = drive(
+                    f"ivfj_{q}_{e}_{low}", [(low, st, join_binds[q], None)])
+                res[q, e, low] = out
+        st = dbs["chase"].prepare(Q4Y if q == "q4" else sql[q])
+        stmts[q, "chase", "list4"] = st
+        (_l, _s, _b, _h, out), = drive(f"ivfj_{q}_chase_list4",
+                                       [("list4", st, list4[q], None)])
+        res[q, "chase", "list4"] = out
+    for e in engines["q5"]:
+        st = dbs[e].prepare(Q5)
+        stmts["q5", e] = st
+        singles = N_QUERIES if e == "chase" else 1
+        for label, out in [(lbl, o) for lbl, _s, _b, _h, o in drive(
+                f"ivfj_q5_{e}_single",
+                [(f"single{i}", st, q5_binds[i], None)
+                 for i in range(singles)])]:
+            res["q5", e, label] = out
+        for label, out in [(lbl, o) for lbl, _s, _b, _h, o in drive(
+                f"ivfj_q5_{e}_lists",
+                [(f"list{qn}", st, q5_binds[:qn], None) for qn in BATCHES])]:
+            res["q5", e, label] = out
+
+    # gate 6: the probes launch no kernel; each flat fallback launches the
+    # kernels its path launches with no index
+    flat_kernels = {("q3", "pase", "batch"): {"range_scan_batch"},
+                    ("q3", "pase", "perleft"): {"range_scan"},
+                    ("q4", "vbase", "batch"): {"scan_topk_batch"},
+                    ("q4", "pase", "batch"): {"scan_topk_batch"},
+                    ("q4", "vbase", "perleft"): {"scan_topk"},
+                    ("q4", "pase", "perleft"): {"scan_topk"},
+                    ("q5", "pase", "lists"): {"range_scan_batch"},
+                    ("q6", "pase", "batch"): {"range_scan_batch"}}
+    for path, counts in launches.items():
+        if not path.startswith("ivfj_"):
+            continue
+        q, rest = path[5:7], path[8:]
+        e, low = rest.rsplit("_", 1)
+        want = flat_kernels.get((q, e, low), set())
+        got = {k for k, n in counts.items() if n}
+        if got != want:
+            raise AssertionError(f"{path} launched {counts}, not {want}")
+    for key, out in res.items():
+        probed = key[1] == "chase" or (
+            key[1] == "vbase" and key[0] != "q4") or (
+            key[1] == "chase_no_updatestate" and key[0] in ("q5", "q6"))
+        p_ = out["stats"]["probes"]
+        if probed != bool((p_ > 0).all()) or (not probed and bool(p_.any())):
+            raise AssertionError(f"ivf_joins {key}: probes {p_.tolist()}")
+
+    # gate 1: batch = perleft row for row; Q5's list row = its single dict
+    gate1 = {}
+    for q, e in (("q3", "chase"), ("q3", "vbase"), ("q4", "chase"),
+                 ("q6", "chase"), ("q6", "vbase")):
+        gate1[f"{q}_{e}"] = same_rows(res[q, e, "batch"].data,
+                                      res[q, e, "perleft"].data,
+                                      f"ivf_joins gate 1 {q} {e}")
+    batch = res["q5", "chase", f"list{N_QUERIES}"]
+    gate1["q5_chase"] = max(
+        same_rows(res["q5", "chase", f"single{i}"].data, batch.query(i).data,
+                  f"ivf_joins gate 1 q5 query {i}")
+        for i in range(N_QUERIES))
+
+    # gate 2: bound termination returns the flat answers (every cluster
+    # may be probed, so the bound alone decides where a probe stops)
+    bound_db = connect(cat, engine="chase", use_pallas=True, probe=ProbeConfig(
+        **dict(IVF_PROBE, termination="bound", max_probes=NLIST)))
+    flat_db = connect(cat, engine="brute", use_pallas=True, probe=probe)
+    flat, bound = {}, {}
+    for q in ("q3", "q4", "q5", "q6"):
+        b = q5_binds if q == "q5" else join_binds[q]
+        flat[q] = flat_db.prepare(sql[q]).execute(b)
+        bound[q] = bound_db.prepare(sql[q]).execute(b)
+    torch.cuda.synchronize()
+
+    def topk_view(d: dict) -> dict:
+        return {"ids": d["tid"], "sim": d["sim"], "valid": d["valid"]}
+
+    assert_topk_close(topk_view(bound["q4"].data), topk_view(flat["q4"].data),
+                      atol=1e-4, tie_tol=1e-4, what="ivf_joins gate 2 q4")
+    near_r = ((sims - float(r)).abs() <= 1e-4)
+
+    def hit_sets(got, want, what: str, strict: bool) -> dict:
+        """Per left row, the hit set of a Q3 answer against the flat one's
+        where the flat buffer holds every hit: equal but for rows within
+        1e-4 of the radius (``strict``), or a subset (counter)."""
+        gi, gv = got["tid"].cpu().numpy(), got["valid"].cpu().numpy()
+        wi, wv = want["tid"].cpu().numpy(), want["valid"].cpu().numpy()
+        wc, gc = want["count"].cpu().numpy(), got["count"].cpu().numpy()
+        near_np = near_r.cpu().numpy()
+        held = found = flips = 0
+        for i in range(N_QUERIES):
+            if wc[i] > MAX_PAIRS:
+                continue
+            a, b_ = set(gi[i][gv[i]].tolist()), set(wi[i][wv[i]].tolist())
+            diff = (a ^ b_) if strict else (a - b_)
+            if any(not near_np[i, j] for j in diff):
+                raise AssertionError(f"{what}: row {i} hit sets differ off "
+                                     f"the radius")
+            if strict and abs(int(gc[i]) - int(wc[i])) > len(diff):
+                raise AssertionError(f"{what}: row {i} counts {gc[i]} vs "
+                                     f"{wc[i]}")
+            held += len(b_)
+            found += len(a & b_)
+            flips += len(diff)
+        return {"recall": found / max(held, 1), "boundary_flips": flips,
+                "rows_held": int((wc <= MAX_PAIRS).sum())}
+
+    gate2 = {"q3": hit_sets(bound["q3"].data, flat["q3"].data,
+                            "ivf_joins gate 2 q3", True)}
+    fits = {"q5": ((sims >= r - 1e-4) & q5_mask).sum(1) <= CAPACITY,
+            "q6": ((sims >= r - 1e-4) & q6_mask).sum(1) <= CAPACITY}
+
+    def category_lists(got, want, q: str, what: str, exact: bool) -> dict:
+        """Per (row, category) list that ``got`` returns on a row whose
+        buffer held every hit: equal to ``want``'s (``exact``) or, under
+        'counter', its ids among ``want``'s hits.  Returns the recall and
+        the categories ``want`` holds and ``got`` lacks."""
+        key = "ids" if q == "q5" else "tid"
+        gv, wv = got["valid"], want["valid"]
+        rows = fits[q][:, None].expand(gv.shape[:2])
+        chosen = gv[..., 0] & rows
+        lacks = int((wv[..., 0] & ~gv[..., 0] & rows).sum())
+        if exact:
+            assert_topk_close(
+                {"ids": got[key][chosen], "sim": got["sim"][chosen],
+                 "valid": gv[chosen]},
+                {"ids": want[key][chosen], "sim": want["sim"][chosen],
+                 "valid": wv[chosen]}, atol=1e-4, tie_tol=1e-4, what=what)
+        w_ids = torch.where(wv, want[key], -2)[..., None, :]
+        inside = (got[key][..., :, None] == w_ids).any(-1) & gv
+        return {"recall": float((inside & rows[..., None]).sum()
+                                / wv[rows].sum()),
+                "categories_lacking": lacks,
+                "lists_compared": int(chosen.sum())}
+
+    for q in ("q5", "q6"):
+        gate2[q] = category_lists(bound[q].data, flat[q].data, q,
+                                  f"ivf_joins gate 2 {q}", True)
+    gate2["probes_mean"] = {q: float(bound[q]["stats"]["probes"].float()
+                                     .mean()) for q in bound}
+    # Algorithm 2's effect under the bound: chase beside the plain range
+    # probe of chase_no_updatestate (exact too), in probes and latency
+    plain_db = connect(cat, engine="chase_no_updatestate", use_pallas=True,
+                       probe=bound_db.options.probe)
+    alg2 = {}
+    for q in ("q5", "q6"):
+        b = q5_binds if q == "q5" else join_binds[q]
+        st_c, st_n = bound_db.prepare(sql[q]), plain_db.prepare(sql[q])
+        plain = st_n.execute(b)
+        category_lists(plain.data, flat[q].data, q,
+                       f"ivf_joins gate 2 {q} chase_no_updatestate", True)
+        pc, pn = bound[q]["stats"]["probes"], plain["stats"]["probes"]
+        if not bool((pc <= pn).all()):
+            raise AssertionError(f"ivf_joins gate 2 {q}: updateState "
+                                 f"probed more than the range probe")
+        alg2[q] = {"chase_probes_mean": float(pc.float().mean()),
+                   "no_updatestate_probes_mean": float(pn.float().mean()),
+                   "rows_stopped_earlier": int((pc < pn).sum()),
+                   "chase_ms": latency_ms(lambda: st_c.execute(b), iters=3),
+                   "no_updatestate_ms": latency_ms(lambda: st_n.execute(b),
+                                                   iters=3)}
+    gate2["updatestate"] = alg2
+
+    # gate 3: counter answers are real
+    preds = {"q3": q3_mask, "q4": q4_mask, "q5": q5_mask, "q6": q6_mask}
+    gate3 = {}
+    for key, out in res.items():
+        q, e, label = key
+        if label.startswith("single") or label == "list4" or not bool(
+                (out["stats"]["probes"] > 0).all()):
+            continue
+        if q == "q5" and label != f"list{N_QUERIES}":
+            continue
+        ids = out["ids" if q == "q5" else "tid"]
+        valid = out["valid"]
+        rows = torch.arange(N_QUERIES, device=dev).reshape(
+            (-1,) + (1,) * (ids.ndim - 1)).expand(ids.shape)[valid]
+        hit = ids[valid].long()
+        what = f"ivf_joins gate 3 {q} {e} {label}"
+        if not bool(preds[q][rows, hit].all()):
+            raise AssertionError(f"{what}: a row fails the predicate")
+        err = float((out["sim"][valid] - sims[rows, hit]).abs().max())
+        if not err <= 1e-4:
+            raise AssertionError(f"{what}: sims {err} off the flat sims")
+        if q != "q4" and bool((out["sim"][valid] < r - 1e-4).any()):
+            raise AssertionError(f"{what}: a hit below the radius")
+        if q in ("q5", "q6"):
+            cat_of = out["category"][valid]
+            if not torch.equal(level[hit].to(cat_of.dtype), cat_of):
+                raise AssertionError(f"{what}: a row in another level")
+        if q == "q3":
+            quality = hit_sets(out.data, flat["q3"].data, what, False)
+        elif q == "q4":
+            inside = (out["tid"][..., :, None]
+                      == flat["q4"]["tid"][..., None, :]).any(-1) & valid
+            quality = {"recall": float(inside.sum()
+                                       / flat["q4"]["valid"].sum())}
+        else:
+            quality = category_lists(out.data, flat[q].data, q, what, False)
+        gate3[f"{q}_{e}_{label}"] = {
+            **quality, "max_abs_err": err,
+            "probes_mean": float(out["stats"]["probes"].float().mean()),
+            "evals_mean": float(out["stats"]["distance_evals"].float()
+                                .mean())}
+
+    # gate 4: chase under int8 and bf16 = fp32 chase, bit for bit
+    exact = ExecutionHints(exact_shape=True)
+    for mode in MODES:
+        qdb = connect(cat, engine="chase", use_pallas=True, quant=mode,
+                      probe=probe)
+        for q, bl in (("q3", [{"r": r}]), ("q4", list4["q4"][:1]),
+                      ("q5", q5_binds), ("q6", [{"r": r}])):
+            text = Q4Y if q == "q4" else sql[q]
+            st, fp32 = qdb.prepare(text), dbs["chase"].prepare(text)
+            bitwise(st.execute(bl).data, fp32.execute(bl).data,
+                    f"ivf_joins gate 4 {q} {mode} list")
+            bitwise(st.execute(bl[0]).data,
+                    fp32.execute(bl[:1], hints=exact).query(0).data,
+                    f"ivf_joins gate 4 {q} {mode} single")
+
+    # gate 5: the straggler valve caps every left row's probes
+    per_set = (1, 2, 3, 4)
+    for q in ("q3", "q4", "q5", "q6"):
+        text = Q4Y if q == "q4" else sql[q]
+        st = dbs["chase"].prepare(text)
+        calls = ((4, q5_binds if q == "q5" else list4[q][:1]),
+                 (tuple(1 + i % 6 for i in range(N_QUERIES)) if q == "q5"
+                  else per_set, q5_binds if q == "q5" else list4[q]))
+        for budget, bl in calls:
+            out = st.execute(bl, hints=ExecutionHints(probe_budget=budget))
+            probes = out["stats"]["probes"]
+            cap_ = torch.as_tensor(budget, device=dev).reshape(
+                (-1,) + (1,) * (probes.ndim - 1))
+            if not bool(((probes <= cap_) & (probes >= 1)).all()):
+                raise AssertionError(f"ivf_joins gate 5 {q} budget {budget}:"
+                                     f" probes {probes.tolist()}")
+    peak = {q: peak_mb(lambda: stmts[q, "chase", "list4"].execute(list4[q]))
+            for q in ("q3", "q4", "q6")}
+    emit({"phase": "ivf_joins", "radius": float(r), "cap": index.cap,
+          "gate1_max_sim_diff": gate1, "bound": gate2, "counter": gate3,
+          "list4_peak_mb": peak,
+          "gates": ["batch = perleft", "bound = flat", "counter answers real",
+                    "quantized = fp32", "probe budget", "launches"]})
+
+    # -- e2e_ivf_joins: each engine and lowering beside the flat path -------
+    flat_st = {(q, low): flat_db.prepare(sql[q], hints=hints)
+               for q in ("q3", "q4", "q6")
+               for low, hints in (("batch", None), ("perleft", perleft))}
+    flat_st["q4y"] = flat_db.prepare(Q4Y)
+    flat_st["q5"] = flat_db.prepare(Q5)
+    calls = []
+    for q in ("q3", "q4", "q6"):
+        for e in engines[q] + ("brute",):
+            for low in ("batch", "perleft"):
+                st = flat_st[q, low] if e == "brute" else stmts[q, e, low]
+                calls.append((f"{q}_{e}_{low}", st, join_binds[q],
+                              N_QUERIES))
+        for e in ("chase", "brute"):
+            st = (stmts[q, "chase", "list4"] if e == "chase" else
+                  flat_st["q4y"] if q == "q4" else flat_st[q, "batch"])
+            calls.append((f"{q}_{e}_list4", st, list4[q], 4 * N_QUERIES))
+    for e in engines["q5"] + ("brute",):
+        st = flat_st["q5"] if e == "brute" else stmts["q5", e]
+        calls.append((f"q5_{e}_single", st, q5_binds[0], 1))
+        calls += [(f"q5_{e}_list{qn}", st, q5_binds[:qn], qn)
+                  for qn in BATCHES]
+    e2e = {}
+    for label, st, b, rows in calls:
+        # the probed perleft loops and the 400-row lists take 0.5-3 s a call
+        slow = label.endswith("list4") or (
+            "perleft" in label and "pase" not in label
+            and "brute" not in label)
+        ms = latency_ms(lambda: st.execute(b), iters=2 if slow else 3,
+                        warmup=1 if slow else 2)
+        ivf_mod.loop_stats.update(rounds=0, syncs=0)
+        mb = peak_mb(lambda: st.execute(b))
+        e2e[label] = {"latency_ms": ms, "left_rows_per_s": rows * 1e3 / ms,
+                      "peak_mb": mb, **ivf_mod.loop_stats}
+    emit({"phase": "e2e_ivf_joins", "device": name, "nvidia_smi": smi,
+          "runs": e2e})
+
+    # -- ivf_category_profile: where chase Q6's time goes at 100 left rows ---
+    st = stmts["q6", "chase", "batch"]
+    order = ivf_mod._cluster_order(index, left)[0]
+    ids = index.lists[order[:, 0].long()]                     # (100, cap)
+    safe = ids.clamp_min(0).long()
+    vecs = laion["embedding"][safe]
+    keys = -distance_values(Metric.INNER_PRODUCT, vecs, left[:, None, :])
+    hit = (ids >= 0) & (keys <= -float(r)) & torch.take_along_dim(
+        q6_mask, safe, dim=1)
+    C, Kc = laion.schema["calorie_level"].num_categories, K_CATEGORY
+    state = {"seen": torch.zeros((N_QUERIES, C), dtype=torch.bool,
+                                 device=dev),
+             "counts": torch.zeros((N_QUERIES, C), dtype=torch.int32,
+                                   device=dev),
+             "kth": torch.full((N_QUERIES, C, Kc), float("inf"), device=dev),
+             "no_new": torch.zeros(N_QUERIES, dtype=torch.int32, device=dev)}
+    cat_ids = torch.arange(C, dtype=level.dtype, device=dev)
+    buf_i = torch.full((N_QUERIES, CAPACITY + 1), -1, dtype=torch.int32,
+                       device=dev)
+    buf_k = torch.full((N_QUERIES, CAPACITY + 1), float("inf"), device=dev)
+    count0 = torch.zeros(N_QUERIES, dtype=torch.int32, device=dev)
+
+    def onehot():
+        cats = torch.where(hit, level[safe], -1)
+        oh = cats[..., None] == cat_ids
+        return oh, oh.sum(1, dtype=torch.int32)
+
+    oh, _ = onehot()
+
+    def merge():
+        cand = torch.where(oh, keys[..., None], float("inf")).transpose(1, 2)
+        return torch.topk(torch.cat([state["kth"], cand], dim=2), Kc, dim=2,
+                          largest=False).values
+
+    def append():
+        pos = count0[:, None] + torch.cumsum(hit, 1) - 1
+        ok = hit & (pos < CAPACITY)
+        slot = torch.where(ok, pos, CAPACITY)
+        buf_i.scatter_(1, slot, torch.where(ok, ids, -1))
+        buf_k.scatter_(1, slot, torch.where(ok, keys, float("inf")))
+
+    part = {"order": time_ms(lambda: ivf_mod._cluster_order(index, left)),
+            "gather": time_ms(lambda: (laion["embedding"][safe],
+                                       torch.take_along_dim(q6_mask, safe,
+                                                            dim=1))),
+            "product": time_ms(lambda: distance_values(
+                Metric.INNER_PRODUCT, vecs, left[:, None, :])),
+            "one_hot": time_ms(onehot), "category_merge": time_ms(merge),
+            "append": time_ms(append)}
+    del vecs, keys, oh
+    lat = latency_ms(lambda: st.execute(join_binds["q6"]), iters=3)
+    ivf_mod.loop_stats.update(rounds=0, syncs=0)
+    st.execute(join_binds["q6"])
+    torch.cuda.synchronize()
+    rounds = ivf_mod.loop_stats["rounds"]
+    ms = {"order": part["order"],
+          **{key: rounds * v for key, v in part.items() if key != "order"}}
+    ms["host_and_other"] = lat - sum(ms.values())
+    emit({"phase": "ivf_category_profile", "device": name, "nvidia_smi": smi,
+          "left_rows": N_QUERIES, "cap": index.cap, "latency_ms": lat,
+          "rounds": rounds, "round_ms": {key: v for key, v in part.items()
+                                          if key != "order"},
+          "events_ms": ms, "events_share": {key: v / lat
+                                            for key, v in ms.items()}})
     torch.cuda.empty_cache()
 
 
@@ -1869,7 +2315,11 @@ def main() -> None:
           "runs": qchecked})
 
     # -- ivf: the IVF index and the chase, vbase and pase engines -------------
-    ivf_phase(cat, qv, p, r, sims, near_q, drive, launches, smi, name)
+    index = ivf_phase(cat, qv, p, r, sims, near_q, drive, launches, smi,
+                      name)
+
+    # -- ivf_joins: Q3–Q6 over the same index ---------------------------------
+    ivf_joins_phase(cat, qv, r, sims, index, drive, launches, smi, name)
 
     # -- times ----------------------------------------------------------------
     nb, _rows = st_mod.single_plan(N_ROWS)

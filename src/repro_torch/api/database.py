@@ -12,9 +12,9 @@ Statement``, ONE ``Statement.execute`` front door.
   reuses the compiled plan AND its bucket executors.
 
 Every query class (Q1–Q6) prepares under every engine, the default
-``EngineOptions()`` included: Q1 and Q2 probe a registered IVF index under
-``chase``, ``vbase`` and ``pase``, and everything else runs the flat path
-(Q3–Q6 over an index under those engines raise).  Serving, the adaptive
+``EngineOptions()`` included, and probes a registered IVF index where the
+reference's plan does (``core/physical.py``); everything else runs the
+flat path.  Serving, the adaptive
 optimizer, the on-disk plan cache and the live corpus belong to later
 slices of the port and raise ``NotImplementedError``.
 """

@@ -17,12 +17,13 @@ its meaning — a second batch in the same bucket builds nothing.
 
 The port compiles all six query classes (Q1 VKNN-SF, Q2 DR-SF, the Q3
 distance join, the Q4 KNN join, Q5 category partition, the Q6 category
-join) on the flat path, with or without ``EngineOptions.quant``, and Q1 and
-Q2 over a registered IVF index under ``chase``, ``vbase`` and ``pase``.
-Without an index every engine lowers as the reference lowers a missing
-index: the flat scan, ``brute_sort`` the Q4 full sort.  Q3–Q6 over an index
-under an index engine, and the dist option, raise ``NotImplementedError``
-naming their ROADMAP.md item (live corpora cannot be registered yet).
+join) on the flat path, with or without ``EngineOptions.quant``, and over a
+registered IVF index under every engine, in both join lowerings, as the
+reference lowers them (``core/physical.py``).  Without an index every
+engine lowers as the reference lowers a missing index: the flat scan,
+``brute_sort`` the Q4 full sort.  The dist option raises
+``NotImplementedError`` naming its ROADMAP.md item (live corpora cannot be
+registered yet).
 """
 from __future__ import annotations
 
@@ -562,26 +563,14 @@ def _single_via_batch(bfn: Callable) -> Callable:
     return fn
 
 
-# the engines whose plans probe an IVF index when one is registered
-_INDEX_ENGINES = ("chase", "vbase", "pase", "chase_no_updatestate")
-
-
-def _validate_slice(a: Analysis, catalog: Catalog,
-                    options: EngineOptions) -> None:
-    """Reject what the port does not lower yet.  Q1 and Q2 lower over an
-    IVF index under every engine; Q3–Q6 over an index under an index
-    engine are a later slice.  Without an index on the scanned column every
-    engine takes the reference's missing-index branch, the flat scan
+def _validate_slice(a: Analysis, options: EngineOptions) -> None:
+    """Reject what the port does not lower yet: the sharded scans.  Every
+    class lowers over an IVF index under every engine, and without one
+    every engine takes the reference's missing-index branch, the flat scan
     (``brute_sort`` its full sort)."""
     if a.query_class == QueryClass.NON_HYBRID:
         raise NotImplementedError(
             "plan did not match a hybrid pattern; use the interpreter engine")
-    if (options.engine in _INDEX_ENGINES
-            and a.query_class not in (QueryClass.VKNN_SF, QueryClass.DR_SF)
-            and catalog.index_for(*_scan_of(a)) is not None):
-        raise not_ported(
-            f"{a.query_class.value} under engine {options.engine!r} over an "
-            f"IVF index", "5 (IVF joins and category paths)")
     if options.dist is not None:
         raise not_ported("EngineOptions.dist (sharded scans)", "13")
 
@@ -605,7 +594,7 @@ def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
     """Compile an already-parsed logical plan (the plan-cache entry point)."""
     a = analyze(plan, catalog)
     _validate_quant(options)
-    _validate_slice(a, catalog, options)
+    _validate_slice(a, options)
     rewritten = rewrite(a)
     arrays = _gather_arrays(a, catalog, options)
     batch_builder, batch_native, batch_reason = _batch_lowering(a, options)

@@ -14,21 +14,25 @@ Engine modes reproduce the paper's comparison systems as query plans:
                runs as a separate operator after an unfiltered scan;
 * ``pase``   — an unfiltered fetch of K' = oversample·K, post-filtered
                (Fig. 1b); its range queries cannot use the index (§2.3);
-* ``brute``  — the compiled, fused, index-less full scan.
+* ``brute``  — the compiled, fused, index-less full scan;
+* ``chase_no_updatestate`` — ``chase`` without Algorithm 2's record-table
+               early stop on the category classes (Q5, Q6).
 
-Q1 (VKNN-SF) and Q2 (DR-SF) take those branches when an IVF index is
-registered on the scanned column (``index/ivf.py``; the probes are plain
-torch).  Without one, under ``brute``, and on every other class — Q3
-(distance join), Q4 (KNN join), Q5 (category partition), Q6 (category
-join), whose IVF lowerings are a later slice (ROADMAP.md queue 1 item 5)
-and which the compiler refuses over an index under an index engine — every
-engine takes the reference's missing-index branch: the flat scan, or under
-``brute_sort`` Q4's full sort.  With ``use_pallas`` the flat scans run on
-the fused CUDA kernels (the option keeps the reference's name); without
-it, on the plain torch :class:`~repro_torch.index.flat.FlatIndex`.  With
-``quant`` the batched flat scans stream the corpus's int8 or bf16 twin and
-re-rank in exact fp32 (``kernels/quant.py``): the answers stay the fp32
-kernels' bit for bit.  The IVF probes stay fp32 under ``quant``.
+Every class takes those branches when an IVF index is registered on the
+scanned column (``index/ivf.py``; the probes are plain torch), as the
+reference takes them: Q1 and Q2 under ``chase``, ``vbase`` and ``pase``;
+Q3 (distance join) under ``chase`` and ``vbase``; Q4 (KNN join) under
+``chase`` only; Q5 (category partition) and Q6 (category join) under
+``chase`` (the category probe), ``vbase`` and ``chase_no_updatestate``.
+Without an index, under ``brute``, and on the other engine and class
+pairs, every engine takes the reference's missing-index branch: the flat
+scan, or under ``brute_sort`` Q4's full sort.  With ``use_pallas`` the flat
+scans run on the fused CUDA kernels (the option keeps the reference's
+name); without it, on the plain torch
+:class:`~repro_torch.index.flat.FlatIndex`.  With ``quant`` the batched
+flat scans stream the corpus's int8 or bf16 twin and re-rank in exact fp32
+(``kernels/quant.py``): the answers stay the fp32 kernels' bit for bit.
+The IVF probes stay fp32 under ``quant``.
 """
 from __future__ import annotations
 
@@ -39,8 +43,9 @@ import torch
 
 from ..index.flat import (FlatIndex, compact_range, masked_topk,
                           stable_smallest_k)
-from ..index.ivf import (ProbeConfig, ivf_range, ivf_range_batch, ivf_topk,
-                         ivf_topk_batch)
+from ..index.ivf import (ProbeConfig, ivf_range, ivf_range_batch,
+                         ivf_range_category, ivf_range_category_batch,
+                         ivf_topk, ivf_topk_batch)
 from .expr import (Bindings, Column, Expr, Param, as_tensor,
                    distance_values, evaluate, evaluate_batch, evaluate_expr,
                    full_fp32, in_range, order_key, pairwise_order_keys,
@@ -55,7 +60,8 @@ class EngineOptions:
     (see :meth:`fingerprint`).  The fields are the reference's, less
     ``interpret_pallas``: here the tensors' device decides where a kernel
     runs."""
-    engine: str = "chase"          # chase | vbase | pase | brute | brute_sort
+    # chase | vbase | pase | chase_no_updatestate | brute | brute_sort
+    engine: str = "chase"
     probe: ProbeConfig = dataclasses.field(default_factory=ProbeConfig)
     pase_oversample: int = 10      # K' = oversample * K
     use_pallas: bool = False       # fused scan kernels for flat scans
@@ -214,6 +220,25 @@ def _flat_evals(qvalid, m: int, n: int, device) -> torch.Tensor:
     return evals if qvalid is None else torch.where(qvalid, evals, 0)
 
 
+def _flat_stats(n: int, device, m: int | None = None) -> dict:
+    """Flat-scan counters, no probe and every one of the ``n`` rows: scalars
+    for one query, (m,) vectors for ``m`` (filled on the device, so a
+    per-left-row loop adds no host-to-device copy)."""
+    shape = () if m is None else (m,)
+    return {"probes": torch.zeros(shape, dtype=torch.int32, device=device),
+            "distance_evals": torch.full(shape, n, dtype=torch.int32,
+                                         device=device)}
+
+
+def _stack_rows(rows: list) -> tuple:
+    """Per-left-row result tuples (tensors and stats dicts) -> one tuple
+    of stacked leaves."""
+    return tuple({key: torch.stack([r[j][key] for r in rows])
+                  for key in rows[0][j]} if isinstance(rows[0][j], dict)
+                 else torch.stack([r[j] for r in rows])
+                 for j in range(len(rows[0])))
+
+
 def _compact(hit: torch.Tensor, raw: torch.Tensor, metric: Metric,
              capacity: int):
     """(..., N) hits and raw values -> (ids, sims, valid) of the best
@@ -322,12 +347,18 @@ def _radius_batch(radius_expr: Expr, table: Table, binds: dict,
 # the IVF engines' post-processing (Q1, Q2)
 # ---------------------------------------------------------------------------
 
+def _recompute(metric: Metric, corpus, qs, ids) -> torch.Tensor:
+    """VBASE's redundant work: the raw metric of each (Q, P) buffered row
+    against its query, computed again from the corpus in full fp32."""
+    with full_fp32():
+        return distance_values(metric, corpus[ids.clamp_min(0).long()],
+                               qs[:, None, :])
+
+
 def _resort_redundant(metric: Metric, corpus, qs, ids, valid, k: int):
     """VBASE's Fig. 1c inefficiency: the sort operator recomputes
     vec <*> query for the (Q, k) tuples the scan already scored."""
-    safe = ids.clamp_min(0).long()
-    with full_fp32():
-        raw = distance_values(metric, corpus[safe], qs[:, None, :])
+    raw = _recompute(metric, corpus, qs, ids)
     keys = torch.where(valid, order_key(metric, raw), float("inf"))
     keys2, idx = stable_smallest_k(keys, k)
     ids2 = torch.take_along_dim(ids, idx.long(), dim=-1)
@@ -357,13 +388,13 @@ def _pase_post(metric: Metric, ids, sims, valid, rm, k: int):
 def _vbase_range_post(metric: Metric, corpus, qs, ids, valid, radius, rm):
     """VBASE's range filter as a separate operator above an unfiltered
     scan: it recomputes each buffered row's similarity for the range check,
-    then applies the predicate.  Returns (sims, valid, count)."""
-    safe = ids.clamp_min(0).long()
-    with full_fp32():
-        raw = distance_values(metric, corpus[safe], qs[:, None, :])
+    then applies the predicate.  Returns (sims, valid, count): the count is
+    the rows that pass, and the recomputation adds no evals to the
+    counters (the reference's Q3 joins count none; Q2 adds them itself)."""
+    raw = _recompute(metric, corpus, qs, ids)
     v = valid & in_range(metric, raw, radius[:, None])
     if rm is not None:
-        v = v & torch.take_along_dim(rm, safe, dim=-1)
+        v = v & torch.take_along_dim(rm, ids.clamp_min(0).long(), dim=-1)
     return torch.where(v, raw, 0.0), v, v.sum(-1, dtype=torch.int32)
 
 
@@ -418,11 +449,7 @@ def build_vknn_sf(a: Analysis, catalog: Catalog, opts: EngineOptions,
         else:  # brute (the LingoDB-V analogue) or no index
             ids, sims, valid = _flat_topk(opts, FlatIndex(metric, corpus), q,
                                           k, row_mask)
-            stats = {"probes": torch.tensor(0, dtype=torch.int32,
-                                            device=dev),
-                     "distance_evals": torch.tensor(corpus.shape[0],
-                                                    dtype=torch.int32,
-                                                    device=dev)}
+            stats = _flat_stats(corpus.shape[0], dev)
         return {"ids": ids, "sim": sims, "valid": valid, "stats": stats}
 
     return fn
@@ -542,10 +569,7 @@ def build_dr_sf(a: Analysis, catalog: Catalog, opts: EngineOptions,
                                                             row_mask)
             ids, sims, valid = _compact(hit, raw, metric, min(capacity, n))
             count = hit.sum(dtype=torch.int32)
-            stats = {"probes": torch.tensor(0, dtype=torch.int32,
-                                            device=dev),
-                     "distance_evals": torch.tensor(n, dtype=torch.int32,
-                                                    device=dev)}
+            stats = _flat_stats(n, dev)
         return {"ids": ids, "sim": sims, "valid": valid, "count": count,
                 "stats": stats}
 
@@ -600,22 +624,40 @@ def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
 #
 # Batch-native lowering (the default): the left side of a vector join IS a
 # query batch, so the left embeddings ride one (L, d) batch through the
-# query-tiled range kernel — per-left-row join predicates become the (L, N)
-# mask it consumes, and stats come back as per-left (L,) arrays.  The
-# per-left-row loop survives behind join_lowering='perleft' as the measured
-# baseline: one single-query range kernel launch per left row.  Flat plans
-# emit best-first per left row in both lowerings.
+# batched IVF probe or the query-tiled range kernel — per-left-row join
+# predicates become the (L, N) mask they consume, and stats come back as
+# per-left (L,) arrays.  The per-left-row loop survives behind
+# join_lowering='perleft' as the measured baseline: one single-query probe,
+# or one single-query range kernel launch, per left row.  Flat plans emit
+# best-first per left row; IVF plans emit probe discovery order (at
+# probe_batch 1 the batch lowering equals the perleft loop row for row).
 
 
 def _dist_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions):
-    """(arrays, qs (M, d), radius, rm (M, N) | None) -> Q3 result batch."""
+    """(arrays, qs (M, d), radius, rm (M, N) | None) -> Q3 result batch:
+    the batched range probe under ``chase`` and ``vbase`` over an index,
+    else the flat range scan."""
     metric = _metric_of(catalog, a.right_table, a.right_vector)
+    index = catalog.index_for(a.right_table, a.right_vector)
+    cfg = dataclasses.replace(opts.probe, capacity=opts.max_pairs)
 
     def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None):
-        # probe_budget: the flat scan has no probe lane (ignored)
-        return _flat_range_topk_batch(opts, metric, arrays["corpus"], qs,
-                                      radius, rm, opts.max_pairs,
-                                      qvalid=qvalid, arrays=arrays)
+        corpus = arrays["corpus"]
+        if opts.engine not in ("chase", "vbase") or index is None:
+            # the flat scan has no probe lane: probe_budget does nothing
+            return _flat_range_topk_batch(opts, metric, corpus, qs, radius,
+                                          rm, opts.max_pairs, qvalid=qvalid,
+                                          arrays=arrays)
+        radius = torch.as_tensor(radius, dtype=torch.float32,
+                                 device=corpus.device).expand(qs.shape[0])
+        probe = dict(cfg=cfg, probe_budget=probe_budget, qvalid=qvalid)
+        if opts.engine == "chase":
+            return ivf_range_batch(arrays["index"], corpus, qs, radius, rm,
+                                   **probe)
+        ids, _sims, valid, _count, stats = ivf_range_batch(
+            arrays["index"], corpus, qs, radius, None, **probe)
+        return (ids, *_vbase_range_post(metric, corpus, qs, ids, valid,
+                                        radius, rm), stats)
 
     return core
 
@@ -679,14 +721,18 @@ def build_dist_join_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
 def _build_dist_join_perleft(a: Analysis, catalog: Catalog,
                              opts: EngineOptions,
                              binds_static: Bindings) -> Callable:
-    """The per-left-row baseline: one scan per left row — with
-    ``use_pallas``, one launch of the single-query range kernel each (the
-    matvec-shaped loop the query-tiled lowering replaces; it is not
-    batched on purpose)."""
+    """The per-left-row baseline: one probe or scan per left row — under
+    ``chase`` and ``vbase`` over an index the single-query range probe,
+    else with ``use_pallas`` one launch of the single-query range kernel
+    each (the matvec-shaped loop the query-tiled lowering replaces; it is
+    not batched on purpose)."""
     ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
     metric = _metric_of(catalog, a.right_table, a.right_vector)
     pair_mask = _join_mask_fn(a.join_predicate, ltab, rtab, a.left_alias,
                               a.right_alias)
+    index = catalog.index_for(a.right_table, a.right_vector)
+    probed = opts.engine in ("chase", "vbase") and index is not None
+    cfg = dataclasses.replace(opts.probe, capacity=opts.max_pairs)
     radius_expr = a.radius
 
     def fn(arrays, binds):
@@ -699,6 +745,20 @@ def _build_dist_join_perleft(a: Analysis, catalog: Catalog,
         rows = []
         for i in range(lvec.shape[0]):
             rm = pair_mask(i, binds) if pair_mask else None
+            if probed and opts.engine == "chase":
+                rows.append(ivf_range(arrays["index"], corpus, lvec[i],
+                                      radius, rm, cfg))
+                continue
+            if probed:   # vbase: an unfiltered probe, then the filter
+                ids, _sims, valid, _count, stats = ivf_range(
+                    arrays["index"], corpus, lvec[i], radius, None, cfg)
+                post = _vbase_range_post(
+                    metric, corpus, lvec[i:i + 1], ids[None], valid[None],
+                    torch.as_tensor(radius, dtype=torch.float32,
+                                    device=dev).reshape(1),
+                    None if rm is None else rm[None])
+                rows.append((ids, *(v[0] for v in post), stats))
+                continue
             if opts.use_pallas:
                 from ..kernels.ops import fused_range_scan
                 hit, raw, count = fused_range_scan(corpus, lvec[i], radius,
@@ -708,12 +768,10 @@ def _build_dist_join_perleft(a: Analysis, catalog: Catalog,
                     lvec[i], radius, rm)
                 count = hit.sum(dtype=torch.int32)
             rows.append(_compact(hit, raw, metric, cap) + (count,))
-        ids, sims, valid, counts = (torch.stack(c) for c in zip(*rows))
-        nleft = ids.shape[0]
-        stats = {"probes": torch.zeros(nleft, dtype=torch.int32, device=dev),
-                 "distance_evals": torch.full((nleft,), n, dtype=torch.int32,
-                                              device=dev)}
-        return _join_output(ids, sims, valid, counts, stats)
+        out = _stack_rows(rows)
+        if not probed:
+            out += (_flat_stats(n, dev, lvec.shape[0]),)
+        return _join_output(*out)
 
     return fn
 
@@ -759,13 +817,21 @@ def _full_sort_topk(opts: EngineOptions, metric: Metric, corpus, qs, k: int,
 
 def _knn_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions,
                    k: int):
-    """(arrays, qs (M, d), rm (M, N) | None) -> (ids, sims, valid, stats)."""
+    """(arrays, qs (M, d), rm (M, N) | None) -> (ids, sims, valid, stats):
+    the batched top-k probe under ``chase`` over an index (the paper's
+    headline path), else the flat scan; ``vbase`` and ``pase`` take the
+    flat scan over an index too, as in the reference."""
     metric = _metric_of(catalog, a.right_table, a.right_vector)
+    index = catalog.index_for(a.right_table, a.right_vector)
 
     def core(arrays, qs, rm, qvalid=None, probe_budget=None):
-        # probe_budget: the flat scans have no probe lane (ignored)
         corpus = arrays["corpus"]
         m, n = qs.shape[0], corpus.shape[0]
+        if opts.engine == "chase" and index is not None:
+            return ivf_topk_batch(arrays["index"], corpus, qs, k, rm,
+                                  opts.probe, probe_budget=probe_budget,
+                                  qvalid=qvalid)
+        # the flat scans have no probe lane: probe_budget does nothing
         if opts.engine == "brute_sort":
             ids, sims, valid = _full_sort_topk(opts, metric, corpus, qs, k,
                                                rm, qvalid)
@@ -848,14 +914,18 @@ def build_knn_join_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
 def _build_knn_join_perleft(a: Analysis, catalog: Catalog,
                             opts: EngineOptions,
                             binds_static: Bindings) -> Callable:
-    """The per-left-row baseline: one scan per left row — under ``brute``
-    with ``use_pallas``, one launch of the single-query top-k kernel each;
-    under ``brute_sort`` one full sort each."""
+    """The per-left-row baseline: one probe or scan per left row — under
+    ``chase`` over an index the single-query top-k probe; else under
+    ``brute_sort`` one full sort each, and otherwise with ``use_pallas``
+    one launch of the single-query top-k kernel each."""
     ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
     metric = _metric_of(catalog, a.right_table, a.right_vector)
     k = _static_int(a.k, binds_static, "K")
     pair_mask = _join_mask_fn(a.join_predicate, ltab, rtab, a.left_alias,
                               a.right_alias)
+    probed = (opts.engine == "chase"
+              and catalog.index_for(a.right_table, a.right_vector)
+              is not None)
 
     def fn(arrays, binds):
         lvec = arrays["left"]
@@ -866,18 +936,19 @@ def _build_knn_join_perleft(a: Analysis, catalog: Catalog,
         rows = []
         for i in range(lvec.shape[0]):
             rm = pair_mask(i, binds) if pair_mask else None
-            if opts.engine == "brute_sort":
+            if probed:
+                rows.append(ivf_topk(arrays["index"], corpus, lvec[i], k, rm,
+                                     opts.probe))
+            elif opts.engine == "brute_sort":
                 rows.append(tuple(v[0] for v in _full_sort_topk(
                     opts, metric, corpus, lvec[i:i + 1], k,
                     None if rm is None else rm[None])))
             else:
                 rows.append(_flat_topk(opts, flat, lvec[i], k, rm))
-        ids, sims, valid = (torch.stack(c) for c in zip(*rows))
+        ids, sims, valid, *stats = _stack_rows(rows)
         nleft = ids.shape[0]
+        stats = stats[0] if probed else _flat_stats(n, dev, nleft)
         qid = torch.arange(nleft, dtype=torch.int32, device=dev)
-        stats = {"probes": torch.zeros(nleft, dtype=torch.int32, device=dev),
-                 "distance_evals": torch.full((nleft,), n, dtype=torch.int32,
-                                              device=dev)}
         return {"qid": qid[:, None].expand(ids.shape), "tid": ids,
                 "sim": sims, "valid": valid,
                 "rank": _ranks(k, ids.shape, dev), "stats": stats}
@@ -914,20 +985,72 @@ def _ranked_buffer(metric: Metric, cats, ids, sims, valid, C: int, k: int):
     return _rank_per_category(metric, ids, keys, valid, bcats, C, k)
 
 
-def _category_core(opts: EngineOptions, metric: Metric, C: int, k: int):
+# the engines whose Q5 / Q6 plans probe an IVF index when one is registered
+# (pase cannot route a range query to the index, paper §2.3)
+_CATEGORY_PROBE_ENGINES = ("chase", "vbase", "chase_no_updatestate")
+
+
+def _category_probe(opts: EngineOptions, metric: Metric, cfg: ProbeConfig,
+                    index, corpus, cats, qs, radius, rm, probe_budget=None,
+                    qvalid=None):
+    """The IVF range probe of Q5 / Q6 over an (M, d) batch or one (d,)
+    query (the single-query probe): ``chase`` keeps Algorithm 2's record
+    table and its early stop (updateState), ``vbase`` and
+    ``chase_no_updatestate`` run the plain range probe, and ``vbase`` then
+    recomputes every buffered row's similarity (Fig. 1c).  Returns (ids,
+    sims, valid, stats)."""
+    if qs.ndim == 1:
+        if opts.engine == "chase":
+            ids, sims, valid, _c, stats = ivf_range_category(
+                index, corpus, cats, qs, radius, rm, cfg)
+        else:
+            ids, sims, valid, _c, stats = ivf_range(index, corpus, qs,
+                                                    radius, rm, cfg)
+        if opts.engine == "vbase":
+            sims = torch.where(valid, _recompute(metric, corpus, qs[None],
+                                                 ids[None])[0], 0.0)
+        return ids, sims, valid, stats
+    probe = dict(cfg=cfg, probe_budget=probe_budget, qvalid=qvalid)
+    if opts.engine == "chase":
+        ids, sims, valid, _c, stats = ivf_range_category_batch(
+            index, corpus, cats, qs, radius, rm, **probe)
+    else:
+        ids, sims, valid, _c, stats = ivf_range_batch(index, corpus, qs,
+                                                      radius, rm, **probe)
+    if opts.engine == "vbase":
+        sims = torch.where(valid, _recompute(metric, corpus, qs, ids), 0.0)
+    return ids, sims, valid, stats
+
+
+def _category_core(opts: EngineOptions, metric: Metric, index, C: int,
+                   k: int, vbase_extra_evals: bool):
     """(arrays, qs (M, d), radius, rm (M, N) | None) -> (M, C, K) ranked
     batch.  Shared by the Q5 bind-batch lowering and the Q6 left-row batch:
-    one flat range scan of the (M, d) query batch, then the window rank for
-    all M queries at once."""
-    capacity = opts.probe.capacity
+    one batched IVF probe (under the probe engines over an index) or one
+    flat range scan of the (M, d) query batch, then the window rank for all
+    M queries at once.  ``vbase_extra_evals`` counts vbase's recomputation
+    as ``capacity`` evals per live query (Q5; the reference's Q6 counts
+    none)."""
+    cfg = dataclasses.replace(opts.probe, num_categories=C, k_per_category=k)
+    probed = index is not None and opts.engine in _CATEGORY_PROBE_ENGINES
 
     def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None):
-        # probe_budget: the flat scan has no probe lane (ignored)
-        ids, sims, valid, _count, stats = _flat_range_topk_batch(
-            opts, metric, arrays["corpus"], qs, radius, rm, capacity,
-            qvalid=qvalid, arrays=arrays)
-        cids, csims, cvalid = _ranked_buffer(metric, arrays["categories"],
-                                             ids, sims, valid, C, k)
+        corpus, cats = arrays["corpus"], arrays["categories"]
+        if probed:
+            radius = torch.as_tensor(radius, dtype=torch.float32,
+                                     device=corpus.device).expand(qs.shape[0])
+            ids, sims, valid, stats = _category_probe(
+                opts, metric, cfg, arrays["index"], corpus, cats, qs, radius,
+                rm, probe_budget, qvalid)
+            if opts.engine == "vbase" and vbase_extra_evals:
+                stats = _extra_evals(stats, cfg.capacity, qvalid)
+        else:
+            # the flat scan has no probe lane: probe_budget does nothing
+            ids, sims, valid, _count, stats = _flat_range_topk_batch(
+                opts, metric, corpus, qs, radius, rm, cfg.capacity,
+                qvalid=qvalid, arrays=arrays)
+        cids, csims, cvalid = _ranked_buffer(metric, cats, ids, sims, valid,
+                                             C, k)
         return cids, csims, cvalid, stats
 
     return core
@@ -958,9 +1081,11 @@ def _single_range(metric: Metric, corpus, q, radius, row_mask,
 def build_category_partition(a: Analysis, catalog: Catalog,
                              opts: EngineOptions,
                              binds_static: Bindings) -> Callable:
-    """Q5 (category-driven, single table): the range scan, then the
-    per-category rank.  As in the reference, the single-query brute plan
-    runs the exact plain scan whatever ``use_pallas`` says."""
+    """Q5 (category-driven, single table): the range probe (with
+    updateState's early stop under ``chase``) or scan, then the
+    per-category rank.  As in the reference, the single-query flat plan
+    runs the exact plain scan whatever ``use_pallas`` says, and ``vbase``
+    counts its recomputation as ``capacity`` evals."""
     table = catalog.table(a.table)
     metric = _metric_of(catalog, a.table, a.vector_column)
     k = _static_int(a.k, binds_static, "K")
@@ -968,7 +1093,9 @@ def build_category_partition(a: Analysis, catalog: Catalog,
     mask_fn = _row_mask_fn(a.structured_predicate, table)
     qparam = a.query_expr
     radius_expr = a.radius
-    capacity = opts.probe.capacity
+    cfg = dataclasses.replace(opts.probe, num_categories=C, k_per_category=k)
+    probed = (catalog.index_for(a.table, a.vector_column) is not None
+              and opts.engine in _CATEGORY_PROBE_ENGINES)
 
     def fn(arrays, binds):
         corpus = arrays["corpus"]
@@ -976,14 +1103,18 @@ def build_category_partition(a: Analysis, catalog: Catalog,
         q = as_tensor(binds[qparam.name], dev)
         radius = evaluate(radius_expr, table, binds)
         row_mask = mask_fn(binds) if mask_fn else None
-        ids, sims, valid = _single_range(metric, corpus, q, radius, row_mask,
-                                         capacity)
+        if probed:
+            ids, sims, valid, stats = _category_probe(
+                opts, metric, cfg, arrays["index"], corpus,
+                arrays["categories"], q, radius, row_mask)
+            if opts.engine == "vbase":
+                stats = _extra_evals(stats, cfg.capacity, None)
+        else:
+            ids, sims, valid = _single_range(metric, corpus, q, radius,
+                                             row_mask, cfg.capacity)
+            stats = _flat_stats(corpus.shape[0], dev)
         cids, csims, cvalid = _ranked_buffer(metric, arrays["categories"],
                                              ids, sims, valid, C, k)
-        stats = {"probes": torch.tensor(0, dtype=torch.int32, device=dev),
-                 "distance_evals": torch.tensor(corpus.shape[0],
-                                                dtype=torch.int32,
-                                                device=dev)}
         return {"ids": cids, "sim": csims, "valid": cvalid,
                 "category": _categories(C, cids.shape, dev), "stats": stats}
 
@@ -1000,7 +1131,9 @@ def build_category_partition_batch(a: Analysis, catalog: Catalog,
     C = _category_of(table, a)
     mask_fn = _row_mask_batch_fn(a.structured_predicate, table)
     qparam = a.query_expr
-    core = _category_core(opts, metric, C, k)
+    core = _category_core(opts, metric,
+                          catalog.index_for(a.table, a.vector_column), C, k,
+                          vbase_extra_evals=True)
     radius_expr = a.radius
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
@@ -1041,7 +1174,11 @@ def build_category_join(a: Analysis, catalog: Catalog, opts: EngineOptions,
     C = _category_of(rtab, a)
     mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
                                  a.right_alias)
-    core = _category_core(opts, metric, C, k)
+    # the reference's Q6 counts no evals for vbase's recomputation, in
+    # either lowering
+    core = _category_core(opts, metric,
+                          catalog.index_for(a.right_table, a.right_vector),
+                          C, k, vbase_extra_evals=False)
     radius_expr = a.radius
 
     def fn(arrays, binds):
@@ -1063,7 +1200,11 @@ def build_category_join_batch(a: Analysis, catalog: Catalog,
     C = _category_of(rtab, a)
     mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
                                  a.right_alias)
-    core = _category_core(opts, metric, C, k)
+    # the reference's Q6 counts no evals for vbase's recomputation, in
+    # either lowering
+    core = _category_core(opts, metric,
+                          catalog.index_for(a.right_table, a.right_vector),
+                          C, k, vbase_extra_evals=False)
     radius_expr = a.radius
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
@@ -1091,7 +1232,9 @@ def _build_category_join_perleft(a: Analysis, catalog: Catalog,
                                  opts: EngineOptions,
                                  binds_static: Bindings) -> Callable:
     """The per-left-row baseline: Q5's single-query plan once per left row
-    (the plain flat scan: the reference lowers it without a kernel)."""
+    — the single-query probe over an index under the probe engines (no
+    extra evals for vbase), else the plain flat scan (the reference lowers
+    it without a kernel)."""
     ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
     metric = _metric_of(catalog, a.right_table, a.right_vector)
     k = _static_int(a.k, binds_static, "K")
@@ -1099,27 +1242,33 @@ def _build_category_join_perleft(a: Analysis, catalog: Catalog,
     pair_mask = _join_mask_fn(a.join_predicate, ltab, rtab, a.left_alias,
                               a.right_alias)
     radius_expr = a.radius
-    capacity = opts.probe.capacity
+    cfg = dataclasses.replace(opts.probe, num_categories=C, k_per_category=k)
+    probed = (catalog.index_for(a.right_table, a.right_vector) is not None
+              and opts.engine in _CATEGORY_PROBE_ENGINES)
 
     def fn(arrays, binds):
         lvec = arrays["left"]
-        corpus = arrays["corpus"]
+        corpus, cats = arrays["corpus"], arrays["categories"]
         dev = corpus.device
         n = corpus.shape[0]
         radius = evaluate(radius_expr, rtab, binds)
         rows = []
         for i in range(lvec.shape[0]):
             rm = pair_mask(i, binds) if pair_mask else None
-            ids, sims, valid = _single_range(metric, corpus, lvec[i], radius,
-                                             rm, capacity)
-            rows.append(_ranked_buffer(metric, arrays["categories"], ids,
-                                       sims, valid, C, k))
-        cids, csims, cvalid = (torch.stack(c) for c in zip(*rows))
-        nleft = cids.shape[0]
-        stats = {"probes": torch.zeros(nleft, dtype=torch.int32, device=dev),
-                 "distance_evals": torch.full((nleft,), n, dtype=torch.int32,
-                                              device=dev)}
-        return _category_join_output(cids, csims, cvalid, stats, C)
+            if probed:
+                ids, sims, valid, *stats = _category_probe(
+                    opts, metric, cfg, arrays["index"], corpus, cats,
+                    lvec[i], radius, rm)
+            else:
+                ids, sims, valid = _single_range(metric, corpus, lvec[i],
+                                                 radius, rm, cfg.capacity)
+                stats = []
+            rows.append(_ranked_buffer(metric, cats, ids, sims, valid, C, k)
+                        + tuple(stats))
+        out = _stack_rows(rows)
+        if not probed:
+            out += (_flat_stats(n, dev, lvec.shape[0]),)
+        return _category_join_output(*out, C)
 
     return fn
 

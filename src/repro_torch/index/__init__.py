@@ -5,10 +5,12 @@ with CHASE's probes."""
 from .. import core  # noqa: F401
 from .flat import FlatIndex, masked_topk, stable_smallest_k
 from .ivf import (IVFIndex, ProbeConfig, build_ivf, ivf_from_numpy,
-                  ivf_range, ivf_range_batch, ivf_topk, ivf_topk_batch)
+                  ivf_range, ivf_range_batch, ivf_range_category,
+                  ivf_range_category_batch, ivf_topk, ivf_topk_batch)
 from .kmeans import assign, kmeans
 
 __all__ = ["FlatIndex", "masked_topk", "stable_smallest_k", "IVFIndex",
            "ProbeConfig", "build_ivf", "ivf_from_numpy", "ivf_range",
-           "ivf_range_batch", "ivf_topk", "ivf_topk_batch", "assign",
+           "ivf_range_batch", "ivf_range_category",
+           "ivf_range_category_batch", "ivf_topk", "ivf_topk_batch", "assign",
            "kmeans"]

@@ -11,7 +11,10 @@ tensor work on the card:
 * Algorithm 1's per-tuple ``outRangeCounter`` becomes a per-*cluster*
   counter, and the top-k probe an adaptive queue that stops when the k-th
   key stops improving ('counter') or provably cannot ('bound': each cluster
-  stores its radius, a sound lower bound on an unprobed member's key).
+  stores its radius, a sound lower bound on an unprobed member's key),
+* Algorithm 2's record table (updateState) becomes dense per-query state
+  over the static category universe: seen mask, hit counts and each
+  category's best-K keys.
 
 The reference runs each probe loop as a ``lax.while_loop``; here it is a
 host loop over probe rounds whose body stays on the card.  ``Q`` queries
@@ -22,8 +25,10 @@ active changes nothing, so the host may read ``active.any()`` (one
 synchronisation) only every :data:`ACTIVE_CHECK_EVERY` rounds and
 otherwise stop at the round count; the answer is the same at any cadence.
 The single-query probes are the batched ones at ``Q = 1, probe_batch =
-1``: the sequential loop, one cluster per step, its condition checked
-before each step, with the same counters.
+1``: the sequential loop, one cluster per step, with the same counters.
+The reference's single loops test their condition before each step and
+its batched loops after each round; the two differ only before the first
+cluster, where the single range probes test it too.
 
 Every probe returns raw similarities beside the ids: the scan's values are
 never recomputed downstream (the map operator, paper §5.1).
@@ -377,6 +382,42 @@ def ivf_range_batch(index: IVFIndex, corpus: torch.Tensor, qs: torch.Tensor,
     (Q, capacity), sims, valid, count (Q,) int32, stats); hits are in probe
     discovery order, not key order, and ``count`` stops at the capacity.
     ``probe_budget`` and ``qvalid`` as in :func:`ivf_topk_batch`."""
+    return _range_probe(index, corpus, None, qs, radius, row_mask, cfg,
+                        probe_budget, qvalid)
+
+
+def ivf_range_category_batch(index: IVFIndex, corpus: torch.Tensor,
+                             categories: torch.Tensor, qs: torch.Tensor,
+                             radius, row_mask: torch.Tensor | None = None,
+                             cfg: ProbeConfig = ProbeConfig(num_categories=8),
+                             probe_budget=None, qvalid=None):
+    """Batched category probe (paper Algorithm 2, updateState, over a query
+    batch): :func:`ivf_range_batch` plus the record table.
+
+    The paper's hash table becomes dense per-query state over the static
+    category universe (``cfg.num_categories`` C): a seen mask (Q, C), hit
+    counts (Q, C) and each category's best-K keys (Q, C, K), K =
+    ``cfg.k_per_category``.  A category converges once it holds K hits
+    whose K-th key lies within the frontier (the next cluster's bound
+    under 'bound', the radius under 'counter'); a query stops early when
+    every category it has seen converged and ``no_new_category_stop``
+    clusters brought no new one, or when the range test ends it.  Returns
+    :func:`ivf_range_batch`'s tuple, with ``stats["categories_seen"]``
+    (Q,) beside the probe counters."""
+    if cfg.num_categories <= 0:
+        raise ValueError("the category probe needs cfg.num_categories > 0")
+    return _range_probe(index, corpus, categories, qs, radius, row_mask, cfg,
+                        probe_budget, qvalid)
+
+
+def _range_probe(index: IVFIndex, corpus: torch.Tensor, categories,
+                 qs: torch.Tensor, radius, row_mask, cfg: ProbeConfig,
+                 probe_budget, qvalid, check_first: bool = False):
+    """The round loop of the range probes; with ``categories`` (N,) it
+    keeps Algorithm 2's record table too.  ``check_first`` evaluates the
+    stop condition before the first cluster, as the reference's
+    single-query ``while_loop`` does (its batched loops run round 0
+    whatever the condition says)."""
     qn, dev = qs.shape[0], corpus.device
     qs = qs.to(device=dev, dtype=torch.float32)
     budget = _resolve_budget(probe_budget, cfg, qn, dev)
@@ -386,13 +427,22 @@ def ivf_range_batch(index: IVFIndex, corpus: torch.Tensor, qs: torch.Tensor,
         radius, dtype=torch.float32, device=dev).expand(qn))
     capacity = cfg.capacity
     zeros = torch.zeros((qn,), dtype=torch.int32, device=dev)
+    active = _active_init(qvalid, qn, dev)
+    if check_first and cfg.min_probes <= 0 and cfg.termination == "bound":
+        # at p = 0 nothing is seen, so only the range test can hold
+        active = active & ~(bounds[:, 0] > radius_key)
     # one scratch column past the capacity takes the writes that miss
     s = {"ids": torch.full((qn, capacity + 1), -1, dtype=torch.int32,
                            device=dev),
          "keys": torch.full((qn, capacity + 1), INF, device=dev),
          "count": zeros, "has_in": torch.zeros_like(zeros, dtype=torch.bool),
-         "out_cnt": zeros, "probes": zeros, "evals": zeros,
-         "active": _active_init(qvalid, qn, dev)}
+         "out_cnt": zeros, "probes": zeros, "evals": zeros, "active": active}
+    if categories is not None:
+        C, K = cfg.num_categories, cfg.k_per_category
+        cat_ids = torch.arange(C, dtype=categories.dtype, device=dev)
+        s.update(seen=torch.zeros((qn, C), dtype=torch.bool, device=dev),
+                 counts=torch.zeros((qn, C), dtype=torch.int32, device=dev),
+                 kth=torch.full((qn, C, K), INF, device=dev), no_new=zeros)
 
     def body(r: int) -> None:
         active = s["active"]
@@ -420,10 +470,16 @@ def ivf_range_batch(index: IVFIndex, corpus: torch.Tensor, qs: torch.Tensor,
         probes = s["probes"] + torch.where(active, n_probed, 0)
         evals = s["evals"] + torch.where(active, nev, 0)
         p_next = (r + 1) * B
+        next_bound = bounds[:, min(p_next, index.nlist - 1)]
         if cfg.termination == "bound":
-            done = bounds[:, min(p_next, index.nlist - 1)] > radius_key
+            done = next_bound > radius_key
         else:
             done = has_in & (out_cnt >= cfg.out_range_stop)
+        if categories is not None:
+            frontier = (next_bound if cfg.termination == "bound"
+                        else radius_key)
+            done = done | _record_table(s, categories, cat_ids, ids, keys,
+                                        hit, active, n_probed, frontier, cfg)
         done = done & (p_next >= cfg.min_probes)
         active = active & ~done & (p_next < max_probes)
         s.update(count=count.to(torch.int32), has_in=has_in,
@@ -434,8 +490,41 @@ def ivf_range_batch(index: IVFIndex, corpus: torch.Tensor, qs: torch.Tensor,
     _run_rounds(n_rounds, lambda: s["active"], body)
     ids, keys = s["ids"][:, :capacity], s["keys"][:, :capacity]
     valid = ids >= 0
-    return (ids, _sims(index.metric, keys, valid), valid, s["count"],
-            {"probes": s["probes"], "distance_evals": s["evals"]})
+    stats = {"probes": s["probes"], "distance_evals": s["evals"]}
+    if categories is not None:
+        stats["categories_seen"] = s["seen"].sum(1, dtype=torch.int32)
+    return ids, _sims(index.metric, keys, valid), valid, s["count"], stats
+
+
+def _record_table(s: dict, categories, cat_ids, ids, keys, hit, active,
+                  n_probed: int, frontier, cfg: ProbeConfig) -> torch.Tensor:
+    """One round of Algorithm 2's updateState over the (Q, B·cap) hits:
+    update ``s``'s seen mask, per-category counts and best-K keys and its
+    no-new-category counter, and return the queries whose categories have
+    all converged (T.restElements = 0) after enough rounds without a new
+    one.  Hits of frozen queries are already masked out, so their record
+    table stays as it was."""
+    K = cfg.k_per_category
+    cats = torch.where(hit, categories[ids.clamp_min(0).long()], -1)
+    onehot = cats[..., None] == cat_ids                       # (Q, B·cap, C)
+    cat_hits = onehot.sum(1, dtype=torch.int32)               # (Q, C)
+    seen = s["seen"] | (cat_hits > 0)
+    n_new = seen.sum(1) - s["seen"].sum(1)
+    counts = s["counts"] + cat_hits
+    # the per-category search queues: only keys ride along, so any smallest
+    # K of [queue, candidates] gives the same values
+    cand = torch.where(onehot, keys[..., None], INF).transpose(1, 2)
+    kth = torch.topk(torch.cat([s["kth"], cand], dim=2), K, dim=2,
+                     largest=False).values
+    no_new = torch.where(active, torch.where(n_new > 0, 0,
+                                             s["no_new"] + n_probed),
+                         s["no_new"])
+    converged = (counts >= K) & (kth[:, :, K - 1] <= frontier[:, None])
+    rest = (seen & ~converged).sum(1)
+    s.update(seen=seen, counts=counts, kth=kth,
+             no_new=no_new.to(torch.int32))
+    return ((rest == 0) & (no_new >= cfg.no_new_category_stop)
+            & seen.any(1))
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +562,25 @@ def ivf_range(index: IVFIndex, corpus: torch.Tensor, q: torch.Tensor, radius,
               cfg: ProbeConfig = ProbeConfig()):
     """DR-SF for one (d,) query (paper Algorithm 1, cluster-granular).
     Returns (ids (capacity,), sims, valid, count, stats), hits in probe
-    discovery order."""
-    return _first(ivf_range_batch(
-        index, corpus, q[None], torch.as_tensor(radius).reshape(()),
-        None if row_mask is None else row_mask, _single_cfg(cfg)))
+    discovery order.  Unlike the batched probe it may stop before the
+    first cluster (``min_probes`` 0 under 'bound')."""
+    return _first(_range_probe(
+        index, corpus, None, q[None], torch.as_tensor(radius).reshape(()),
+        row_mask, _single_cfg(cfg), None, None, check_first=True))
+
+
+def ivf_range_category(index: IVFIndex, corpus: torch.Tensor,
+                       categories: torch.Tensor, q: torch.Tensor, radius,
+                       row_mask: torch.Tensor | None = None,
+                       cfg: ProbeConfig = ProbeConfig(num_categories=8)):
+    """The category probe (paper Algorithm 2) for one (d,) query: the range
+    scan with the updateState record table and its early stop.  Returns
+    (ids (capacity,), sims, valid, count, stats with ``categories_seen``),
+    hits in probe discovery order; it may stop before the first cluster
+    as :func:`ivf_range` does."""
+    if cfg.num_categories <= 0:
+        raise ValueError("the category probe needs cfg.num_categories > 0")
+    return _first(_range_probe(
+        index, corpus, categories, q[None],
+        torch.as_tensor(radius).reshape(()), row_mask, _single_cfg(cfg),
+        None, None, check_first=True))

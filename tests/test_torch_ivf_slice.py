@@ -296,9 +296,42 @@ def test_plan_before_register_index_is_stale(env):
 @pytest.mark.parametrize("sql", [Q3, Q4, Q5, Q6], ids=["q3", "q4", "q5",
                                                         "q6"])
 @pytest.mark.parametrize("engine", ["chase", "vbase"])
-def test_joins_and_category_paths_over_an_index_raise(env, sql, engine):
-    db = connect(env["cat"], engine=engine)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        db.prepare(sql)
-    # brute keeps the flat path over the same index
-    connect(env["cat"], engine="brute").prepare(sql)
+def test_joins_and_category_paths_over_an_index_match_reference(env, sql,
+                                                                engine):
+    """Q3–Q6 compile over the index under chase and vbase, and give the
+    reference's answers and counters (the full grid is in
+    tests/test_torch_ivf_joins_slice.py)."""
+    probe = dict(PROBE, capacity=256)
+    port = connect(env["cat"], engine=engine,
+                   probe=ProbeConfig(**probe)).prepare(sql)
+    ref = ref_connect(env["ref_cat"], engine=engine,
+                      probe=RefProbe(**probe)).prepare(sql)
+    assert "index" in port.compiled._arrays
+    if sql is Q5:
+        b = dict(_binds(env, "q2", 1, seed=16)[0], ex=np.int32(1))
+        del b["p"]
+    elif sql is Q4:
+        b = {}
+    else:
+        left = env["left"].astype(np.float64)
+        b = {"r": np.float32(_gap_radius(left @ env["corpus"].T,
+                                         60 * left.shape[0]))}
+    got, want = port.execute(b).data, ref.execute(b).data
+
+    def same(g: dict, w: dict):
+        assert set(g) == set(w)
+        for key, v in w.items():
+            if isinstance(v, dict):
+                same(g[key], v)
+            elif np.asarray(v).dtype.kind == "f":
+                np.testing.assert_allclose(np.asarray(g[key]), np.asarray(v),
+                                           atol=TOL, rtol=0, err_msg=key)
+            else:
+                np.testing.assert_array_equal(np.asarray(g[key]),
+                                              np.asarray(v), err_msg=key)
+
+    same(got, want)
+    probes = np.asarray(got["stats"]["probes"])
+    # vbase's Q4 is the flat scan, as in the reference
+    assert (probes == 0).all() if (engine, sql) == ("vbase", Q4) \
+        else (probes > 0).all()

@@ -229,8 +229,7 @@ def test_stale_table_reprepares(env):
 def test_unported_surfaces_raise(env):
     _, cat = env
     # the default engine (chase) and the Q4-Q6 classes run on the flat path
-    # without an index; over one, chase probes it on Q1 and Q2 and the
-    # joins and category paths are still to come
+    # without an index; over one, chase probes it on every class
     assert connect(cat).prepare(Q1, K=K).compiled.options.engine == "chase"
     q4 = ("SELECT qid, tid FROM (SELECT users.id AS qid, "
           "movies.sample_id AS tid, RANK() OVER (PARTITION BY users.id "
@@ -251,8 +250,7 @@ def test_unported_surfaces_raise(env):
         assert local.index_for(name, "embedding") is index
     assert connect(local).prepare(Q1, K=K).compiled._arrays["index"] is index
     for sql in (q4, q5):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            connect(local).prepare(sql)
+        assert connect(local).prepare(sql).compiled._arrays["index"] is index
     with pytest.raises(NotImplementedError, match="item 13"):
         connect(cat, engine="brute", use_pallas=True,
                 dist=object()).prepare(Q1, K=K)

@@ -580,20 +580,19 @@ def test_default_options_run_q4_to_q6(env, query):
     _assert_exact(got.data, ref.data)
 
 
-def test_an_index_engine_over_a_registered_index_is_not_ported(
+def test_an_index_engine_over_a_registered_index_compiles_with_it(
         env, monkeypatch):
-    """Over a registered IVF index the engines that would probe it lower
-    Q1 and Q2 (tests/test_torch_ivf_slice.py) and raise on Q3–Q6 until
-    their IVF slice lands; brute and brute_sort still run."""
+    """Over a registered IVF index the engines that probe it lower every
+    class (tests/test_torch_ivf_slice.py, tests/test_torch_ivf_joins_slice.py):
+    each plan compiles with the index among its arrays; brute and
+    brute_sort still run."""
     cat = env["cat"]
-    monkeypatch.setattr(cat, "index_for", lambda table, column: object())
+    marker = object()
+    monkeypatch.setattr(cat, "index_for", lambda table, column: marker)
     for engine in ("chase", "vbase", "pase"):
-        for sql in (Q3, Q4, Q5, Q6):
-            with pytest.raises(NotImplementedError, match="item 5"):
-                compile_query(sql, cat, EngineOptions(engine=engine))
-        for sql in (Q1, Q2):
+        for sql in (Q1, Q2, Q3, Q4, Q5, Q6):
             compiled = compile_query(sql, cat, EngineOptions(engine=engine))
-            assert "index" in compiled._arrays
+            assert compiled._arrays["index"] is marker
     for engine in ("brute", "brute_sort"):
         compile_query(Q4, cat, dataclasses.replace(EngineOptions(),
                                                    engine=engine))
