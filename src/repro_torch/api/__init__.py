@@ -6,6 +6,7 @@
     stmt = db.prepare(sql, K=10)               # cached across textual variants
     res = stmt.execute({"qv": q, "p": 12.0})   # single -> Result
     batch = stmt.execute([b1, b2, b3])         # list -> bucketed ResultBatch
+    server = db.serve(stmt)                    # submit/poll scheduler
 
 Results hold torch tensors on the catalog's device.
 """

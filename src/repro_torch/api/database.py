@@ -11,12 +11,17 @@ Statement``, ONE ``Statement.execute`` front door.
   fingerprint plus the canonicalized static binds, LRU-bounded.  A hit
   reuses the compiled plan AND its bucket executors.
 
+* ``db.serve(statement)`` wraps :class:`~repro_torch.serving.scheduler.
+  BatchScheduler` for submit/poll serving on the same cached executors
+  (a :class:`~repro_torch.serving.scheduler.ResilientScheduler` when a
+  degradation ``policy`` or ``faults`` is given).
+
 Every query class (Q1–Q6) prepares under every engine, the default
 ``EngineOptions()`` included, and probes a registered IVF index where the
 reference's plan does (``core/physical.py``); everything else runs the
-flat path.  Serving, the adaptive
-optimizer, the on-disk plan cache and the live corpus belong to later
-slices of the port and raise ``NotImplementedError``.
+flat path.  The adaptive optimizer, the on-disk plan cache and the live
+corpus belong to later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -162,9 +167,37 @@ class Database:
         return CacheInfo(self._hits, self._misses, len(self._cache),
                          self._evictions, self.max_cached_plans)
 
-    def serve(self, statement, config=None, **kwargs):
-        """The async serving tier is a later slice of the port."""
-        raise not_ported("Database.serve (serving tier)", "9")
+    def serve(self, statement: "Statement | str", config=None, *,
+              max_batch: int = 64, max_wait_ms: float = 2.0,
+              pilot_budget: int = 0, policy=None, faults=None,
+              **static_binds):
+        """A submit/poll server over one prepared statement.
+
+        Wraps :class:`~repro_torch.serving.scheduler.BatchScheduler`:
+        requests coalesce under the deadline rule and drain through the
+        statement's size-bucketed executor cache (``pilot_budget`` > 0 adds
+        two-phase effort-bucketed IVF probing).  Passing a ``policy``
+        (:class:`~repro_torch.serving.resilience.DegradePolicy`) or
+        ``faults`` (:class:`~repro_torch.serving.faults.FaultInjector`)
+        upgrades to a :class:`~repro_torch.serving.scheduler.
+        ResilientScheduler` with graceful degradation under overload."""
+        from ..serving.scheduler import (BatchScheduler, ResilientScheduler,
+                                         SchedulerConfig)
+        if isinstance(statement, str):
+            statement = self.prepare(statement, **static_binds)
+        elif static_binds:
+            raise TypeError(
+                f"static binds {sorted(static_binds)} cannot be applied to "
+                f"an already-prepared Statement; pass them to prepare(), or "
+                f"pass the SQL string to serve()")
+        if config is None:
+            config = SchedulerConfig(max_batch=max_batch,
+                                     max_wait_ms=max_wait_ms,
+                                     pilot_budget=pilot_budget)
+        if policy is not None or faults is not None:
+            return ResilientScheduler(statement, config, policy=policy,
+                                      faults=faults)
+        return BatchScheduler(statement, config)
 
     def advise(self, sql: str, selectivity: float = 1.0, **static_binds):
         """The lowering advisor is a later slice of the port."""
@@ -274,6 +307,15 @@ class Statement:
         self._rename = fresh._rename
         self.cache_hit = fresh.cache_hit
 
+    def _stack_binds(self, binds_list, stacked) -> dict:
+        """Stack bind dicts (or a stacked dict) under the cached plan's
+        parameter names (the scheduler contract)."""
+        if binds_list is not None:
+            binds_list = [self._renamed(b) for b in binds_list]
+        if stacked:
+            stacked = self._renamed(stacked)
+        return self.compiled._stack_binds(binds_list, stacked)
+
     def execute(self, binds=None, hints: ExecutionHints | None = None):
         """THE execute front door.
 
@@ -315,9 +357,6 @@ class Statement:
         compiled = self.compiled
         hints.validate_for_plan(compiled.batch_native,
                                 compiled.plan.batch_reason)
-        if hints.pilot_budget > 0:
-            raise not_ported("ExecutionHints.pilot_budget (effort "
-                              "bucketing)", "9")
         binds = compiled._stack_binds(binds_list, stacked_binds or {})
         qn = _stacked_qn(binds)
         probe_budget = hints.probe_budget
@@ -327,16 +366,22 @@ class Statement:
                     f"per-query probe_budget has {len(probe_budget)} "
                     f"entries for a batch of {qn} queries")
             probe_budget = np.asarray(probe_budget, np.int32)
+        effort = None
         if hints.exact_shape:
             path = "batch"
             out = compiled.plan.batch_fn(compiled._arrays, binds)
+        elif hints.pilot_budget > 0:
+            from ..serving.scheduler import run_effort_bucketed
+            path = "effort"
+            out, effort = run_effort_bucketed(compiled, binds,
+                                              hints.pilot_budget)
         else:
             path = "bucketed"
             out = compiled.executor(binds, probe_budget=probe_budget)
-        bucket = compiled.executor.bucket_for(qn) if path == "bucketed" \
-            else None
+        bucket = (compiled.executor.bucket_for(qn)
+                  if path in ("bucketed", "effort") else None)
         report = self._report_fn(path=path, bucket=bucket, num_queries=qn,
-                                 hints=hints)
+                                 hints=hints, effort=effort)
         return ResultBatch(out, report, qn)
 
     def explain(self) -> ExplainReport:

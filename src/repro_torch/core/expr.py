@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Any, Iterator, Sequence
 
 import torch
@@ -195,6 +196,9 @@ def order_key(metric: Metric, values: torch.Tensor) -> torch.Tensor:
 
 # the per-backend matmul settings that full_fp32 pins and restores
 _MATMUL_BACKENDS = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+# those settings are process-wide: one scope at a time (re-entrant), so a
+# thread's restore never lands inside another thread's scope
+_PRECISION_LOCK = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -209,19 +213,25 @@ def full_fp32() -> Iterator[None]:
     ``torch.backends.mkldnn.matmul`` ``.fp32_precision``) are saved apart
     and restored in that order.  Torch refuses to read the legacy setting
     once a caller has set only the per-backend ones; the legacy one is then
-    at its default, "highest"."""
-    saved = [m.fp32_precision for m in _MATMUL_BACKENDS]
-    try:
-        legacy = torch.get_float32_matmul_precision()
-    except RuntimeError:
-        legacy = "highest"
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(legacy)
-        for m, p in zip(_MATMUL_BACKENDS, saved):
-            m.fp32_precision = p
+    at its default, "highest".
+
+    The settings are process-wide, so the scope holds a re-entrant lock:
+    threads that run plain paths at once (a server draining on worker
+    threads) take turns, and none restores the caller's settings while
+    another is inside."""
+    with _PRECISION_LOCK:
+        saved = [m.fp32_precision for m in _MATMUL_BACKENDS]
+        try:
+            legacy = torch.get_float32_matmul_precision()
+        except RuntimeError:
+            legacy = "highest"
+        torch.set_float32_matmul_precision("highest")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(legacy)
+            for m, p in zip(_MATMUL_BACKENDS, saved):
+                m.fp32_precision = p
 
 
 def pairwise_order_keys(metric: Metric, corpus: torch.Tensor,

@@ -1,0 +1,2 @@
+"""Launchers of the port: ``python -m repro_torch.launch.serve`` (the
+resilient asyncio front door)."""

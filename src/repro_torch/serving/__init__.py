@@ -1,0 +1,25 @@
+"""The serving tier of the port: the dynamic batch scheduler, effort
+bucketing, and the resilience layer (admission control, deadlines,
+graceful degradation, seeded fault injection).  The reference's LM decode
+and RAG retrieval (``serving/decode.py``, ``serving/rag.py``) belong to a
+later slice."""
+from .faults import (CRASH_SITES, FaultInjector, FaultSpec,
+                     InjectedCrashError, InjectedKernelError)
+from .resilience import (AdmissionConfig, AdmissionController,
+                         BackpressureError, DeadlineExceededError,
+                         DegradePolicy, DeltaFullError, DuplicateIdError,
+                         InvalidVectorError, LoadController, MutationError,
+                         PoisonedBindError, ServingError, UnknownIdError,
+                         validate_binds, validate_delete, validate_insert)
+from .scheduler import (BatchScheduler, ResilientScheduler, SchedulerConfig,
+                        SimRecord, latency_stats, run_effort_bucketed)
+
+__all__ = ["BatchScheduler", "ResilientScheduler", "SchedulerConfig",
+           "SimRecord", "latency_stats", "run_effort_bucketed",
+           "CRASH_SITES", "FaultInjector", "FaultSpec", "InjectedCrashError",
+           "InjectedKernelError", "AdmissionConfig", "AdmissionController",
+           "BackpressureError", "DeadlineExceededError", "DegradePolicy",
+           "LoadController", "PoisonedBindError", "ServingError",
+           "validate_binds", "MutationError", "UnknownIdError",
+           "DuplicateIdError", "InvalidVectorError", "DeltaFullError",
+           "validate_insert", "validate_delete"]

@@ -19,6 +19,7 @@ from repro.data import make_laion_catalog as ref_make_catalog
 from repro_torch.api import ExecutionHints, connect
 from repro_torch.data import make_laion_catalog
 from repro_torch.index import build_ivf
+from repro_torch.serving import BatchScheduler, run_effort_bucketed
 from repro_torch.testing import assert_topk_close
 
 TOL = 1e-5
@@ -260,9 +261,17 @@ def test_unported_surfaces_raise(env):
         connect(cat, aot_cache_path="unused")
     db = connect(cat, engine="brute")
     st = db.prepare(Q1, K=K)
-    for call in (lambda: db.serve(st), lambda: db.advise(Q1, K=K),
+    for call in (lambda: db.advise(Q1, K=K),
                  lambda: db.insert("laion", [1], None),
-                 lambda: st.execute(_binds(2),
-                                    hints=ExecutionHints(pilot_budget=2))):
+                 lambda: run_effort_bucketed(
+                     st, st._stack_binds(_binds(2), {}), 2,
+                     advisor=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+    # the serving tier is ported: serve() schedules and pilot_budget runs
+    # the effort path (flat plans probe nothing, so every query is light)
+    assert isinstance(db.serve(st), BatchScheduler)
+    eff = st.execute(_binds(2), hints=ExecutionHints(pilot_budget=2))
+    assert eff.explain().path == "effort"
+    assert eff.explain().effort["n_heavy"] == 0
+    assert torch.equal(eff["ids"], st.execute(_binds(2))["ids"])
