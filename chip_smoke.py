@@ -204,6 +204,38 @@ one JSON line each:
            stage-2 time at the same shapes (compaction, merge, full sort,
            category rank), and the peak memory; the quantized Q1–Q6 paths'
            beside the fp32 ones (Q4: one bind set and the list of two)
+  live     (after serve) a live corpus (``db.attach_live``) on
+           products.embedding of a catalog sharing the frozen tables:
+           delta_cap 4,096, so cap_main = ceil8(N + 4 x 4,096) = 1,016,384,
+           and an IVF of 256 lists over its filled slots; Q1–Q6 over it
+           (Q2–Q6's texts naming products) flat (brute, use_pallas=True),
+           plain, under chase and under int8 / bf16 (Q1, Q2), every
+           statement prepared before any mutation.  Five gates: at zero
+           delta, live Q1 (a single dict, lists of 1, 8, 64, 100) equals
+           the frozen plan bit for bit with cap_main evals a query, and
+           chase recall@50 against live flat >= 0.99 (the reference's
+           padded-segment index's recall reported beside); after 2,048
+           inserts in 4 batches (64 near-duplicates of queries), 10
+           insert -> visible and delete -> invisible samples, a fill to
+           4,096 and 1,016 deletes (1,000 from the top-50 lists), every
+           flat Q1–Q6 answer holds against use_pallas=False (1e-4) and,
+           at the user-id level, a frozen catalog of the survivors; no
+           deleted row anywhere, each near-duplicate its query's first
+           hit (flat and chase), quantized Q1 and Q2 equal fp32 bit for
+           bit, no executor rebuilt; after compact(), flat and chase equal
+           a fresh attach of the survivors bit for bit; a crash at
+           wal.torn_append and at compact.post_log recovers from disk
+           alone to the unfailed state's answers bit for bit; through
+           QueryServer, submit_mutation's near-duplicates of 8 queries are
+           their first hits.  The kernels each flat path launches are
+           counted (the chase paths launch none).  Line ``e2e_live``:
+           zero-delta live and frozen Q1 latency, Q1 at delta fill 0, 50,
+           100%, insert -> visible and delete -> invisible (median of 10),
+           the compaction pause by part (canonical state, WAL, snapshot
+           write, swap + upload, IVF rebuild), snapshot and recovery
+           times, chase live Q1 at 1, 8, 64, 100 with the IVF caps, peak
+           device memory; all under one temporary directory (free space
+           checked first, removed at the end)
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero without the last line.
 
@@ -286,6 +318,14 @@ SERVE_BATCH, SERVE_WAIT_MS = 32, 5.0
 SERVE_REQUESTS = {"brute": 512, "chase": 256}
 SERVE_RATES = (0.3, 1.0, 3.0)  # x the measured batch capacity (q8's sweep)
 NEEDLE = 0.002                # every 8th request's predicate selectivity
+# the live phase: a delta segment of 4096 rows (cap_main = ceil8(N + 4 x
+# 4096), the reference's rule); 2048 rows inserted in 4 batches, 64 of them
+# near-duplicates of queries; 1000 deletes from the top-50 lists and 16 of
+# the inserted rows; 10 insert -> visible samples; 512 rows after the
+# compaction
+LIVE_DELTA_CAP, LIVE_INSERTS, LIVE_BATCHES, LIVE_NEAR = 4096, 2048, 4, 64
+LIVE_DELETES, LIVE_DELETE_INSERTED, LIVE_TOUCH, LIVE_POST = 1000, 16, 10, 512
+LIVE_RECALL = 0.99            # chase over the live IVF against live flat
 # published dense peaks (NVIDIA data sheets): bytes/s, fp32 CUDA-core FLOP/s
 PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12),
          "SXM": (3.35e12, 67.0e12)}
@@ -1588,6 +1628,581 @@ def serve_phase(cat, qv, r, index, reset_counts, counts, launches, record,
     torch.cuda.empty_cache()
 
 
+def live_phase(cat, qv, p, r, drive, launches, reset_counts, counts,
+               smi: str, name: str) -> None:
+    """The ``live`` phase: a live corpus attached to products.embedding of
+    a catalog sharing the frozen tables, Q1–Q6 over it flat (``brute``,
+    ``use_pallas=True``), plain (``use_pallas=False``), under ``chase``
+    over its own IVF and under int8 / bf16 (Q1, Q2), held to five gates
+    (zero delta, mutations through prepared plans, compaction = fresh
+    attach, recovery from disk alone, the front door), then the
+    ``e2e_live`` line.  Every directory it writes lies under one temporary
+    directory, removed at the end."""
+    import asyncio
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.api import ExecutionHints, connect
+    from repro_torch.checkpoint import checkpointer as ckpt_mod
+    from repro_torch.core.physical import ProbeConfig
+    from repro_torch.core.schema import Catalog, ColumnKind, Table
+    from repro_torch.data import mutations as mut
+    from repro_torch.data.laion import CORPUS_ALIASES, QUERY_ALIASES
+    from repro_torch.data.mutations import attach_live, recover
+    from repro_torch.index import build_ivf
+    from repro_torch.kernels import quant as qt_mod
+    from repro_torch.launch.serve import QueryServer, ServeConfig
+    from repro_torch.serving import (AdmissionConfig, FaultInjector,
+                                     FaultSpec, InjectedCrashError,
+                                     SchedulerConfig)
+    from repro_torch.testing import assert_range_close, assert_topk_close
+
+    t_phase = time.perf_counter()
+    metric = cat.table("products").schema["embedding"].metric
+    products = cat.table("products")
+    dev = products["embedding"].device
+    scalar = [n for n, t in products.schema.columns.items()
+              if t.kind != ColumnKind.VECTOR]
+    live_sql = {"q1": Q1, "q2": Q2.replace("FROM images", "FROM products"),
+                "q3": Q3.replace("images", "products"),
+                "q4": Q4Y.replace("movies", "products"),
+                "q5": Q5.replace("recipes", "products"),
+                "q6": Q6.replace("recipes", "products")}
+    frozen_sql = {"q1": Q1.replace("products", "images"), "q2": Q2,
+                  "q3": Q3, "q4": Q4Y, "q5": Q5, "q6": Q6}
+    q1_binds = [{"qv": qv[i], "p": p} for i in range(N_QUERIES)]
+    binds = {"q1": q1_binds,
+             "q2": [{"qv": qv[i], "r": r, "p": p} for i in range(N_QUERIES)],
+             "q3": {"r": r},
+             "q4": [{"y": np.int32(1980)}, {"y": np.int32(2000)}],
+             "q5": [{"qv": qv[i], "r": r, "ex": np.int32(EX)}
+                    for i in range(N_QUERIES)],
+             "q6": {"r": r}}
+    kinds = {"q1": "topk", "q2": "range", "q3": "range", "q4": "topk",
+             "q5": "category", "q6": "category"}
+    probe = ProbeConfig(**IVF_PROBE)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def catalog_of(corpus_table) -> Catalog:
+        """A catalog with ``corpus_table`` under every corpus alias and the
+        frozen query tables (no tensor is copied)."""
+        c = Catalog()
+        for alias in CORPUS_ALIASES:
+            c.register(alias, corpus_table)
+        for alias in QUERY_ALIASES:
+            c.register(alias, cat.table(alias))
+        return c
+
+    def statements(c, qs_=tuple(live_sql), **opts) -> dict:
+        db_ = connect(c, **opts)
+        return {q: db_.prepare(live_sql[q], K=K) if q == "q1"
+                else db_.prepare(live_sql[q]) for q in qs_}
+
+    def uid_view(data: dict, to_uid) -> dict:
+        """A result with its row ids mapped to user ids (and no
+        counters: a live scan counts its padded segments)."""
+        key = "ids" if "ids" in data else "tid"
+        out = {k: v for k, v in data.items() if k != "stats"}
+        ids = data[key]
+        out[key] = torch.where(data["valid"], torch.as_tensor(
+            to_uid(ids.cpu().numpy()), device=ids.device), -1)
+        return out
+
+    def held(got: dict, want: dict, q: str, what: str) -> float:
+        """One answer against another within 1e-4: top-k under the tie
+        rule, range buffers and each category list as range buffers."""
+        if kinds[q] == "topk":
+            if "tid" in want:
+                got, want = ({"ids": d["tid"], **{k: v for k, v in d.items()
+                                                  if k != "tid"}}
+                             for d in (got, want))
+            return assert_topk_close(got, want, atol=1e-4, tie_tol=1e-4,
+                                     what=what)
+        if kinds[q] == "range":
+            return assert_range_close(got, want, radius=r, atol=1e-4,
+                                      tie_tol=1e-4, what=what)
+        for key in ("category", "qid"):
+            if key in want and not torch.equal(got[key], want[key]):
+                raise AssertionError(f"{what}: {key} differs")
+        key = "ids" if "ids" in want else "tid"
+
+        def view(d):
+            return {key: d[key], "sim": d["sim"], "valid": d["valid"],
+                    "count": d["valid"].sum(-1)}
+
+        return assert_range_close(view(got), view(want), radius=r,
+                                  atol=1e-4, tie_tol=1e-4, what=what)
+
+    def unit(x):
+        x = x.astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    def near_dups(rng, rows):
+        """Each query moved 0.01 in a random direction, normalised: its
+        nearest neighbour by far (sim about 0.99995)."""
+        return unit(qv[rows] + 0.01 * unit(rng.standard_normal(
+            (len(rows), DIM))))
+
+    root = tempfile.mkdtemp(prefix="chase_live_")
+    try:
+        disk = shutil.disk_usage(root)
+        need = 6 * (N_ROWS + 4 * LIVE_DELTA_CAP) * (DIM * 4 + 64)
+        if disk.free < need:
+            raise AssertionError(
+                f"live: {disk.free / 1e9:.1f} GB free under {root}; the "
+                f"snapshots and WAL need {need / 1e9:.1f} GB")
+        gates, times, out = {}, {}, {"disk_free_gb": disk.free / 1e9,
+                                     "disk_need_gb": need / 1e9}
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+
+        # -- attach ----------------------------------------------------------
+        lcat = catalog_of(products)
+        live, times["attach_ms"] = clock(lambda: attach_live(
+            lcat, "products", "embedding", os.path.join(root, "a"),
+            delta_cap=LIVE_DELTA_CAP, nlist=NLIST, iters=KMEANS_ITERS,
+            seed=0))
+        cap_main = live.cap_main
+        out.update(cap_main=cap_main, delta_cap=LIVE_DELTA_CAP,
+                   ivf_cap=lcat.index_for("products", "embedding").cap,
+                   frozen_ivf_cap=cat.index_for("products", "embedding").cap)
+        ldb = connect(lcat, engine="brute", use_pallas=True)
+        flat = statements(lcat, engine="brute", use_pallas=True)
+        plain = statements(lcat, engine="brute", use_pallas=False)
+        chase = statements(lcat, engine="chase", use_pallas=True,
+                           probe=probe)
+        quant = {(mode, c): connect(
+            lcat, engine="brute", use_pallas=True, quant=mode,
+            rescore_factor=c).prepare(live_sql["q1"], K=K)
+            for mode in MODES for c in RESCORE}
+        quant.update({(mode, "q2"): connect(
+            lcat, engine="brute", use_pallas=True,
+            quant=mode).prepare(live_sql["q2"]) for mode in MODES})
+        frozen = connect(cat, engine="brute", use_pallas=True).prepare(
+            frozen_sql["q1"], K=K)
+
+        # -- gate 1: zero delta ----------------------------------------------
+        runs = [("single", flat["q1"], q1_binds[0], None)]
+        runs += [(f"list{qn}", flat["q1"], q1_binds[:qn], None)
+                 for qn in BATCHES]
+        for label, _s, b, _h, res in drive("live_q1_zero", runs):
+            # a live single dict runs the batched lowering at Q = 1: it is
+            # held bitwise against the frozen batch of one, and its ids and
+            # lanes against the frozen single dict (the single-query
+            # kernel's sums may differ in the last bit)
+            want = frozen.execute(b).data
+            if label == "single":
+                for key in ("ids", "valid"):
+                    if not torch.equal(res[key], want[key]):
+                        raise AssertionError(f"live gate 1 single: {key} "
+                                             f"is not the frozen plan's")
+                want = {key: v[0] for key, v in frozen.execute(
+                    [b], hints=ExecutionHints(exact_shape=True)).data.items()
+                    if key != "stats"}
+            torch.cuda.synchronize()
+            for key in ("ids", "sim", "valid"):
+                if not torch.equal(res[key], want[key]):
+                    raise AssertionError(f"live gate 1 {label}: {key} is not "
+                                         f"the frozen plan's")
+            if not bool((res["stats"]["distance_evals"] == cap_main).all()):
+                raise AssertionError(f"live gate 1 {label}: evals "
+                                     f"{res['stats']['distance_evals']}")
+        if launches["live_q1_zero"]["scan_topk_batch"] < 1:
+            raise AssertionError("live gate 1: no scan_topk_batch launch")
+        flat_top = flat["q1"].execute(q1_binds).data["ids"]
+        chased = drive("live_q1_chase_zero", [
+            ("list100", chase["q1"], q1_binds, None)])[0][4].data["ids"]
+        recall = float(np.mean([
+            np.isin(flat_top[i].cpu().numpy(), chased[i].cpu().numpy()).mean()
+            for i in range(N_QUERIES)]))
+        if recall < LIVE_RECALL:
+            raise AssertionError(f"live gate 1: chase recall@{K} {recall}")
+        # the reference clusters the whole padded segment, its pad slots
+        # included: that index's recall beside (reported, not a gate; its
+        # catch-all list is large, so 8 queries at a time)
+        own = lcat.index_for("products", "embedding")
+        padded = build_ivf(torch.Generator().manual_seed(0),
+                           flat["q1"].compiled._arrays["corpus"], NLIST,
+                           metric, iters=KMEANS_ITERS)
+        lcat.register_index("products", "embedding", padded)
+        padded_ids = torch.cat([chase["q1"].execute(q1_binds[i:i + 8])["ids"]
+                                for i in range(0, N_QUERIES, 8)])
+        lcat.register_index("products", "embedding", own)
+        gates["zero_delta"] = {
+            "bitwise_frozen": True, "recall": recall,
+            "recall_padded_ivf": float(np.mean([
+                np.isin(flat_top[i].cpu().numpy(),
+                        padded_ids[i].cpu().numpy()).mean()
+                for i in range(N_QUERIES)])),
+            "padded_ivf_cap": padded.cap}
+        del padded, padded_ids
+        frozen_chase = connect(cat, engine="chase", use_pallas=True,
+                               probe=probe).prepare(frozen_sql["q1"], K=K)
+        lat = {"live": {}, "frozen": {}, "chase": {}, "chase_frozen": {}}
+        for qn in BATCHES:
+            for key, st in (("live", flat["q1"]), ("frozen", frozen),
+                            ("chase", chase["q1"]),
+                            ("chase_frozen", frozen_chase)):
+                lat[key][f"list{qn}"] = latency_ms(
+                    lambda: st.execute(q1_binds[:qn]), iters=5)
+        lat["fill0"] = {"list1": lat["live"]["list1"],
+                        "list100": lat["live"][f"list{N_QUERIES}"]}
+        for group in (flat, plain, chase):
+            for q, s in group.items():
+                s.execute(binds[q])
+        traces = {(id(s), q): dict(s.executor.trace_counts)
+                  for group in (flat, plain, chase) for q, s in group.items()}
+        rebinds0 = {(id(s), q): s.compiled.rebinds
+                    for group in (flat, plain, chase) for q, s in group.items()}
+
+        # -- gate 2: mutations through the prepared plans ---------------------
+        # seed 0's first spawned stream: the catalog draws its modes from
+        # seed 0 itself, and rows equal to the modes are no random rows
+        rng = np.random.default_rng(np.random.SeedSequence(0).spawn(1)[0])
+        host_cols = {n: products[n].cpu().numpy() for n in scalar}
+        ins = {"uids": [], "vecs": [], "cols": {n: [] for n in scalar}}
+
+        def rows_like(n: int, uids) -> dict:
+            src = rng.integers(0, N_ROWS, n)
+            cols = {c: host_cols[c][src].copy() for c in scalar}
+            cols["sample_id"] = np.asarray(uids).astype(
+                host_cols["sample_id"].dtype)
+            return cols
+
+        def insert(uids, vecs, cols):
+            lsn = ldb.insert("products", uids, vecs, cols)
+            ins["uids"].append(np.asarray(uids, np.int64))
+            ins["vecs"].append(vecs)
+            for c in scalar:
+                ins["cols"][c].append(cols[c])
+            return lsn
+
+        first = np.arange(N_ROWS, N_ROWS + LIVE_INSERTS)
+        vecs = unit(rng.standard_normal((LIVE_INSERTS, DIM)))
+        vecs[:LIVE_NEAR] = near_dups(rng, np.arange(LIVE_NEAR))
+        cols = rows_like(LIVE_INSERTS, first)
+        cols["price"][:LIVE_NEAR] = 0
+        per = LIVE_INSERTS // LIVE_BATCHES
+        t = time.perf_counter()
+        for j in range(LIVE_BATCHES):
+            sl = slice(j * per, (j + 1) * per)
+            insert(first[sl], vecs[sl], {c: v[sl] for c, v in cols.items()})
+        times["insert_batch_ms"] = (time.perf_counter() - t) * 1e3 / \
+            LIVE_BATCHES
+        lat["fill50"] = {"list1": latency_ms(
+            lambda: flat["q1"].execute(q1_binds[:1]), iters=5),
+            f"list{N_QUERIES}": latency_ms(
+                lambda: flat["q1"].execute(q1_binds), iters=5)}
+        # insert -> visible and delete -> invisible through the prepared
+        # single-dict plan, queries with no near-duplicate yet
+        touch = {"insert_visible_ms": [], "delete_invisible_ms": []}
+        nxt = N_ROWS + LIVE_INSERTS
+        for i in range(LIVE_TOUCH):
+            q = LIVE_NEAR + i
+            uid = nxt + i
+            v = near_dups(rng, [q])
+            c = rows_like(1, [uid])
+            c["price"][:] = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            insert([uid], v, c)
+            res = flat["q1"].execute(q1_binds[q])
+            top = int(live.user_ids(res["ids"][:1])[0])
+            touch["insert_visible_ms"].append((time.perf_counter() - t) * 1e3)
+            if top != uid:
+                raise AssertionError(f"live: insert of {uid} not visible "
+                                     f"({top} first)")
+        for i in range(LIVE_TOUCH):
+            uid = nxt + i
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ldb.delete("products", [uid])
+            res = flat["q1"].execute(q1_binds[LIVE_NEAR + i])
+            seen = uid in live.user_ids(res["ids"]).tolist()
+            touch["delete_invisible_ms"].append((time.perf_counter() - t)
+                                                * 1e3)
+            if seen:
+                raise AssertionError(f"live: delete of {uid} not visible")
+        times.update({k: statistics.median(v) for k, v in touch.items()})
+        nxt += LIVE_TOUCH
+        fill = LIVE_DELTA_CAP - live.delta_count
+        filler = np.arange(nxt, nxt + fill)
+        fvecs = unit(rng.standard_normal((fill, DIM)))
+        fcols = rows_like(fill, filler)
+        per = -(-fill // LIVE_BATCHES)
+        for j in range(LIVE_BATCHES):
+            sl = slice(j * per, (j + 1) * per)
+            insert(filler[sl], fvecs[sl],
+                   {c: v[sl] for c, v in fcols.items()})
+        if live.delta_count != LIVE_DELTA_CAP:
+            raise AssertionError(f"live: delta holds {live.delta_count}")
+        lat["fill100"] = {"list1": latency_ms(
+            lambda: flat["q1"].execute(q1_binds[:1]), iters=5),
+            f"list{N_QUERIES}": latency_ms(
+                lambda: flat["q1"].execute(q1_binds), iters=5)}
+        # deletes: rows of the current top-50 lists, and inserted rows
+        top = live.user_ids(flat["q1"].execute(q1_binds)["ids"])
+        cand = np.unique(top[(top >= 0) & (top < N_ROWS)])
+        gone = np.concatenate([
+            rng.choice(cand, min(LIVE_DELETES, len(cand)), replace=False),
+            rng.choice(filler, LIVE_DELETE_INSERTED, replace=False)])
+        _, times["delete_ms"] = clock(lambda: ldb.delete("products", gone))
+        gone_set = set(gone.tolist()) | set(range(N_ROWS + LIVE_INSERTS,
+                                                  nxt))
+
+        # every flat answer: held against use_pallas=False, and at the
+        # user-id level against a frozen catalog of the survivors
+        ins_uids = np.concatenate(ins["uids"])
+        ins_vecs = np.concatenate(ins["vecs"])
+        keep_orig = np.ones(N_ROWS, bool)
+        keep_orig[gone[gone < N_ROWS]] = False
+        keep_ins = ~np.isin(ins_uids, list(gone_set))
+        surv_uids = np.concatenate([np.flatnonzero(keep_orig),
+                                    ins_uids[keep_ins]])
+        idx = torch.from_numpy(np.flatnonzero(keep_orig)).to(dev)
+        scols = {c: torch.cat([products[c][idx], torch.from_numpy(
+            np.concatenate(ins["cols"][c])[keep_ins]).to(
+                device=dev, dtype=products[c].dtype)]) for c in scalar}
+        scols["embedding"] = scols["vec"] = torch.cat([
+            products["embedding"][idx],
+            torch.from_numpy(ins_vecs[keep_ins]).to(dev)])
+        fcat = catalog_of(Table(products.schema, scols))
+        fdb = connect(fcat, engine="brute", use_pallas=True)
+        err = {"plain": 0.0, "survivors": 0.0}
+        results = {}
+        for q in live_sql:
+            res = drive(f"live_{q}", [(q, flat[q], binds[q], None)])[0][4]
+            results[q] = res
+            want = plain[q].execute(binds[q]).data
+            torch.cuda.synchronize()
+            err["plain"] = max(err["plain"], held(
+                res.data, want, q, f"live gate 2 {q} plain"))
+            st = fdb.prepare(frozen_sql[q], K=K) if q == "q1" else \
+                fdb.prepare(frozen_sql[q])
+            frz = st.execute(binds[q]).data
+            err["survivors"] = max(err["survivors"], held(
+                uid_view(res.data, live.user_ids),
+                uid_view(frz, lambda i: surv_uids[np.maximum(i, 0)]), q,
+                f"live gate 2 {q} survivors"))
+        for q in ("q1", "q2", "q3", "q5", "q6"):
+            kname = "scan_topk_batch" if q == "q1" else "range_scan_batch"
+            if launches[f"live_{q}"][kname] < 1:
+                raise AssertionError(f"live_{q} launched no {kname}")
+        chased = {q: drive(f"live_{q}_chase", [
+            (q, chase[q], binds[q], None)])[0][4] for q in live_sql}
+        for q in live_sql:
+            if any(launches[f"live_{q}_chase"].values()):
+                raise AssertionError(f"live_{q}_chase launched "
+                                     f"{launches[f'live_{q}_chase']}: the "
+                                     f"probes and the delta merge run none")
+        for q, res in list(results.items()) + [
+                (f"{q}_chase", v) for q, v in chased.items()]:
+            key = "ids" if "ids" in res.data else "tid"
+            uids = live.user_ids(res.data[key])
+            if set(uids[uids >= 0].tolist()) & gone_set:
+                raise AssertionError(f"live gate 2 {q}: a deleted row")
+        for key, res in (("flat", results["q1"]), ("chase", chased["q1"])):
+            firsts = live.user_ids(res["ids"][:LIVE_NEAR, 0])
+            if not (firsts == first[:LIVE_NEAR]).all():
+                raise AssertionError(f"live gate 2 {key}: a near-duplicate "
+                                     f"is not its query's first hit")
+        # quantized Q1 (rescore factor: the smallest whose candidates hold
+        # the fp32 main-segment top-K, as slice_quant picks it) and Q2
+        arr = flat["q1"].compiled._arrays
+        qmask = ((arr["live_cols"]["price"] < p)[None, :]
+                 & arr["live_main_valid"][None, :]).expand(N_QUERIES, -1)
+        fp32_top = results["q1"]["ids"]
+        qs = torch.from_numpy(qv).to(dev)
+        cover = {}
+        for mode in MODES:
+            qc = live._dev[f"quant:{mode}"]
+            cover[mode] = {}
+            for c in RESCORE:
+                got = qt_mod.quant_scan_topk_batch(
+                    qc.qvecs, qc.scales, qs, qmask.contiguous().view(
+                        torch.int8), None, c * K, metric)
+                rows = qt_mod.candidate_rows(*got, c * K)
+                inside = ((fp32_top[:, :, None] == rows[:, None, :]).any(-1)
+                          | (fp32_top < 0) | (fp32_top >= cap_main))
+                cover[mode][c] = int((~inside.all(1)).sum())
+                if cover[mode][c] == 0:
+                    break
+            c = next(c for c, m in cover[mode].items() if m == 0)
+            for q, st in (("q1", quant[mode, c]), ("q2", quant[mode, "q2"])):
+                res = drive(f"live_{q}_{mode}", [
+                    (q, st, binds[q], None)])[0][4]
+                bitwise(res.data, results[q].data, f"live gate 2 {q} {mode}")
+        for kname, path in (("quant_scan_topk_batch", "q1"),
+                            ("replay_keys", "q1"),
+                            ("quant_keys_batch", "q2")):
+            if not any(launches[f"live_{path}_{m}"][kname] for m in MODES):
+                raise AssertionError(f"live gate 2: no {kname} launch")
+        for group in (flat, plain, chase):
+            for q, s in group.items():
+                if dict(s.executor.trace_counts) != traces[id(s), q]:
+                    raise AssertionError(f"live gate 2 {q}: an executor was "
+                                         f"rebuilt")
+        rebinds = {q: flat[q].compiled.rebinds - rebinds0[id(flat[q]), q]
+                   for q in flat}
+        if min(rebinds.values()) < 1:
+            raise AssertionError(f"live gate 2: rebinds {rebinds}")
+        gates["mutations"] = {"max_abs_err": err, "rebinds": rebinds,
+                              "rescore_cover": cover,
+                              "deleted": int(len(gone_set)),
+                              "inserted": int(len(ins_uids))}
+
+        # -- gate 3: compaction = a fresh attach of the survivors -------------
+        split = {}
+
+        def timed(fn, key):
+            def wrapped(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    split[key] = split.get(key, 0.0) + \
+                        (time.perf_counter() - t) * 1e3
+            return wrapped
+
+        saved = (ckpt_mod.save, mut.build_ivf)
+        ckpt_mod.save = timed(saved[0], "snapshot_write_ms")
+        mut.build_ivf = timed(saved[1], "ivf_rebuild_ms")
+        live._canonical_state = timed(live._canonical_state, "canonical_ms")
+        live._wal_append = timed(live._wal_append, "wal_ms")
+        live._swap_compacted = timed(live._swap_compacted, "swap_ms")
+        try:
+            _, split["total_ms"] = clock(lambda: ldb.compact("products"))
+        finally:
+            ckpt_mod.save, mut.build_ivf = saved
+            for attr in ("_canonical_state", "_wal_append",
+                         "_swap_compacted"):
+                delattr(live, attr)
+        split["swap_upload_ms"] = split.pop("swap_ms") - split[
+            "ivf_rebuild_ms"]
+        times["compaction"] = split
+        fresh, times["fresh_attach_ms"] = clock(lambda: attach_live(
+            fcat, "products", "embedding", os.path.join(root, "f"),
+            delta_cap=LIVE_DELTA_CAP, nlist=NLIST, iters=KMEANS_ITERS,
+            seed=0, ids=surv_uids, cap_main=cap_main))
+        ffl = statements(fcat, engine="brute", use_pallas=True)
+        fch = statements(fcat, engine="chase", use_pallas=True, probe=probe)
+
+        def same(a: dict, b: dict, qs_=live_sql) -> None:
+            for q in qs_:
+                bitwise(a[q].execute(binds[q]).data,
+                        b[q].execute(binds[q]).data, f"live {q}")
+
+        same(flat, ffl)
+        same(chase, fch)
+        for group in (flat, chase):
+            for q, s in group.items():
+                if dict(s.executor.trace_counts) != traces[id(s), q]:
+                    raise AssertionError(f"live gate 3 {q}: an executor was "
+                                         f"rebuilt")
+        gates["compaction"] = {"bitwise_fresh_attach": True,
+                               "live_rows": live.freshness()["live_rows"],
+                               "ivf_cap": lcat.index_for(
+                                   "products", "embedding").cap}
+        del fresh, ffl, fch, fcat, fdb, scols, idx, st, frz
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- gate 4: recovery from disk alone ---------------------------------
+        _, times["snapshot_ms"] = clock(live.snapshot)
+        post = np.arange(nxt + fill, nxt + fill + LIVE_POST)
+        insert(post, unit(rng.standard_normal((LIVE_POST, DIM))),
+               rows_like(LIVE_POST, post))
+        ldb.delete("products", np.concatenate([post[:LIVE_POST // 4],
+                                               surv_uids[:LIVE_POST // 4]]))
+        few = ["q1", "q2"]
+
+        def recovered_equal(site: str, crash) -> float:
+            live._faults = FaultInjector(FaultSpec(crash_site=site))
+            try:
+                crash()
+            except InjectedCrashError:
+                pass
+            else:
+                raise AssertionError(f"live gate 4: {site} never fired")
+            finally:
+                live._faults = None
+            rcat = catalog_of(products)
+            rec, ms = clock(lambda: recover(rcat, "products", "embedding",
+                                            os.path.join(root, "a")))
+            if site == "compact.post_log":
+                ldb.compact("products")      # the unfailed run's compaction
+            if rec._uid_loc != live._uid_loc:
+                raise AssertionError(f"live gate 4 {site}: rows differ")
+            same(flat, statements(rcat, few, engine="brute",
+                                  use_pallas=True), few)
+            same(chase, statements(rcat, few, engine="chase",
+                                   use_pallas=True, probe=probe), few)
+            return ms
+
+        extra = np.arange(post[-1] + 1, post[-1] + 9)
+        times["recover_torn_ms"] = recovered_equal(
+            "wal.torn_append", lambda: ldb.insert(
+                "products", extra, unit(rng.standard_normal((8, DIM)))))
+        gc.collect()
+        torch.cuda.empty_cache()
+        times["recover_compact_ms"] = recovered_equal(
+            "compact.post_log", lambda: ldb.compact("products"))
+        gates["recovery"] = {"sites": ["wal.torn_append",
+                                       "compact.post_log"],
+                             "bitwise_unfailed": True}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- gate 5: the front door ------------------------------------------
+        door = np.arange(extra[-1] + 1, extra[-1] + 9)
+        dq = np.arange(N_QUERIES - 8, N_QUERIES)
+
+        async def front_door():
+            cfg = ServeConfig(
+                admission=AdmissionConfig(max_queue_depth=64),
+                scheduler=SchedulerConfig(max_batch=SERVE_BATCH,
+                                          max_wait_ms=SERVE_WAIT_MS))
+            async with QueryServer(flat["q1"], cfg) as server:
+                await server.submit_mutation(
+                    "insert", ids=door, vectors=near_dups(rng, dq),
+                    columns={"price": np.zeros(8, np.float32)})
+                return await asyncio.gather(*(server.submit(q1_binds[q])
+                                              for q in dq))
+
+        reset_counts()
+        served = asyncio.run(front_door())
+        torch.cuda.synchronize()
+        launches["live_front_door"] = counts()
+        firsts = [int(live.user_ids(res["ids"][:1])[0]) for res in served]
+        if firsts != door.tolist():
+            raise AssertionError(f"live gate 5: first hits {firsts}")
+        if launches["live_front_door"]["scan_topk_batch"] < 1:
+            raise AssertionError("live gate 5: no scan_topk_batch launch")
+        gates["front_door"] = {"first_hits": firsts}
+
+        out.update(peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+                   resident_before_mb=base_mb, freshness=live.freshness())
+        emit({"phase": "live", "gates": gates, "cap_main": cap_main,
+              "launches": {k: v for k, v in launches.items()
+                           if k.startswith("live_")}})
+        emit({"phase": "e2e_live", "device": name, "nvidia_smi": smi,
+              "q1_latency_ms": lat, "times": times, **out,
+              "phase_s": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -2841,6 +3456,10 @@ def main() -> None:
     # -- serve: Q1 through the scheduler and the front door -------------------
     serve_phase(cat, qv, r, index, reset_counts, counts, launches, record,
                 smi, name)
+
+    # -- live: the live corpus under Q1–Q6 ------------------------------------
+    live_phase(cat, qv, p, r, drive, launches, reset_counts, counts, smi,
+               name)
 
     # -- times ----------------------------------------------------------------
     nb, _rows = st_mod.single_plan(N_ROWS)

@@ -7,6 +7,8 @@
     res = stmt.execute({"qv": q, "p": 12.0})   # single -> Result
     batch = stmt.execute([b1, b2, b3])         # list -> bucketed ResultBatch
     server = db.serve(stmt)                    # submit/poll scheduler
+    db.attach_live("products", "embedding", path)   # a mutable corpus
+    db.insert("products", ids, vectors)        # seen at the next execute
 
 Results hold torch tensors on the catalog's device.
 """

@@ -19,9 +19,15 @@ Statement``, ONE ``Statement.execute`` front door.
 Every query class (Q1–Q6) prepares under every engine, the default
 ``EngineOptions()`` included, and probes a registered IVF index where the
 reference's plan does (``core/physical.py``); everything else runs the
-flat path.  The adaptive optimizer, the on-disk plan cache and the live
-corpus belong to later slices of the port and raise
-``NotImplementedError``.
+flat path.
+
+* ``db.attach_live(table, column, path)`` makes a (table, vector column)
+  pair mutable (:mod:`repro_torch.data.mutations`): ``db.insert`` /
+  ``db.delete`` / ``db.compact`` reach every prepared statement on it at
+  its next execute, and ``explain()`` reports the corpus's freshness.
+
+The adaptive optimizer and the on-disk plan cache belong to later slices
+of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from typing import Any
 import numpy as np
 
 from ..core.compiler import (CompiledQuery, StalePlanError, compile_plan,
-                             fingerprint_digest, plan_fingerprint,
+                             fingerprint_digest, plan_fingerprint, _scan_of,
                              _stacked_qn)
 from ..core.expr import Param
 from ..core.physical import EngineOptions
@@ -203,22 +209,61 @@ class Database:
         """The lowering advisor is a later slice of the port."""
         raise not_ported("Database.advise (adaptive optimizer)", "11")
 
+    # -- live corpus mutations ----------------------------------------------
+
     def attach_live(self, table: str, column: str, path, **kw):
-        """The live corpus is a later slice of the port."""
-        raise not_ported("Database.attach_live (live corpus)", "10")
+        """Attach a :class:`~repro_torch.data.mutations.LiveCorpus` to a
+        (table, vector column) pair, making ``db.insert`` / ``db.delete``
+        available and every plan prepared on the pair delta-aware.
+        Delegates to :func:`repro_torch.data.mutations.attach_live` (same
+        kwargs: ``delta_cap``, ``cap_main``, ``nlist``, ``seed``, ``ids``,
+        ...)."""
+        from ..data.mutations import attach_live
+        return attach_live(self.catalog, table, column, path, **kw)
+
+    def _live_handle(self, table: str, column: str | None):
+        """The LiveCorpus a mutation call names (a typed error when the
+        pair has none attached, or the column is ambiguous)."""
+        from ..serving.resilience import MutationError
+        if column is None:
+            cols = self.catalog.live_columns(table)
+            if len(cols) != 1:
+                raise MutationError(
+                    f"table {table!r} has {len(cols)} live vector columns "
+                    f"({sorted(cols)}); pass column= explicitly" if cols else
+                    f"table {table!r} has no live corpus attached; call "
+                    f"db.attach_live(table, column, path) first")
+            column = cols[0]
+        live = self.catalog.live_for(table, column)
+        if live is None:
+            raise MutationError(
+                f"no live corpus attached to ({table!r}, {column!r}); call "
+                f"db.attach_live(table, column, path) first")
+        return live
 
     def insert(self, table: str, ids, vectors, columns=None, *,
                column: str | None = None) -> int:
-        """The live corpus is a later slice of the port."""
-        raise not_ported("Database.insert (live corpus)", "10")
+        """Insert rows into a live corpus, visible to every prepared plan
+        at its next execute with no executor rebuilt; returns the
+        mutation's LSN.  ``column`` may be omitted when the table has
+        exactly one live vector column."""
+        return self._live_handle(table, column).insert(ids, vectors, columns)
 
     def delete(self, table: str, ids, *, column: str | None = None) -> int:
-        """The live corpus is a later slice of the port."""
-        raise not_ported("Database.delete (live corpus)", "10")
+        """Tombstone rows of a live corpus by user id (visible at the next
+        execute); returns the mutation's LSN."""
+        return self._live_handle(table, column).delete(ids)
 
     def compact(self, table: str, *, column: str | None = None) -> int:
-        """The live corpus is a later slice of the port."""
-        raise not_ported("Database.compact (live corpus)", "10")
+        """Fold a live corpus's delta rows and tombstones back into its main
+        segment (rebuilding the IVF when one is registered); returns the
+        compaction's LSN."""
+        return self._live_handle(table, column).compact()
+
+    def freshness(self, table: str, *, column: str | None = None) -> dict:
+        """The live corpus's freshness counters (delta rows, tombstones,
+        LSNs): the dict ``explain()`` reports per statement."""
+        return self._live_handle(table, column).freshness()
 
     # -- internals ----------------------------------------------------------
 
@@ -394,6 +439,9 @@ class Statement:
         def build() -> ExplainReport:
             c = self.compiled
             ex = c.executor
+            # freshness is read WHEN explain() runs (like trace_counts), so
+            # the report reflects mutations that landed after execution
+            live = self._db.catalog.live_for(*_scan_of(c.analysis))
             return ExplainReport(
                 sql=self.sql,
                 engine=c.options.engine,
@@ -406,6 +454,7 @@ class Statement:
                 trace_counts=dict(ex.trace_counts),
                 logical_plan=c.logical_plan.pretty(),
                 rewritten_plan=c.rewritten_plan.pretty(),
+                freshness=None if live is None else live.freshness(),
                 **exec_fields)
 
         return build

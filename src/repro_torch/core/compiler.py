@@ -21,12 +21,14 @@ join) on the flat path, with or without ``EngineOptions.quant``, and over a
 registered IVF index under every engine, in both join lowerings, as the
 reference lowers them (``core/physical.py``).  Without an index every
 engine lowers as the reference lowers a missing index: the flat scan,
-``brute_sort`` the Q4 full sort.  The dist option raises
-``NotImplementedError`` naming its ROADMAP.md item (live corpora cannot be
-registered yet).
+``brute_sort`` the Q4 full sort.  Over a live corpus
+(``data/mutations.py``) the plans read its segments and merge its delta,
+under ``chase`` and ``brute`` in the batch lowering.  The dist option
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 from typing import Any, Callable
@@ -63,19 +65,34 @@ def _scan_of(a: Analysis) -> tuple[str, str]:
     return a.right_table, a.right_vector
 
 
-def _catalog_dep_keys(a: Analysis, options: EngineOptions) -> tuple:
+def _catalog_dep_keys(a: Analysis, catalog: Catalog,
+                      options: EngineOptions) -> tuple:
     """The catalog registration keys a compiled plan captures — what
     :meth:`CompiledQuery.ensure_fresh` watches for version bumps: the
-    scanned table, both tables of a join, the scanned column's index, and
-    under ``quant`` its quantized twin."""
+    scanned table, both tables of a join, the scanned column's index, over
+    a live corpus its live key (every insert, delete and compaction bumps
+    it), and under ``quant`` the frozen column's quantized twin (a live
+    twin rides the live key: it is cached on the corpus)."""
+    scan = _scan_of(a)
     if a.query_class in _SINGLE_TABLE:
         keys = (("table", a.table),)
     else:
         keys = (("table", a.left_table), ("table", a.right_table))
-    keys += (("index",) + _scan_of(a),)
-    if options.quant is not None:
-        keys += (("quantized",) + _scan_of(a),)
+    keys += (("index",) + scan,)
+    live = catalog.live_for(*scan) is not None
+    if options.quant is not None and not live:
+        keys += (("quantized",) + scan,)
+    if live:
+        keys += (("live",) + scan,)
     return keys
+
+
+def _scan_lock(a: Analysis, catalog: Catalog):
+    """The scanned column's live-corpus lock (a no-op without one): a
+    re-bind gathers the segments and snapshots the versions with no
+    mutation in between."""
+    live = catalog.live_for(*_scan_of(a))
+    return contextlib.nullcontext() if live is None else live._lock
 
 
 # ---------------------------------------------------------------------------
@@ -321,28 +338,30 @@ class CompiledQuery:
           hold the old table's columns; only a re-prepare fixes it)."""
         if self._catalog is None:
             return False
-        current = self._catalog.version_snapshot(self._dep_keys)
-        if current == self._bound_versions:
-            return False
-        stale = [k[1] for k, old, new in zip(
-            self._dep_keys, self._bound_versions, current)
-            if old != new and k[0] == "table"]
-        if stale:
-            raise StalePlanError(
-                f"table(s) {stale} were re-registered after this plan "
-                f"compiled; the plan's predicate columns are frozen at the "
-                f"old table — re-prepare the statement")
-        new_arrays = _gather_arrays(self.analysis, self._catalog,
-                                    self.options)
-        if set(new_arrays) != set(self._arrays):
-            raise StalePlanError(
-                f"catalog registration change altered the plan's array set "
-                f"({sorted(self._arrays)} -> {sorted(new_arrays)}); index "
-                f"presence selects the lowering at compile time — "
-                f"re-prepare the statement")
-        self._arrays.clear()
-        self._arrays.update(new_arrays)
-        self._bound_versions = self._catalog.version_snapshot(self._dep_keys)
+        with _scan_lock(self.analysis, self._catalog):
+            current = self._catalog.version_snapshot(self._dep_keys)
+            if current == self._bound_versions:
+                return False
+            stale = [k[1] for k, old, new in zip(
+                self._dep_keys, self._bound_versions, current)
+                if old != new and k[0] == "table"]
+            if stale:
+                raise StalePlanError(
+                    f"table(s) {stale} were re-registered after this plan "
+                    f"compiled; the plan's predicate columns are frozen at "
+                    f"the old table — re-prepare the statement")
+            new_arrays = _gather_arrays(self.analysis, self._catalog,
+                                        self.options)
+            if set(new_arrays) != set(self._arrays):
+                raise StalePlanError(
+                    f"catalog registration change altered the plan's array "
+                    f"set ({sorted(self._arrays)} -> {sorted(new_arrays)}); "
+                    f"index presence selects the lowering at compile time "
+                    f"— re-prepare the statement")
+            self._arrays.clear()
+            self._arrays.update(new_arrays)
+            self._bound_versions = self._catalog.version_snapshot(
+                self._dep_keys)
         self.rebinds += 1
         return True
 
@@ -427,7 +446,16 @@ def _gather_arrays(a: Analysis, catalog: Catalog,
     join's left embeddings, the scanned column's IVF index when one is
     registered, Q5/Q6's category column, and under ``quant`` the scanned
     column's quantized twin — built and registered on the catalog at the
-    first prepare that needs it, shared by every later one."""
+    first prepare that needs it, shared by every later one.
+
+    Over a live corpus its segment tensors REPLACE the frozen corpus: the
+    padded main segment and its validity lane (the tombstone bitmap), the
+    delta segment, and the live scalar columns the predicates and the
+    category rank read.  Its quantized twin is cached on the corpus's
+    device cache, keyed ``quant:<mode>``, which compaction (the one
+    mutation that moves main-segment rows) clears; the delta segment stays
+    fp32."""
+    table, column = _scan_of(a)
     if a.query_class in _SINGLE_TABLE:
         scanned = catalog.table(a.table)
         arrays = {"corpus": scanned[a.vector_column]}
@@ -435,19 +463,31 @@ def _gather_arrays(a: Analysis, catalog: Catalog,
         scanned = catalog.table(a.right_table)
         arrays = {"left": catalog.table(a.left_table)[a.left_vector],
                   "corpus": scanned[a.right_vector]}
-    index = catalog.index_for(*_scan_of(a))
+    index = catalog.index_for(table, column)
     if index is not None:
         arrays["index"] = index
     if a.query_class in (QueryClass.CATEGORY_PARTITION,
                          QueryClass.CATEGORY_JOIN):
         arrays["categories"] = scanned[a.category_column.name]
+    live = catalog.live_for(table, column)
+    if live is not None:
+        arrays.update(live.plan_arrays())
+        if "categories" in arrays:
+            arrays["categories"] = arrays["live_cols"][
+                a.category_column.name]
     if options.quant is not None:
         from ..data.quantized import quantize_corpus
-        table, column = _scan_of(a)
-        quant = catalog.quantized_for(table, column, options.quant)
-        if quant is None:
-            quant = quantize_corpus(arrays["corpus"], options.quant)
-            catalog.register_quantized(table, column, quant)
+        if live is not None:
+            key = f"quant:{options.quant}"
+            quant = live._dev.get(key)
+            if quant is None:
+                quant = quantize_corpus(arrays["corpus"], options.quant)
+                live._dev[key] = quant
+        else:
+            quant = catalog.quantized_for(table, column, options.quant)
+            if quant is None:
+                quant = quantize_corpus(arrays["corpus"], options.quant)
+                catalog.register_quantized(table, column, quant)
         arrays.update(quant.plan_arrays())
     return arrays
 
@@ -549,9 +589,31 @@ def _validate_quant(options: EngineOptions) -> None:
             f"{options.rescore_factor}")
 
 
+def _validate_live(a: Analysis, catalog: Catalog,
+                   options: EngineOptions) -> None:
+    """Reject option combinations the live lowering cannot honor (the
+    reference's checks and messages).  The delta merge composes with the
+    exact paths only: the comparison engines (pase, vbase, brute_sort)
+    model plan-structural inefficiencies of the frozen lowering, and the
+    perleft join loop has no delta twin."""
+    if catalog.live_for(*_scan_of(a)) is None:
+        return
+    if options.engine not in ("chase", "brute"):
+        raise ValueError(
+            f"a live corpus is attached to {'.'.join(_scan_of(a))} and only "
+            f"composes with engine 'chase' or 'brute', not "
+            f"{options.engine!r}")
+    if options.join_lowering != "batch":
+        raise ValueError(
+            "a live corpus requires join_lowering='batch': the delta merge "
+            "rides the query-batched lowering; the perleft loop has no "
+            "live twin")
+
+
 def _single_via_batch(bfn: Callable) -> Callable:
-    """Single-query front for quantized plans: they have ONE lowering, the
-    query-batched scan, so the single-query pipeline runs it at Q = 1 and
+    """Single-query front for live and quantized plans: they have ONE
+    lowering, the query-batched scan (which carries the delta merge or the
+    quantized rescore), so the single-query pipeline runs it at Q = 1 and
     slices the leading axis off every output leaf (bitwise a one-element
     exact-shape batch)."""
 
@@ -595,12 +657,20 @@ def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
     a = analyze(plan, catalog)
     _validate_quant(options)
     _validate_slice(a, options)
+    _validate_live(a, catalog, options)
     rewritten = rewrite(a)
-    arrays = _gather_arrays(a, catalog, options)
+    dep_keys = _catalog_dep_keys(a, catalog, options)
+    with _scan_lock(a, catalog):
+        arrays = _gather_arrays(a, catalog, options)
+        # snapshot after _gather_arrays: registering a new twin bumps a key
+        # this plan must not see as a change on its first execute
+        bound = catalog.version_snapshot(dep_keys)
     batch_builder, batch_native, batch_reason = _batch_lowering(a, options)
-    if options.quant is not None:
-        # one lowering per quant plan: the batched pipeline (which carries
-        # the quantized rescore) serves the single query at Q = 1
+    if (options.quant is not None
+            or catalog.live_for(*_scan_of(a)) is not None):
+        # one lowering per live or quant plan: the batched pipeline (which
+        # carries the delta merge or the quantized rescore) serves the
+        # single query at Q = 1
         bfn = batch_builder(a, catalog, options, Bindings(static_binds))
         fn = _single_via_batch(bfn)
     else:
@@ -611,9 +681,5 @@ def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
     compiled_plan = CompiledPlan(sql, a, plan, rewritten, options, fn, bfn,
                                  batch_native, batch_reason)
     executor = BucketedExecutor(compiled_plan, arrays)
-    # snapshot after _gather_arrays: registering a new twin bumps a key this
-    # plan must not see as a change on its first execute
-    dep_keys = _catalog_dep_keys(a, options)
     return CompiledQuery(compiled_plan, arrays, executor, _catalog=catalog,
-                         _dep_keys=dep_keys,
-                         _bound_versions=catalog.version_snapshot(dep_keys))
+                         _dep_keys=dep_keys, _bound_versions=bound)

@@ -32,7 +32,9 @@ name); without it, on the plain torch
 :class:`~repro_torch.index.flat.FlatIndex`.  With ``quant`` the batched
 flat scans stream the corpus's int8 or bf16 twin and re-rank in exact fp32
 (``kernels/quant.py``): the answers stay the fp32 kernels' bit for bit.
-The IVF probes stay fp32 under ``quant``.
+The IVF probes stay fp32 under ``quant``.  Over a live corpus
+(``data/mutations.py``) the batched builders read its segments and merge
+its delta segment into every class's result (the live section below).
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ from typing import Any, Callable
 
 import torch
 
+from ..dist.collectives import merge_topk_level
+from ..index.delta import delta_range_batch, delta_topk_batch
 from ..index.flat import (FlatIndex, compact_range, masked_topk,
                           stable_smallest_k)
 from ..index.ivf import (ProbeConfig, ivf_range, ivf_range_batch,
@@ -163,29 +167,33 @@ def _join_mask_fn(pred: Expr | None, ltab: Table, rtab: Table,
 
 def _join_mask_batch_fn(pred: Expr | None, ltab: Table, rtab: Table,
                         lalias: str | None, ralias: str | None):
-    """Residual join predicate -> (binds, qn=None) -> (L, Nright) bool, ALL
-    left rows at once.
+    """Residual join predicate -> (binds, qn=None, right=None) -> (L,
+    Nright) bool, ALL left rows at once.
 
     Left columns evaluate as (L, 1) and right columns as (1, N), so
     broadcasting gives every (left row, right row) pair's mask in one
     columnar pass, the left rows playing Q.  With ``qn`` stacked bind sets
     everything gains a leading axis — binds (Q, 1, 1), left (1, L, 1),
     right (1, 1, N) — and the mask is (Q, L, N) (the reference's
-    ``jax.vmap`` over the same function)."""
+    ``jax.vmap`` over the same function).  ``right`` (a table-like column
+    source, e.g. a live segment's :class:`_ColsTable`) replaces the right
+    table's columns."""
     if pred is None:
         return None
     owner = _owner_fn(ltab, rtab, lalias, ralias)
     dev = rtab.device
 
-    def fn(binds: Bindings, qn: int | None = None) -> torch.Tensor:
+    def fn(binds: Bindings, qn: int | None = None,
+           right=None) -> torch.Tensor:
+        right = rtab if right is None else right
         lead = () if qn is None else (1,)
         param = (stacked_param(binds, qn, 2, dev) if qn is not None
                  else lambda name: as_tensor(binds[name], dev))
         m = _eval_join_pred(
             pred, owner,
             lambda name: ltab[name].reshape(lead + (-1, 1)),
-            lambda name: rtab[name].reshape(lead + (1, -1)), param, dev)
-        shape = (ltab.num_rows, rtab.num_rows)
+            lambda name: right[name].reshape(lead + (1, -1)), param, dev)
+        shape = (ltab.num_rows, right.num_rows)
         return m.expand(shape if qn is None else (qn,) + shape)
 
     return fn
@@ -319,6 +327,18 @@ def _flatten_left_batch(lvec: torch.Tensor, binds: dict, mask_b):
     return qn, nleft, qs, rm
 
 
+def _join_batch_masks(lvec: torch.Tensor, binds: dict, mask_b, arrays,
+                      live: bool):
+    """:func:`_flatten_left_batch` plus the delta mask: over a live corpus
+    both masks come from its segments (:func:`_live_join_masks`).  Returns
+    (qn, nleft, qs, rm, dmask)."""
+    if not live:
+        return _flatten_left_batch(lvec, binds, mask_b) + (None,)
+    qn, nleft, qs, _ = _flatten_left_batch(lvec, binds, None)
+    return (qn, nleft, qs) + _live_join_masks(mask_b, arrays, binds, qn,
+                                              nleft)
+
+
 def _flatten_valid_budget(qvalid, probe_budget, qn: int, nleft: int,
                           device):
     """Expand per-bind-set ``qvalid`` (Q,) and ``probe_budget`` (scalar |
@@ -408,6 +428,131 @@ def _extra_evals(stats: dict, extra: int, qvalid) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the live-corpus lowering, selected by an attached LiveCorpus
+# ---------------------------------------------------------------------------
+#
+# When catalog.live_for(scanned table, scanned column) is attached, the
+# batched builders swap two things into the pipeline and leave the rest:
+#
+# 1. The masks come from the LIVE tensors: the main segment's validity lane
+#    (the tombstone bitmap) ANDed with the predicate over the live scalar
+#    columns, the same row-mask layout every kernel and IVF probe takes, so
+#    a tombstoned row is inert as a pad row is.  The delta segment gets the
+#    same at its own width.
+# 2. After the main-segment result (IVF or flat, unchanged code), the delta
+#    segment is scanned by the plain flat scan and merged in as one more
+#    level of the per-query merge (index/delta.py, dist/collectives.py).
+#    Merged ids >= cap_main name delta slots (LiveCorpus.user_ids maps
+#    them back).
+#
+# Live plans compose with the exact engines only (chase and brute; see
+# compiler._validate_live), and the single-query path runs the batched
+# lowering at Q = 1 (compiler._single_via_batch), so no single builder has
+# a live branch.  The delta range merge re-sorts each query's buffer
+# best-first, so live IVF range results are best-first even with no delta
+# row (frozen IVF plans keep probe discovery order).
+
+
+class _ColsTable:
+    """The live segment's scalar columns standing in for a :class:`Table`
+    in expression evaluation (which reads only ``table[name]``, ``device``
+    and ``num_rows``)."""
+
+    def __init__(self, cols: dict, valid: torch.Tensor):
+        self._cols = cols
+        self.device = valid.device
+        self.num_rows = valid.shape[0]
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._cols[name]
+
+
+def _live_scan_masks(pred: Expr | None, arrays, binds, qn: int):
+    """Live (main, delta) row masks of the scan classes (Q1, Q2, Q5).
+
+    With a structured predicate each is per query, (Q, cap_main) and (Q,
+    delta_cap): the segment's validity lane (tombstones and empty slots)
+    ANDed with the predicate over the live scalar columns.  Without one
+    the validity lanes come back 1-D: the kernels take their shared-mask
+    path, which keeps a live scan at a frozen scan's cost, and the IVF
+    probes take a shared mask as it is."""
+    mv, dv = arrays["live_main_valid"], arrays["live_delta_valid"]
+    if pred is None:
+        return mv, dv
+
+    def seg(cols, valid):
+        return evaluate_batch(pred, _ColsTable(cols, valid), binds,
+                              qn) & valid[None, :]
+
+    return seg(arrays["live_cols"], mv), seg(arrays["live_dcols"], dv)
+
+
+def _live_join_masks(mask_b, arrays, binds, qn: int, nleft: int):
+    """Live (main, delta) masks of the join classes in the flattened (Q·L,
+    segment) layout of :func:`_flatten_left_batch`: the join predicate with
+    the right columns read from the live segments (the left side stays
+    frozen: only the scanned column is live), ANDed with each segment's
+    validity lane."""
+    mv, dv = arrays["live_main_valid"], arrays["live_delta_valid"]
+
+    def seg(cols, valid):
+        if mask_b is None:
+            return valid[None, :].expand(qn * nleft, -1)
+        m = mask_b(binds, qn, _ColsTable(cols, valid))
+        return m.reshape(qn * nleft, -1) & valid[None, :]
+
+    return seg(arrays["live_cols"], mv), seg(arrays["live_dcols"], dv)
+
+
+def _merge_delta_topk(metric: Metric, arrays, qs, k: int, dmask, qvalid,
+                      ids, sims, valid, stats):
+    """Merge the delta segment's top-k into a main-segment (Q, k) result.
+
+    The main candidates are merge side A, so equal keys go main first and
+    an empty delta leaves the main result bit for bit; that licenses the
+    skip below: with no live delta row (the plan's ``live_has_delta``, the
+    host's knowledge at re-bind time, so no device sync) the scan and the
+    merge are not run.  The scan adds delta_cap distance evals per valid
+    query to the counters when it runs."""
+    if not arrays["live_has_delta"]:
+        return ids, sims, valid, stats
+    delta = arrays["live_delta_vec"]
+    dkeys, dgids = delta_topk_batch(metric, delta, qs, k, dmask, qvalid,
+                                    arrays["corpus"].shape[0])
+    mkeys = torch.where(valid, order_key(metric, sims), float("inf"))
+    ids, sims, valid = merge_topk_level(metric, mkeys,
+                                        torch.where(valid, ids, -1), dkeys,
+                                        dgids, k)
+    evals = _flat_evals(qvalid, qs.shape[0], delta.shape[0], qs.device)
+    return ids, sims, valid, {**stats, "distance_evals":
+                              stats["distance_evals"] + evals}
+
+
+def _merge_delta_range(metric: Metric, arrays, qs, radius, capacity: int,
+                       dmask, qvalid, ids, sims, valid, count, stats):
+    """Merge the delta segment's range hits into a main-segment result.
+
+    The merged buffer is ``min(capacity, main width + delta width)`` wide
+    and best-first; ``count`` stays exact past truncation (the main count
+    plus the delta's exact count).  The counters as in
+    :func:`_merge_delta_topk`, but with no skip: the merge is what sorts IVF
+    range hits best-first, an order the live range classes keep at any
+    delta fill."""
+    delta = arrays["live_delta_vec"]
+    dkeys, dgids, dcount = delta_range_batch(
+        metric, delta, qs, radius, dmask, qvalid, arrays["corpus"].shape[0],
+        int(capacity))
+    mkeys = torch.where(valid, order_key(metric, sims), float("inf"))
+    w = min(int(capacity), ids.shape[1] + dkeys.shape[1])
+    ids, sims, valid = merge_topk_level(metric, mkeys,
+                                        torch.where(valid, ids, -1), dkeys,
+                                        dgids, w)
+    evals = _flat_evals(qvalid, qs.shape[0], delta.shape[0], qs.device)
+    return ids, sims, valid, count + dcount, {
+        **stats, "distance_evals": stats["distance_evals"] + evals}
+
+
+# ---------------------------------------------------------------------------
 # Q1 — VKNN-SF
 # ---------------------------------------------------------------------------
 
@@ -468,6 +613,7 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         raise ValueError("VKNN-SF query must be a parameter")
     index = catalog.index_for(a.table, a.vector_column)
     cfg = opts.probe
+    live = catalog.live_for(a.table, a.vector_column) is not None
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
         corpus = arrays["corpus"]
@@ -477,7 +623,11 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         qn = qs.shape[0]
         if qvalid is not None:
             qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
-        row_mask = mask_fn(binds, qn) if mask_fn else None       # (Q, N)
+        if live:
+            row_mask, dmask = _live_scan_masks(a.structured_predicate,
+                                               arrays, binds, qn)
+        else:
+            row_mask = mask_fn(binds, qn) if mask_fn else None   # (Q, N)
         probe = dict(cfg=cfg, probe_budget=probe_budget, qvalid=qvalid)
         if opts.engine == "chase" and index is not None:
             ids, sims, valid, stats = ivf_topk_batch(
@@ -517,6 +667,10 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
             stats = {"probes": torch.zeros((qn,), dtype=torch.int32,
                                            device=dev),
                      "distance_evals": _flat_evals(qvalid, qn, n, dev)}
+        if live:
+            ids, sims, valid, stats = _merge_delta_topk(
+                metric, arrays, qs, k, dmask, qvalid, ids, sims, valid,
+                stats)
         return {"ids": ids, "sim": sims, "valid": valid, "stats": stats}
 
     return fn
@@ -587,6 +741,7 @@ def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
     index = catalog.index_for(a.table, a.vector_column)
     cfg = opts.probe
     radius_expr = a.radius
+    live = catalog.live_for(a.table, a.vector_column) is not None
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
         corpus = arrays["corpus"]
@@ -596,7 +751,11 @@ def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         radius = _radius_batch(radius_expr, table, binds, qn)
         if qvalid is not None:
             qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
-        row_mask = mask_fn(binds, qn) if mask_fn else None       # (Q, N)
+        if live:
+            row_mask, dmask = _live_scan_masks(a.structured_predicate,
+                                               arrays, binds, qn)
+        else:
+            row_mask = mask_fn(binds, qn) if mask_fn else None   # (Q, N)
         probe = dict(cfg=cfg, probe_budget=probe_budget, qvalid=qvalid)
         if opts.engine == "chase" and index is not None:
             ids, sims, valid, count, stats = ivf_range_batch(
@@ -612,6 +771,10 @@ def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
             ids, sims, valid, count, stats = _flat_range_topk_batch(
                 opts, metric, corpus, qs, radius, row_mask, cfg.capacity,
                 qvalid=qvalid, arrays=arrays)
+        if live:
+            ids, sims, valid, count, stats = _merge_delta_range(
+                metric, arrays, qs, radius, cfg.capacity, dmask, qvalid, ids,
+                sims, valid, count, stats)
         return {"ids": ids, "sim": sims, "valid": valid, "count": count,
                 "stats": stats}
 
@@ -640,16 +803,15 @@ def _dist_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions):
     metric = _metric_of(catalog, a.right_table, a.right_vector)
     index = catalog.index_for(a.right_table, a.right_vector)
     cfg = dataclasses.replace(opts.probe, capacity=opts.max_pairs)
+    live = catalog.live_for(a.right_table, a.right_vector) is not None
 
-    def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None):
+    def main(arrays, qs, radius, rm, qvalid, probe_budget):
         corpus = arrays["corpus"]
         if opts.engine not in ("chase", "vbase") or index is None:
             # the flat scan has no probe lane: probe_budget does nothing
             return _flat_range_topk_batch(opts, metric, corpus, qs, radius,
                                           rm, opts.max_pairs, qvalid=qvalid,
                                           arrays=arrays)
-        radius = torch.as_tensor(radius, dtype=torch.float32,
-                                 device=corpus.device).expand(qs.shape[0])
         probe = dict(cfg=cfg, probe_budget=probe_budget, qvalid=qvalid)
         if opts.engine == "chase":
             return ivf_range_batch(arrays["index"], corpus, qs, radius, rm,
@@ -658,6 +820,16 @@ def _dist_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions):
             arrays["index"], corpus, qs, radius, None, **probe)
         return (ids, *_vbase_range_post(metric, corpus, qs, ids, valid,
                                         radius, rm), stats)
+
+    def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None,
+             dmask=None):
+        radius = torch.as_tensor(radius, dtype=torch.float32,
+                                 device=qs.device).expand(qs.shape[0])
+        out = main(arrays, qs, radius, rm, qvalid, probe_budget)
+        if not live:
+            return out
+        return _merge_delta_range(metric, arrays, qs, radius, opts.max_pairs,
+                                  dmask, qvalid, *out)
 
     return core
 
@@ -695,18 +867,20 @@ def build_dist_join_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
     ltab, rtab = catalog.table(a.left_table), catalog.table(a.right_table)
     mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
                                  a.right_alias)
+    live = catalog.live_for(a.right_table, a.right_vector) is not None
     core = _dist_join_core(a, catalog, opts)
     radius_expr = a.radius
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
         lvec = arrays["left"]
-        qn, nleft, qs, rm = _flatten_left_batch(lvec, binds, mask_b)
+        qn, nleft, qs, rm, dmask = _join_batch_masks(lvec, binds, mask_b,
+                                                     arrays, live)
         fq, fb = _flatten_valid_budget(qvalid, probe_budget, qn, nleft,
                                        lvec.device)
         radius = _radius_batch(radius_expr, rtab, binds, qn)
         ids, sims, valid, counts, stats = core(
             arrays, qs, radius.repeat_interleave(nleft), rm, qvalid=fq,
-            probe_budget=fb)
+            probe_budget=fb, dmask=dmask)
         shape = (qn, nleft, ids.shape[1])
         qid = torch.arange(nleft, dtype=torch.int32, device=ids.device)
         return {"qid": qid[None, :, None].expand(shape),
@@ -823,8 +997,9 @@ def _knn_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions,
     flat scan over an index too, as in the reference."""
     metric = _metric_of(catalog, a.right_table, a.right_vector)
     index = catalog.index_for(a.right_table, a.right_vector)
+    live = catalog.live_for(a.right_table, a.right_vector) is not None
 
-    def core(arrays, qs, rm, qvalid=None, probe_budget=None):
+    def main(arrays, qs, rm, qvalid, probe_budget):
         corpus = arrays["corpus"]
         m, n = qs.shape[0], corpus.shape[0]
         if opts.engine == "chase" and index is not None:
@@ -849,6 +1024,12 @@ def _knn_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions,
                                        device=corpus.device),
                  "distance_evals": _flat_evals(qvalid, m, n, corpus.device)}
         return ids, sims, valid, stats
+
+    def core(arrays, qs, rm, qvalid=None, probe_budget=None, dmask=None):
+        out = main(arrays, qs, rm, qvalid, probe_budget)
+        if not live:
+            return out
+        return _merge_delta_topk(metric, arrays, qs, k, dmask, qvalid, *out)
 
     return core
 
@@ -890,15 +1071,17 @@ def build_knn_join_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
     k = _static_int(a.k, binds_static, "K")
     mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
                                  a.right_alias)
+    live = catalog.live_for(a.right_table, a.right_vector) is not None
     core = _knn_join_core(a, catalog, opts, k)
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
         lvec = arrays["left"]
-        qn, nleft, qs, rm = _flatten_left_batch(lvec, binds, mask_b)
+        qn, nleft, qs, rm, dmask = _join_batch_masks(lvec, binds, mask_b,
+                                                     arrays, live)
         fq, fb = _flatten_valid_budget(qvalid, probe_budget, qn, nleft,
                                        lvec.device)
         ids, sims, valid, stats = core(arrays, qs, rm, qvalid=fq,
-                                       probe_budget=fb)
+                                       probe_budget=fb, dmask=dmask)
         shape = (qn, nleft, k)
         qid = torch.arange(nleft, dtype=torch.int32, device=ids.device)
         return {"qid": qid[None, :, None].expand(shape),
@@ -976,12 +1159,21 @@ def _rank_per_category(metric: Metric, ids, keys, valid, cats, C: int,
     return cids, sims, cvalid
 
 
-def _ranked_buffer(metric: Metric, cats, ids, sims, valid, C: int, k: int):
+def _ranked_buffer(metric: Metric, cats, ids, sims, valid, C: int, k: int,
+                   dcats=None):
     """A best-first range buffer -> its per-category ranking.  The keys are
     rebuilt from the buffer's own sims (not from the corpus), so the rank
-    orders exactly what the scan emitted."""
+    orders exactly what the scan emitted.  With ``dcats`` (a live delta
+    segment's categories) an id >= len(cats) reads its category there."""
     keys = torch.where(valid, order_key(metric, sims), float("inf"))
-    bcats = torch.where(valid, cats[ids.clamp_min(0).long()], -1)
+    safe = ids.clamp_min(0).long()
+    n = cats.shape[0]
+    if dcats is None:
+        bcats = cats[safe]
+    else:
+        bcats = torch.where(safe < n, cats[safe.clamp_max(n - 1)],
+                            dcats[(safe - n).clamp(0, dcats.shape[0] - 1)])
+    bcats = torch.where(valid, bcats, -1)
     return _rank_per_category(metric, ids, keys, valid, bcats, C, k)
 
 
@@ -1023,22 +1215,28 @@ def _category_probe(opts: EngineOptions, metric: Metric, cfg: ProbeConfig,
 
 
 def _category_core(opts: EngineOptions, metric: Metric, index, C: int,
-                   k: int, vbase_extra_evals: bool):
+                   k: int, vbase_extra_evals: bool,
+                   live_cat_col: str | None = None):
     """(arrays, qs (M, d), radius, rm (M, N) | None) -> (M, C, K) ranked
     batch.  Shared by the Q5 bind-batch lowering and the Q6 left-row batch:
     one batched IVF probe (under the probe engines over an index) or one
     flat range scan of the (M, d) query batch, then the window rank for all
     M queries at once.  ``vbase_extra_evals`` counts vbase's recomputation
     as ``capacity`` evals per live query (Q5; the reference's Q6 counts
-    none)."""
+    none).  Over a live corpus (``live_cat_col``, the category column) the
+    delta segment merges in LOSSLESSLY (main plus delta buffer widths: the
+    window rank reads the whole buffer, so a truncation would drop
+    per-category candidates a frozen plan keeps), and merged delta ids
+    read their category from the live delta columns."""
     cfg = dataclasses.replace(opts.probe, num_categories=C, k_per_category=k)
     probed = index is not None and opts.engine in _CATEGORY_PROBE_ENGINES
 
-    def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None):
+    def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None,
+             dmask=None):
         corpus, cats = arrays["corpus"], arrays["categories"]
+        radius = torch.as_tensor(radius, dtype=torch.float32,
+                                 device=qs.device).expand(qs.shape[0])
         if probed:
-            radius = torch.as_tensor(radius, dtype=torch.float32,
-                                     device=corpus.device).expand(qs.shape[0])
             ids, sims, valid, stats = _category_probe(
                 opts, metric, cfg, arrays["index"], corpus, cats, qs, radius,
                 rm, probe_budget, qvalid)
@@ -1049,8 +1247,15 @@ def _category_core(opts: EngineOptions, metric: Metric, index, C: int,
             ids, sims, valid, _count, stats = _flat_range_topk_batch(
                 opts, metric, corpus, qs, radius, rm, cfg.capacity,
                 qvalid=qvalid, arrays=arrays)
+        dcats = None
+        if live_cat_col is not None:
+            width = ids.shape[1] + arrays["live_delta_vec"].shape[0]
+            ids, sims, valid, _count, stats = _merge_delta_range(
+                metric, arrays, qs, radius, width, dmask, qvalid, ids, sims,
+                valid, torch.zeros_like(ids[:, 0]), stats)
+            dcats = arrays["live_dcols"][live_cat_col]
         cids, csims, cvalid = _ranked_buffer(metric, cats, ids, sims, valid,
-                                             C, k)
+                                             C, k, dcats)
         return cids, csims, cvalid, stats
 
     return core
@@ -1131,9 +1336,12 @@ def build_category_partition_batch(a: Analysis, catalog: Catalog,
     C = _category_of(table, a)
     mask_fn = _row_mask_batch_fn(a.structured_predicate, table)
     qparam = a.query_expr
+    live = catalog.live_for(a.table, a.vector_column) is not None
     core = _category_core(opts, metric,
                           catalog.index_for(a.table, a.vector_column), C, k,
-                          vbase_extra_evals=True)
+                          vbase_extra_evals=True,
+                          live_cat_col=(a.category_column.name if live
+                                        else None))
     radius_expr = a.radius
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
@@ -1143,10 +1351,16 @@ def build_category_partition_batch(a: Analysis, catalog: Catalog,
         radius = _radius_batch(radius_expr, table, binds, qn)
         if qvalid is not None:
             qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
-        row_mask = mask_fn(binds, qn) if mask_fn else None       # (Q, N)
+        dmask = None
+        if live:
+            row_mask, dmask = _live_scan_masks(a.structured_predicate,
+                                               arrays, binds, qn)
+        else:
+            row_mask = mask_fn(binds, qn) if mask_fn else None   # (Q, N)
         cids, csims, cvalid, stats = core(arrays, qs, radius, row_mask,
                                           qvalid=qvalid,
-                                          probe_budget=probe_budget)
+                                          probe_budget=probe_budget,
+                                          dmask=dmask)
         return {"ids": cids, "sim": csims, "valid": cvalid,
                 "category": _categories(C, cids.shape, dev), "stats": stats}
 
@@ -1200,22 +1414,26 @@ def build_category_join_batch(a: Analysis, catalog: Catalog,
     C = _category_of(rtab, a)
     mask_b = _join_mask_batch_fn(a.join_predicate, ltab, rtab, a.left_alias,
                                  a.right_alias)
+    live = catalog.live_for(a.right_table, a.right_vector) is not None
     # the reference's Q6 counts no evals for vbase's recomputation, in
     # either lowering
     core = _category_core(opts, metric,
                           catalog.index_for(a.right_table, a.right_vector),
-                          C, k, vbase_extra_evals=False)
+                          C, k, vbase_extra_evals=False,
+                          live_cat_col=(a.category_column.name if live
+                                        else None))
     radius_expr = a.radius
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
         lvec = arrays["left"]
-        qn, nleft, qs, rm = _flatten_left_batch(lvec, binds, mask_b)
+        qn, nleft, qs, rm, dmask = _join_batch_masks(lvec, binds, mask_b,
+                                                     arrays, live)
         fq, fb = _flatten_valid_budget(qvalid, probe_budget, qn, nleft,
                                        lvec.device)
         radius = _radius_batch(radius_expr, rtab, binds, qn)
         cids, csims, cvalid, stats = core(
             arrays, qs, radius.repeat_interleave(nleft), rm, qvalid=fq,
-            probe_budget=fb)
+            probe_budget=fb, dmask=dmask)
         shape = (qn, nleft, C, k)
         qid = torch.arange(nleft, dtype=torch.int32, device=lvec.device)
         return {"qid": qid[None, :, None, None].expand(shape),

@@ -7,8 +7,9 @@ validity mask, never a physical shrink.
 
 The :class:`Catalog` keeps the reference's versioned registration clock so
 compiled plans can detect a re-registered table or re-bind a re-registered
-IVF index or quantized twin.  Live-corpus and sharded registrations belong
-to later slices of the port and raise ``NotImplementedError`` until then.
+IVF index or quantized twin, and a live corpus's mutations through its
+``("live", table, column)`` key.  Sharded registrations belong to a later
+slice of the port and raise ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -146,17 +147,19 @@ class Catalog:
     clock.
 
     Every registration bumps a monotonic catalog clock and stamps the
-    touched key (``("table", name)``, ``("index", table, column)`` or
-    ``("quantized", table, column)``); compiled plans snapshot the versions
-    of the keys they captured and compare at execute time
-    (``CompiledQuery.ensure_fresh``), so a re-registered table raises
-    ``StalePlanError`` instead of serving frozen data, and a re-registered
-    index or twin re-binds in place."""
+    touched key (``("table", name)``, ``("index", table, column)``,
+    ``("quantized", table, column)`` or ``("live", table, column)``);
+    compiled plans snapshot the versions of the keys they captured and
+    compare at execute time (``CompiledQuery.ensure_fresh``), so a
+    re-registered table raises ``StalePlanError`` instead of serving frozen
+    data, and a re-registered index or twin, or a live corpus's mutation,
+    re-binds in place."""
 
     def __init__(self):
         self._tables: dict[str, Table] = {}
         self._indexes: dict[tuple, Any] = {}
         self._quantized: dict[tuple, Any] = {}
+        self._live: dict[tuple, Any] = {}
         self._clock = 0
         self._versions: dict[tuple, int] = {}
 
@@ -222,13 +225,39 @@ class Catalog:
         return self._quantized.get((table, column, key))
 
     def register_live(self, table: str, column: str, live: Any) -> None:
-        """Live corpora belong to a later slice of the port."""
-        raise not_ported("Catalog.register_live (live corpus)", "10")
+        """Attach a :class:`~repro_torch.data.mutations.LiveCorpus` to a
+        (table, vector column) pair.
+
+        Bumps BOTH ``("live", table, column)`` and ``("table", table)``:
+        attaching changes the corpus layout (fixed-capacity padded segments
+        replace the frozen column), so plans compiled before the attach
+        raise ``StalePlanError`` and re-prepare.  Later inserts, deletes
+        and compactions bump only the live key: live plans carry every
+        segment tensor from their first compile and re-bind in place."""
+        self._live[(table, column)] = live
+        self._bump(("live", table, column))
+        self._bump(("table", table))
+
+    def bump_live(self, table: str, column: str) -> int:
+        """Advance ``("live", table, column)`` (a mutation or compaction
+        landed) and return the new clock value: the WAL's LSN source, so
+        log sequence numbers ride the clock that drives plan re-binding."""
+        self._bump(("live", table, column))
+        return self._versions[("live", table, column)]
 
     def live_for(self, table: str, column: str):
-        """The live corpus attached to (table, column): always None until
-        the live-corpus slice lands."""
-        return None
+        """The LiveCorpus attached to (table, column), or None."""
+        return self._live.get((table, column))
+
+    def live_columns(self, table: str) -> list[str]:
+        """Vector columns of ``table`` with a live corpus attached."""
+        return [c for (t, c) in self._live if t == table]
+
+    def advance_clock(self, to: int) -> None:
+        """Fast-forward the clock to at least ``to``: recovery replays LSNs
+        minted by an earlier process's clock, and the bumps after it must
+        stay past them."""
+        self._clock = max(self._clock, int(to))
 
     def register_sharded(self, table: str, column: str, sharded: Any) -> None:
         """Sharded corpora belong to a later slice of the port."""

@@ -161,10 +161,11 @@ class QueryServer:
 
         ``op`` is ``"insert"`` (requires ``ids`` + ``vectors``),
         ``"delete"`` (requires ``ids``), or ``"compact"``.  Mutations share
-        the query admission watermark.  The live corpus is a later slice of
-        the port: until it lands no table has one attached, and this raises
-        :class:`~repro_torch.serving.resilience.MutationError` as the
-        reference does for a table without one."""
+        the query admission watermark.  The mutation runs on the event
+        loop's thread pool under the live corpus's lock; a drain re-binds
+        the plan on its own thread under the same lock, so it sees each
+        mutation whole or not at all.  A table without a live corpus
+        raises :class:`~repro_torch.serving.resilience.MutationError`."""
         from ..core.compiler import _scan_of
         if not self._running:
             raise RuntimeError("server is not running (use `async with` "

@@ -63,8 +63,8 @@ class InjectedCrashError(RuntimeError):
 #: durability step, so a crash there is the worst torn state that step can
 #: leave on disk: a WAL record lost entirely, a half-written tail line,
 #: a snapshot requested but never written, a compaction logged but never
-#: swapped (the reference's data/mutations.py guards each step; the port's
-#: live corpus, a later slice, calls :meth:`FaultInjector.crash_point`).
+#: swapped (``data/mutations.py`` calls :meth:`FaultInjector.crash_point`
+#: at each).
 CRASH_SITES = (
     "wal.pre_append",        # mutation validated, nothing durable yet
     "wal.torn_append",       # partial WAL line flushed, then crash

@@ -18,8 +18,9 @@ The serving path makes every failure mode an explicit, typed stage between
   configured (queue-depth, budget) steps, with hysteresis.  Executions run
   at a degraded level report it in ``Result.explain()``.
 
-The mutation errors and their admission checks are host numpy, kept for
-the live corpus (a later slice of the port).  Everything here is
+The mutation errors and their admission checks are host numpy; the live
+corpus (``data/mutations.py``) runs them before it logs anything.
+Everything here is
 deterministic given the observed queue depths.
 """
 from __future__ import annotations

@@ -139,10 +139,8 @@ def test_predicates_match_reference_single_and_batched(catalogs):
 
 def test_unported_registrations_raise(catalogs):
     _, cat = catalogs
-    for call in (lambda: cat.register_live("laion", "vec", object()),
-                 lambda: cat.register_sharded("laion", "vec", object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cat.register_sharded("laion", "vec", object())
     assert cat.live_for("laion", "vec") is None
     assert cat.quantized_for("laion", "vec", "int8") is None   # ported
     # ported: an index registration is stored and bumps its version key
@@ -152,6 +150,15 @@ def test_unported_registrations_raise(catalogs):
     assert fresh.index_for("laion", "vec") is index
     assert fresh.version(("index", "laion", "vec")) > 0
     assert fresh.index_for("laion", "embedding") is None
+    # ported: a live registration is stored and bumps both its live key
+    # and its table's key (plans on the frozen layout go stale)
+    live, table = object(), fresh.version(("table", "laion"))
+    fresh.register_live("laion", "vec", live)
+    assert fresh.live_for("laion", "vec") is live
+    assert fresh.live_columns("laion") == ["vec"]
+    assert fresh.version(("live", "laion", "vec")) > 0
+    assert fresh.version(("table", "laion")) > table
+    assert fresh.live_for("laion", "embedding") is None
 
 
 @pytest.mark.parametrize("metric", ["ip", "l2", "cosine"])

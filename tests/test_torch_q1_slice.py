@@ -19,7 +19,8 @@ from repro.data import make_laion_catalog as ref_make_catalog
 from repro_torch.api import ExecutionHints, connect
 from repro_torch.data import make_laion_catalog
 from repro_torch.index import build_ivf
-from repro_torch.serving import BatchScheduler, run_effort_bucketed
+from repro_torch.serving import (BatchScheduler, MutationError,
+                                 run_effort_bucketed)
 from repro_torch.testing import assert_topk_close
 
 TOL = 1e-5
@@ -261,8 +262,10 @@ def test_unported_surfaces_raise(env):
         connect(cat, aot_cache_path="unused")
     db = connect(cat, engine="brute")
     st = db.prepare(Q1, K=K)
+    # the live corpus is ported: a table without one rejects a mutation
+    with pytest.raises(MutationError, match="no live corpus"):
+        db.insert("laion", [1], None)
     for call in (lambda: db.advise(Q1, K=K),
-                 lambda: db.insert("laion", [1], None),
                  lambda: run_effort_bucketed(
                      st, st._stack_binds(_binds(2), {}), 2,
                      advisor=object())):
