@@ -235,7 +235,39 @@ one JSON line each:
            write, swap + upload, IVF rebuild), snapshot and recovery
            times, chase live Q1 at 1, 8, 64, 100 with the IVF caps, peak
            device memory; all under one temporary directory (free space
-           checked first, removed at the end)
+           checked first, removed at the end).  Also: Q1 under
+           ``EngineOptions(dist=DistSpec())`` over the live corpus equals
+           the live flat plan bit for bit (lists of 1, 8, 64, 100) at zero
+           delta and at 50% delta fill
+  sharded  (after live) every class under ``EngineOptions(dist=DistSpec((1,),
+           ("data",)))``, flat (brute, use_pallas=True): the one shard is a
+           view of the corpus and runs the batched kernels, then the
+           hierarchical merge.  Four gates: Q1, Q2 and Q5 at lists of 1, 8,
+           64, 100, Q3, Q4 and Q6 over the 100 left rows, predicate-free Q1
+           and Q2, in fp32 and (Q1, Q2) under int8 and bf16, equal the flat
+           bucketed path bit for bit, counters included; at a list of 100
+           (bucket 128) the 28 pad lanes emit and count nothing; a
+           same-spec re-prepare builds no executor, another axis name
+           misses the plan cache, the ShardedCorpus is registered once and
+           reused; DistSpec((2,)) on a one-card machine raises
+           DeviceCountError naming the count (on two cards it runs, bit for
+           bit).  Line ``e2e_sharded``: latency beside the flat path (Q1,
+           Q2, Q5 at each list length, in turns), the merge's time and
+           share at a list of 100, peak memory
+  adaptive (after sharded) ``connect(cat, adaptive=True)`` (the card's
+           CostModel) over the ivf phase's index under chase: Q1 at a list
+           of 100 with the serve phase's selectivity mix, Q3 over 100 left
+           rows, and brute Q1 (which must decide lock-step, ``flat``).
+           Each workload warmed 3 times, then lock-step, the static p75
+           pilot and adaptive, 10 each in turns.  Four gates: the three
+           policies bit for bit, counters included; a second advisor fed
+           the same observations emits the same decisions; no executor
+           built after the warm-up; ExecutionHints beat the advisor.  Line
+           ``e2e_adaptive``: each policy's ms, the decision sources, the
+           host copies per adaptive execute, ``CostModel.describe()``, and
+           this run's own measure of the card's constants (quantized Q1
+           against fp32 at a list of 64, and the per-row gather penalty
+           from chase's distance evals)
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero without the last line.
 
@@ -270,6 +302,8 @@ Q1_NOFILTER = ("SELECT sample_id FROM products "
                "ORDER BY DISTANCE(embedding, ${qv}) LIMIT ${K}")
 Q2 = ("SELECT sample_id FROM images WHERE DISTANCE(embedding, ${qv}) <= ${r} "
       "AND price < ${p}")
+Q2_NOFILTER = ("SELECT sample_id FROM images "
+               "WHERE DISTANCE(embedding, ${qv}) <= ${r}")
 Q3 = ("SELECT queries.id AS qid, images.sample_id AS tid "
       "FROM queries JOIN images "
       "ON DISTANCE(queries.embedding, images.embedding) <= ${r} "
@@ -1628,6 +1662,370 @@ def serve_phase(cat, qv, r, index, reset_counts, counts, launches, record,
     torch.cuda.empty_cache()
 
 
+def sharded_phase(cat, qv, p, r, drive, launches, smi: str,
+                  name: str) -> None:
+    """The ``sharded`` phase: every class under ``EngineOptions(dist=
+    DistSpec((1,), ("data",)))`` on the card against the flat bucketed path
+    (``brute``, ``use_pallas=True``), held to four gates (bit for bit, pad
+    lanes inert, the mesh keys the plan cache and the handle is registered
+    once as a view of the corpus, a mesh of more devices than the machine
+    has raises), then the ``e2e_sharded`` line: latency beside the flat
+    path at each list length, peak device memory, the merge's share."""
+    from repro_torch.api import ExecutionHints, connect
+    from repro_torch.core.expr import order_key
+    from repro_torch.core.physical import EngineOptions
+    from repro_torch.dist import DeviceCountError, DistSpec
+    from repro_torch.dist.collectives import _merge_topk
+
+    t_phase = time.perf_counter()
+    spec = DistSpec((1,), ("data",))
+    flat_opts = dict(engine="brute", use_pallas=True)
+    dbs = {mode: (connect(cat, quant=mode, **flat_opts),
+                  connect(cat, quant=mode, dist=spec, **flat_opts))
+           for mode in (None,) + MODES}
+    q1b = [{"qv": qv[i], "p": p} for i in range(N_QUERIES)]
+    q1n = [{"qv": qv[i]} for i in range(N_QUERIES)]
+    q2b = [{"qv": qv[i], "r": r, "p": p} for i in range(N_QUERIES)]
+    q2n = [{"qv": qv[i], "r": r} for i in range(N_QUERIES)]
+    q5b = [{"qv": qv[i], "r": r, "ex": np.int32(EX)}
+           for i in range(N_QUERIES)]
+    lists = {"q1": (Q1, q1b), "q1_nofilter": (Q1_NOFILTER, q1n),
+             "q2": (Q2, q2b), "q2_nofilter": (Q2_NOFILTER, q2n),
+             "q5": (Q5, q5b)}
+    joins = {"q3": (Q3, [{"r": r}]), "q4": (Q4Y, [{"y": np.int32(1980)}]),
+             "q6": (Q6, [{"r": r}])}
+    need = {"q1": "scan_topk_batch", "q1_nofilter": "scan_topk_batch",
+            "q4": "scan_topk_batch", "q2": "range_scan_batch",
+            "q2_nofilter": "range_scan_batch", "q3": "range_scan_batch",
+            "q5": "range_scan_batch", "q6": "range_scan_batch"}
+    qneed = {"q1": ("quant_scan_topk_batch", "replay_keys"),
+             "q1_nofilter": ("quant_scan_topk_batch", "replay_keys"),
+             "q2": ("quant_keys_batch",), "q2_nofilter": ("quant_keys_batch",)}
+
+    def prep(db_, sql):
+        return db_.prepare(sql, K=K) if "${K}" in sql else db_.prepare(sql)
+
+    # -- gate 1: bit for bit the flat bucketed path ------------------------
+    held = {}
+    for mode in (None,) + MODES:
+        flat_db, dist_db = dbs[mode]
+        cases = dict(lists, **joins) if mode is None else {
+            q: lists[q] for q in ("q1", "q1_nofilter", "q2", "q2_nofilter")}
+        for q, (sql, binds) in cases.items():
+            st = prep(dist_db, sql)
+            want_st = prep(flat_db, sql)
+            runs = ([(f"list{qn}", st, binds[:qn], None) for qn in BATCHES]
+                    if q in lists else [("left100", st, binds, None)])
+            path = f"sharded_{q}" + (f"_{mode}" if mode else "")
+            for label, _s, b, _h, res in drive(path, runs):
+                want = want_st.execute(b)
+                torch.cuda.synchronize()
+                bitwise(res.data, want.data, f"sharded gate 1 {path} {label}")
+                rep = res.explain()
+                if rep.shards != 1 or rep.merge_depth != 1 or \
+                        not rep.batch_lowering.startswith("native sharded"):
+                    raise AssertionError(f"sharded {path}: {rep.render()}")
+            for kname in ((need[q],) if mode is None else qneed[q]):
+                if launches[path][kname] < 1:
+                    raise AssertionError(f"sharded {path}: no {kname} launch")
+            held[path] = len(runs)
+    gates = {"bitwise_flat": held}
+
+    # -- gate 2: the 28 pad lanes of bucket 128 ----------------------------
+    pads = {}
+    for q in ("q1", "q2", "q5"):
+        sql, binds = lists[q]
+        st = prep(dbs[None][1], sql)
+        stacked = st._stack_binds(binds, {})
+        out, bucket, valid = st.compiled.executor.run_padded(stacked,
+                                                             N_QUERIES)
+        torch.cuda.synchronize()
+        if bucket != 128 or bool(out["valid"][N_QUERIES:].any()):
+            raise AssertionError(f"sharded gate 2 {q}: a pad lane emitted")
+        for key, v in out["stats"].items():
+            if bool(v[N_QUERIES:].any()):
+                raise AssertionError(f"sharded gate 2 {q}: pad {key}")
+        if "count" in out and bool(out["count"][N_QUERIES:].any()):
+            raise AssertionError(f"sharded gate 2 {q}: a pad lane counted")
+        pads[q] = {"bucket": bucket, "pad_lanes": bucket - N_QUERIES}
+    gates["pad_lanes_inert"] = pads
+
+    # -- gate 3: the plan cache and the handle -----------------------------
+    dist_db = dbs[None][1]
+    s1 = prep(dist_db, Q1)
+    s1.execute(q1b)
+    traces = dict(s1.executor.trace_counts)
+    s2 = prep(dist_db, Q1)
+    s2.execute(q1b)
+    if not s2.cache_hit or s2.executor is not s1.executor or \
+            dict(s1.executor.trace_counts) != traces:
+        raise AssertionError("sharded gate 3: a same-spec re-prepare built")
+    other = DistSpec((1,), ("shard",))
+    s3 = dist_db.prepare(Q1, K=K, options=EngineOptions(**flat_opts,
+                                                         dist=other))
+    if s3.cache_hit or s3.executor is s1.executor:
+        raise AssertionError("sharded gate 3: another axis name hit")
+    handle = cat.sharded_for("products", "embedding", spec)
+    corpus = cat.table("products")["embedding"]
+    if handle is None or s1.compiled._arrays["sharded"] is not handle or \
+            prep(dist_db, Q1_NOFILTER).compiled._arrays["sharded"] \
+            is not handle:
+        raise AssertionError("sharded gate 3: the handle is not reused")
+    if handle.shards[0].data_ptr() != corpus.data_ptr():
+        raise AssertionError("sharded gate 3: one shard copied the corpus")
+    gates["plan_cache"] = {"same_spec_hit": True, "other_axis_miss": True,
+                           "trace_counts": traces, "handle_is_view": True}
+
+    # -- gate 4: two shards on this machine --------------------------------
+    two = DistSpec((2,), ("data",))
+    have = torch.cuda.device_count()
+    if have < 2:
+        try:
+            prep(connect(cat, dist=two, **flat_opts), Q1)
+        except DeviceCountError as e:
+            if f"have {have}" not in str(e):
+                raise AssertionError(f"sharded gate 4: {e}") from e
+            gates["too_few_devices"] = {"devices": have, "error": str(e)}
+        else:
+            raise AssertionError("sharded gate 4: two shards ran on one card")
+    else:
+        res = prep(connect(cat, dist=two, **flat_opts), Q1).execute(q1b)
+        bitwise(res.data, prep(dbs[None][0], Q1).execute(q1b).data,
+                "sharded gate 4 two cards")
+        gates["two_cards_bitwise"] = {"devices": have}
+
+    # -- e2e_sharded ---------------------------------------------------------
+    lat = {}
+    for q in ("q1", "q2", "q5"):
+        sql, binds = lists[q]
+        fs, ds = prep(dbs[None][0], sql), prep(dbs[None][1], sql)
+        lat[q] = {}
+        for qn in BATCHES:
+            b = binds[:qn]
+            f_ms, d_ms = [], []
+            for _ in range(5):                  # in turns
+                f_ms.append(latency_ms(lambda: fs.execute(b)))
+                d_ms.append(latency_ms(lambda: ds.execute(b)))
+            f_ms, d_ms = statistics.median(f_ms), statistics.median(d_ms)
+            lat[q][f"list{qn}"] = {"flat_ms": f_ms, "sharded_ms": d_ms,
+                                   "ratio": d_ms / f_ms}
+    # the merge alone at the shapes of a list of 100 (bucket 128)
+    metric = cat.table("products").schema["embedding"].metric
+    res = prep(dbs[None][1], Q1).execute(q1b)
+    keys = torch.where(res["valid"], order_key(metric, res["sim"]),
+                       float("inf"))
+    keys = torch.cat([keys, keys[-28:]])
+    gids = torch.cat([res["ids"], res["ids"][-28:]])
+    merge_q1 = time_ms(lambda: _merge_topk(metric, [keys], [gids], K, (1,),
+                                           keys.device))
+    res = prep(dbs[None][1], Q2).execute(q2b)
+    keys = torch.where(res["valid"], order_key(metric, res["sim"]),
+                       float("inf"))
+    keys = torch.cat([keys, keys[-28:]])
+    gids = torch.cat([res["ids"], res["ids"][-28:]])
+    merge_q2 = time_ms(lambda: _merge_topk(metric, [keys], [gids], CAPACITY,
+                                           (1,), keys.device))
+    peak = {q: {"flat_mb": peak_mb(lambda: prep(dbs[None][0], lists[q][0])
+                                   .execute(lists[q][1])),
+                "sharded_mb": peak_mb(lambda: prep(dbs[None][1], lists[q][0])
+                                      .execute(lists[q][1]))}
+            for q in ("q1", "q2")}
+    emit({"phase": "sharded", "spec": repr(spec), "gates": gates,
+          "launches": {k: v for k, v in launches.items()
+                       if k.startswith("sharded_")}})
+    emit({"phase": "e2e_sharded", "device": name, "nvidia_smi": smi,
+          "latency_ms": lat,
+          "merge_ms": {"q1_list100": merge_q1, "q2_list100": merge_q2},
+          "merge_share": {
+              "q1_list100": merge_q1 / lat["q1"][f"list{N_QUERIES}"][
+                  "sharded_ms"],
+              "q2_list100": merge_q2 / lat["q2"][f"list{N_QUERIES}"][
+                  "sharded_ms"]},
+          "peak_mb_list100": peak,
+          "resident_mb": torch.cuda.memory_allocated() / 2**20,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def adaptive_phase(cat, qv, r, drive, launches, smi: str, name: str) -> None:
+    """The ``adaptive`` phase (shaped after benchmarks/q14_adaptive.py):
+    ``connect(cat, adaptive=True)`` with the card's ``CostModel`` over the
+    ``ivf`` phase's index under ``chase``.  Workloads: ``single`` (Q1, a
+    list of 100 at the serve phase's selectivity mix), ``join`` (Q3 over
+    100 left rows, one bind set) and ``flat`` (brute Q1, which must decide
+    lock-step for want of a probe lane).  Each is warmed 3 times, then runs
+    lock-step, under the static p75 pilot and adaptive, 10 each, in turns.
+    Four gates: the three policies bit for bit, a second advisor fed the
+    same observations decides the same, no executor built after the
+    warm-up, hints beat the advisor.  Line ``e2e_adaptive``: the policies'
+    ms, decision sources, host copies per adaptive execute, the cost
+    model's constants and this run's own measurements of them."""
+    from repro_torch.api import ExecutionHints, connect
+    from repro_torch.core.physical import ProbeConfig
+    from repro_torch.data import selectivity_threshold
+    from repro_torch.opt import CostModel, LoweringAdvisor
+    from repro_torch.serving import scheduler as sched_mod
+
+    t_phase = time.perf_counter()
+    probe = ProbeConfig(**IVF_PROBE)
+    price = cat.table("products")["price"]
+    p_bulk = np.float32(selectivity_threshold(price, SELECTIVITY))
+    p_needle = np.float32(selectivity_threshold(price, NEEDLE))
+    single = [{"qv": qv[i], "p": p_needle if i % 8 == 7 else p_bulk}
+              for i in range(N_QUERIES)]
+    adb = connect(cat, adaptive=True, engine="chase", use_pallas=True,
+                  probe=probe)
+    pdb = connect(cat, engine="chase", use_pallas=True, probe=probe)
+    advisor = adb.advisor
+    if advisor.cost.describe() != CostModel().describe():
+        raise AssertionError("adaptive: the session's advisor is not on the "
+                             "card's cost model")
+    # record what the advisor sees, to replay it into a second one (gate 2)
+    seen, copies = [], {"counters": 0}
+    real_advise, real_observe = advisor.advise_batch, advisor.observe
+    real_counters = sched_mod.host_counters
+
+    def advise(compiled, binds):
+        d = real_advise(compiled, binds)
+        seen.append([compiled, binds, d, None])
+        return d
+
+    def observe(compiled, decision, counters, latency_ms=0.0):
+        seen[-1][3] = {k: np.copy(v) for k, v in counters.items()}
+        return real_observe(compiled, decision, counters, latency_ms)
+
+    def counted(out):
+        copies["counters"] += 1
+        return real_counters(out)
+
+    advisor.advise_batch, advisor.observe = advise, observe
+    sched_mod.host_counters = counted
+    try:
+        work = {"single": (Q1, single, K), "join": (Q3, [{"r": r}], None)}
+        out, decisions = {}, {}
+        for wname, (sql, binds, k) in work.items():
+            kw = {"K": k} if k else {}
+            ast, pst = adb.prepare(sql, **kw), pdb.prepare(sql, **kw)
+            lock = pst.execute(binds)
+            nat = lock["stats"]["probes"].cpu().numpy()
+            pilot = int(np.percentile(nat, 75)) + 1
+            policies = {
+                "lockstep": lambda: pst.execute(binds),
+                "pilot_p75": lambda: pst.execute(
+                    binds, hints=ExecutionHints(pilot_budget=pilot)),
+                "adaptive": lambda: ast.execute(binds)}
+            for _ in range(3):                          # warm-up
+                for fn in policies.values():
+                    fn()
+            torch.cuda.synchronize()
+            traces = {pol: dict((ast if pol == "adaptive" else pst)
+                                .executor.trace_counts) for pol in policies}
+            ms = {pol: [] for pol in policies}
+            last, adaptive_copies = {}, []
+            for _ in range(10):
+                for pol, fn in policies.items():
+                    c0 = copies["counters"]
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    last[pol] = fn()
+                    torch.cuda.synchronize()
+                    ms[pol].append((time.perf_counter() - t) * 1e3)
+                    if pol == "adaptive":
+                        adaptive_copies.append(copies["counters"] - c0)
+            # gate 1: the three policies bit for bit, counters included
+            for pol in ("pilot_p75", "adaptive"):
+                bitwise(last[pol].data, last["lockstep"].data,
+                        f"adaptive gate 1 {wname} {pol}")
+            # gate 3: nothing built after the warm-up
+            for pol in policies:
+                now = dict((ast if pol == "adaptive" else pst)
+                           .executor.trace_counts)
+                if now != traces[pol]:
+                    raise AssertionError(f"adaptive gate 3 {wname} {pol}: "
+                                         f"{traces[pol]} -> {now}")
+            opt = last["adaptive"].explain().opt
+            decisions[wname] = opt
+            out[wname] = {
+                "ms": {pol: statistics.median(v) for pol, v in ms.items()},
+                "pilot_p75": pilot, "probes_mean": float(nat.mean()),
+                "decision": opt,
+                "effort": last["adaptive"].explain().effort,
+                "host_copies_per_execute": adaptive_copies,
+                "trace_counts": traces["adaptive"]}
+        # the flat lane: brute Q1 has no probe lane
+        fdb = connect(cat, adaptive=True, engine="brute", use_pallas=True)
+        fst = fdb.prepare(Q1, K=K)
+        res = drive("adaptive_flat", [("list100", fst, single, None)])[0][4]
+        opt = res.explain().opt
+        if opt["path"] != "lockstep" or opt["source"] != "flat":
+            raise AssertionError(f"adaptive flat: {opt}")
+        if launches["adaptive_flat"]["scan_topk_batch"] < 1:
+            raise AssertionError("adaptive flat: no scan_topk_batch launch")
+        bitwise(res.data, connect(cat, engine="brute", use_pallas=True)
+                .prepare(Q1, K=K).execute(single).data, "adaptive flat")
+        out["flat"] = {"decision": opt,
+                       "ms": latency_ms(lambda: fst.execute(single))}
+    finally:
+        advisor.advise_batch, advisor.observe = real_advise, real_observe
+        sched_mod.host_counters = real_counters
+    # gate 2: a second advisor fed the same observations decides the same
+    twin = LoweringAdvisor(cat)
+    stream, replay = [], []
+    for compiled, binds, d, counters in seen:
+        d2 = twin.advise_batch(compiled, binds)
+        stream.append(d.summary())
+        replay.append(d2.summary())
+        twin.observe(compiled, d2, counters)
+    if stream != replay:
+        raise AssertionError("adaptive gate 2: the decision streams differ")
+    sources = {}
+    for s in stream:
+        sources[s["source"]] = sources.get(s["source"], 0) + 1
+    # gate 4: hints beat the advisor
+    ast = adb.prepare(Q1, K=K)
+    for hints in (ExecutionHints(exact_shape=True),
+                  ExecutionHints(pilot_budget=4),
+                  ExecutionHints(probe_budget=6),
+                  ExecutionHints(no_opt=True)):
+        rep = ast.execute(single, hints=hints).explain()
+        if rep.path == "opt" or rep.opt is not None:
+            raise AssertionError(f"adaptive gate 4: {hints} lost")
+    # this run's own measure of the card's constants: quantized Q1 against
+    # fp32 at a list of 64, and a probed row against a streamed flat row
+    flat_st = connect(cat, engine="brute", use_pallas=True).prepare(Q1, K=K)
+    q_st = {m: connect(cat, engine="brute", use_pallas=True, quant=m)
+            .prepare(Q1, K=K) for m in MODES}
+    b64 = single[:64]
+    f64, m64 = [], {m: [] for m in MODES}
+    for _ in range(3):
+        f64.append(latency_ms(lambda: flat_st.execute(b64), iters=5))
+        for m in MODES:
+            m64[m].append(latency_ms(lambda: q_st[m].execute(b64), iters=5))
+    f64 = statistics.median(f64)
+    chase_st = pdb.prepare(Q1, K=K)
+    evals = float(chase_st.execute(single)["stats"]["distance_evals"]
+                  .double().mean())
+    chase_ms = out["single"]["ms"]["lockstep"]
+    flat_ms = latency_ms(lambda: flat_st.execute(single))
+    measured = {f"{m}_speedup": f64 / statistics.median(m64[m])
+                for m in MODES}
+    measured["ivf_gather_penalty"] = ((chase_ms / N_QUERIES / evals)
+                                      / (flat_ms / N_QUERIES / N_ROWS))
+    measured.update(fp32_list64_ms=f64, chase_list100_ms=chase_ms,
+                    flat_list100_ms=flat_ms, chase_evals_per_query=evals)
+    emit({"phase": "adaptive", "gates": {
+        "bitwise_policies": ["single", "join"],
+        "decision_stream_replayed": len(stream),
+        "no_new_executors": True, "hints_win": True,
+        "flat_lockstep": True},
+        "launches": {k: v for k, v in launches.items()
+                     if k.startswith("adaptive_")}})
+    emit({"phase": "e2e_adaptive", "device": name, "nvidia_smi": smi,
+          "workloads": out, "decision_sources": sources,
+          "cost_model": CostModel().describe(),
+          "measured_constants": measured,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def live_phase(cat, qv, p, r, drive, launches, reset_counts, counts,
                smi: str, name: str) -> None:
     """The ``live`` phase: a live corpus attached to products.embedding of
@@ -1650,6 +2048,7 @@ def live_phase(cat, qv, p, r, drive, launches, reset_counts, counts,
     from repro_torch.data import mutations as mut
     from repro_torch.data.laion import CORPUS_ALIASES, QUERY_ALIASES
     from repro_torch.data.mutations import attach_live, recover
+    from repro_torch.dist import DistSpec
     from repro_torch.index import build_ivf
     from repro_torch.kernels import quant as qt_mod
     from repro_torch.launch.serve import QueryServer, ServeConfig
@@ -1787,6 +2186,21 @@ def live_phase(cat, qv, p, r, drive, launches, reset_counts, counts,
             quant=mode).prepare(live_sql["q2"]) for mode in MODES})
         frozen = connect(cat, engine="brute", use_pallas=True).prepare(
             frozen_sql["q1"], K=K)
+        sharded_q1 = connect(lcat, engine="brute", use_pallas=True,
+                             dist=DistSpec()).prepare(live_sql["q1"], K=K)
+
+        def dist_held(label: str) -> None:
+            """Q1 under dist at one shard over the live corpus against the
+            live flat plan, bit for bit (counters included)."""
+            path = f"live_q1_dist_{label}"
+            runs = [(f"list{qn}", sharded_q1, q1_binds[:qn], None)
+                    for qn in BATCHES]
+            for lab, _s, b, _h, res in drive(path, runs):
+                want = flat["q1"].execute(b).data
+                torch.cuda.synchronize()
+                bitwise(res.data, want, f"live dist {label} {lab}")
+            if launches[path]["scan_topk_batch"] < 1:
+                raise AssertionError(f"live {path}: no scan_topk_batch")
 
         # -- gate 1: zero delta ----------------------------------------------
         runs = [("single", flat["q1"], q1_binds[0], None)]
@@ -1816,6 +2230,7 @@ def live_phase(cat, qv, p, r, drive, launches, reset_counts, counts,
                                      f"{res['stats']['distance_evals']}")
         if launches["live_q1_zero"]["scan_topk_batch"] < 1:
             raise AssertionError("live gate 1: no scan_topk_batch launch")
+        dist_held("zero")
         flat_top = flat["q1"].execute(q1_binds).data["ids"]
         chased = drive("live_q1_chase_zero", [
             ("list100", chase["q1"], q1_binds, None)])[0][4].data["ids"]
@@ -1896,6 +2311,9 @@ def live_phase(cat, qv, p, r, drive, launches, reset_counts, counts,
             insert(first[sl], vecs[sl], {c: v[sl] for c, v in cols.items()})
         times["insert_batch_ms"] = (time.perf_counter() - t) * 1e3 / \
             LIVE_BATCHES
+        dist_held("fill50")
+        gates["dist_one_shard"] = {"bitwise_flat": ["zero", "fill50"],
+                                   "delta_rows": int(live.delta_count)}
         lat["fill50"] = {"list1": latency_ms(
             lambda: flat["q1"].execute(q1_binds[:1]), iters=5),
             f"list{N_QUERIES}": latency_ms(
@@ -3460,6 +3878,12 @@ def main() -> None:
     # -- live: the live corpus under Q1–Q6 ------------------------------------
     live_phase(cat, qv, p, r, drive, launches, reset_counts, counts, smi,
                name)
+
+    # -- sharded: every class under EngineOptions.dist at one shard -----------
+    sharded_phase(cat, qv, p, r, drive, launches, smi, name)
+
+    # -- adaptive: the advisor over the ivf phase's index ---------------------
+    adaptive_phase(cat, qv, r, drive, launches, smi, name)
 
     # -- times ----------------------------------------------------------------
     nb, _rows = st_mod.single_plan(N_ROWS)

@@ -25,9 +25,16 @@ flat path.
   pair mutable (:mod:`repro_torch.data.mutations`): ``db.insert`` /
   ``db.delete`` / ``db.compact`` reach every prepared statement on it at
   its next execute, and ``explain()`` reports the corpus's freshness.
+* ``connect(cat, adaptive=True)`` attaches a
+  :class:`~repro_torch.opt.LoweringAdvisor`: a batched execution with no
+  execution knob takes the advisor's path (``path="opt"``; lock-step or
+  effort-bucketed, bit-identical either way) and feeds its counters back;
+  ``db.advise(sql)`` scores the plan's lanes.
+* ``EngineOptions(dist=DistSpec(...))`` runs every class on the sharded
+  fused flat scan; ``explain()`` reports ``shards`` and ``merge_depth``.
 
-The adaptive optimizer and the on-disk plan cache belong to later slices
-of the port and raise ``NotImplementedError``.
+The on-disk plan cache belongs to a later slice of the port and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -84,9 +91,12 @@ def connect(catalog: Catalog, options: EngineOptions | None = None,
     Plans run on the device the catalog's tables live on.
     ``option_overrides`` are convenience kwargs onto :class:`EngineOptions`
     (``connect(cat, engine="brute", use_pallas=True)``); ``max_cached_plans``
-    bounds the normalized plan cache (LRU; None = unbounded)."""
-    if adaptive or stats_path is not None:
-        raise not_ported("connect(adaptive=...) (adaptive optimizer)", "11")
+    bounds the normalized plan cache (LRU; None = unbounded).
+    ``adaptive=True`` attaches a :class:`~repro_torch.opt.LoweringAdvisor`:
+    batched executions feed runtime stats back and get predicted probe
+    budgets, hints always winning; ``stats_path`` persists and restores its
+    stats store there (the reference's JSON: either package reads the
+    other's file)."""
     if aot_cache_path is not None:
         raise not_ported("connect(aot_cache_path=...) (on-disk plan cache)",
                           "12")
@@ -94,15 +104,18 @@ def connect(catalog: Catalog, options: EngineOptions | None = None,
         options = dataclasses.replace(options or EngineOptions(),
                                       **option_overrides)
     return Database(catalog, options or EngineOptions(),
-                    max_cached_plans=max_cached_plans)
+                    max_cached_plans=max_cached_plans, adaptive=adaptive,
+                    stats_path=stats_path)
 
 
 class Database:
     """A connection-like session: catalog + options + normalized plan cache
-    (LRU-bounded by ``max_cached_plans``)."""
+    (LRU-bounded by ``max_cached_plans``), and with ``adaptive`` the
+    session's lowering advisor."""
 
     def __init__(self, catalog: Catalog, options: EngineOptions | None = None,
-                 max_cached_plans: int | None = 128):
+                 max_cached_plans: int | None = 128, adaptive: bool = False,
+                 stats_path: str | None = None):
         if max_cached_plans is not None and max_cached_plans < 1:
             raise ValueError(
                 f"max_cached_plans must be >= 1 or None, "
@@ -110,6 +123,10 @@ class Database:
         self.catalog = catalog
         self.options = options or EngineOptions()
         self.max_cached_plans = max_cached_plans
+        self.advisor = None
+        if adaptive:
+            from ..opt import LoweringAdvisor
+            self.advisor = LoweringAdvisor(catalog, stats_path=stats_path)
         self._cache: "collections.OrderedDict[tuple, _CacheEntry]" = (
             collections.OrderedDict())
         self._hits = 0
@@ -186,7 +203,8 @@ class Database:
         (:class:`~repro_torch.serving.resilience.DegradePolicy`) or
         ``faults`` (:class:`~repro_torch.serving.faults.FaultInjector`)
         upgrades to a :class:`~repro_torch.serving.scheduler.
-        ResilientScheduler` with graceful degradation under overload."""
+        ResilientScheduler` with graceful degradation under overload.  A
+        plain scheduler carries the session's advisor, if any."""
         from ..serving.scheduler import (BatchScheduler, ResilientScheduler,
                                          SchedulerConfig)
         if isinstance(statement, str):
@@ -203,11 +221,21 @@ class Database:
         if policy is not None or faults is not None:
             return ResilientScheduler(statement, config, policy=policy,
                                       faults=faults)
-        return BatchScheduler(statement, config)
+        return BatchScheduler(statement, config, advisor=self.advisor)
 
-    def advise(self, sql: str, selectivity: float = 1.0, **static_binds):
-        """The lowering advisor is a later slice of the port."""
-        raise not_ported("Database.advise (adaptive optimizer)", "11")
+    def advise(self, sql: str, selectivity: float = 1.0,
+               **static_binds) -> dict:
+        """Prepare-time lowering advice for ``sql``: the cost model's scores
+        of the flat / IVF / quantized lanes of this plan's corpus under a
+        selectivity estimate, the recommended lane and the constants
+        (advisory: execute-time decisions stay within bit-identical effort
+        lanes; pick ``EngineOptions`` from the recommendation)."""
+        st = self.prepare(sql, **static_binds)
+        advisor = self.advisor
+        if advisor is None:
+            from ..opt import LoweringAdvisor
+            advisor = LoweringAdvisor(self.catalog)
+        return advisor.score_plan(st.compiled, selectivity=selectivity)
 
     # -- live corpus mutations ----------------------------------------------
 
@@ -412,6 +440,8 @@ class Statement:
                     f"entries for a batch of {qn} queries")
             probe_budget = np.asarray(probe_budget, np.int32)
         effort = None
+        opt = None
+        advisor = self._db.advisor
         if hints.exact_shape:
             path = "batch"
             out = compiled.plan.batch_fn(compiled._arrays, binds)
@@ -420,13 +450,22 @@ class Statement:
             path = "effort"
             out, effort = run_effort_bucketed(compiled, binds,
                                               hints.pilot_budget)
+        elif (advisor is not None and advisor.enabled and not hints.no_opt
+                and probe_budget is None and compiled.batch_native):
+            # the adaptive path: hints always win — it is taken only when
+            # the caller set no execution knob
+            from ..serving.scheduler import run_effort_bucketed
+            path = "opt"
+            out, effort = run_effort_bucketed(compiled, binds, 0,
+                                              advisor=advisor)
+            opt = effort.pop("opt", None)
         else:
             path = "bucketed"
             out = compiled.executor(binds, probe_budget=probe_budget)
         bucket = (compiled.executor.bucket_for(qn)
-                  if path in ("bucketed", "effort") else None)
+                  if path in ("bucketed", "effort", "opt") else None)
         report = self._report_fn(path=path, bucket=bucket, num_queries=qn,
-                                 hints=hints, effort=effort)
+                                 hints=hints, effort=effort, opt=opt)
         return ResultBatch(out, report, qn)
 
     def explain(self) -> ExplainReport:
@@ -439,6 +478,7 @@ class Statement:
         def build() -> ExplainReport:
             c = self.compiled
             ex = c.executor
+            dist = c.options.dist
             # freshness is read WHEN explain() runs (like trace_counts), so
             # the report reflects mutations that landed after execution
             live = self._db.catalog.live_for(*_scan_of(c.analysis))
@@ -454,6 +494,8 @@ class Statement:
                 trace_counts=dict(ex.trace_counts),
                 logical_plan=c.logical_plan.pretty(),
                 rewritten_plan=c.rewritten_plan.pretty(),
+                shards=None if dist is None else dist.num_shards,
+                merge_depth=None if dist is None else dist.merge_depth,
                 freshness=None if live is None else live.freshness(),
                 **exec_fields)
 

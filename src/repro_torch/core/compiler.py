@@ -23,8 +23,10 @@ reference lowers them (``core/physical.py``).  Without an index every
 engine lowers as the reference lowers a missing index: the flat scan,
 ``brute_sort`` the Q4 full sort.  Over a live corpus
 (``data/mutations.py``) the plans read its segments and merge its delta,
-under ``chase`` and ``brute`` in the batch lowering.  The dist option
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+under ``chase`` and ``brute`` in the batch lowering.  Under
+``EngineOptions.dist`` the scanned corpus is row-sharded over the spec's
+mesh (``dist/sharding.py``) and every class lowers onto the sharded fused
+flat scan, a live corpus's main segment included.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from .physical import (BATCH_BUILDERS, BUILDERS, JOIN_LOWERING_FAMILIES,
                        EngineOptions, _stacked_qn)
 from .plan import PlanNode
 from .rewriter import rewrite
-from .schema import Catalog, not_ported
+from .schema import Catalog
 from .semantics import Analysis, QueryClass, analyze
 from .sql import parse_sql
 
@@ -71,14 +73,18 @@ def _catalog_dep_keys(a: Analysis, catalog: Catalog,
     :meth:`CompiledQuery.ensure_fresh` watches for version bumps: the
     scanned table, both tables of a join, the scanned column's index, over
     a live corpus its live key (every insert, delete and compaction bumps
-    it), and under ``quant`` the frozen column's quantized twin (a live
-    twin rides the live key: it is cached on the corpus)."""
+    it), under ``dist`` its sharded handle, and under ``quant`` the frozen
+    column's quantized twin (a live twin rides the live key: it is cached
+    on the corpus).  The keys and their order are the reference's, so a
+    version token equals the reference's for the same registrations."""
     scan = _scan_of(a)
     if a.query_class in _SINGLE_TABLE:
         keys = (("table", a.table),)
     else:
         keys = (("table", a.left_table), ("table", a.right_table))
     keys += (("index",) + scan,)
+    if options.dist is not None:
+        keys += (("sharded",) + scan,)
     live = catalog.live_for(*scan) is not None
     if options.quant is not None and not live:
         keys += (("quantized",) + scan,)
@@ -475,6 +481,9 @@ def _gather_arrays(a: Analysis, catalog: Catalog,
         if "categories" in arrays:
             arrays["categories"] = arrays["live_cols"][
                 a.category_column.name]
+    if options.dist is not None:
+        arrays["sharded"] = _sharded(catalog, live, options, arrays, table,
+                                     column)
     if options.quant is not None:
         from ..data.quantized import quantize_corpus
         if live is not None:
@@ -489,7 +498,74 @@ def _gather_arrays(a: Analysis, catalog: Catalog,
                 quant = quantize_corpus(arrays["corpus"], options.quant)
                 catalog.register_quantized(table, column, quant)
         arrays.update(quant.plan_arrays())
+        if options.dist is not None:
+            arrays["dquant"] = _sharded_quant(catalog, live, options, quant,
+                                              arrays["sharded"], table,
+                                              column)
     return arrays
+
+
+def _sharded(catalog: Catalog, live, options: EngineOptions, arrays: dict,
+             table: str, column: str):
+    """The scanned corpus's :class:`~repro_torch.dist.sharding.
+    ShardedCorpus` on the spec's mesh: the catalog's registered handle for
+    the spec (registered here at first use), or over a live corpus the one
+    cached on its device dict, which compaction (the only mutation that
+    moves main-segment rows) clears.  At one shard on the corpus's own
+    device the handle is a view of the corpus: nothing is copied."""
+    from ..dist.sharding import ShardedCorpus, resolve_mesh
+    spec = options.dist
+    if live is not None:
+        key = f"sharded:{spec!r}"
+        sharded = live._dev.get(key)
+        if sharded is None:
+            sharded = ShardedCorpus.build(
+                resolve_mesh(spec, arrays["corpus"].device),
+                arrays["corpus"], spec.axes)
+            live._dev[key] = sharded
+        return sharded
+    sharded = catalog.sharded_for(table, column, spec)
+    if sharded is None:
+        sharded = ShardedCorpus.build(
+            resolve_mesh(spec, arrays["corpus"].device), arrays["corpus"],
+            spec.axes)
+        catalog.register_sharded(table, column, sharded)
+    return sharded
+
+
+def _sharded_quant(catalog: Catalog, live, options: EngineOptions, quant,
+                   sharded, table: str, column: str) -> tuple:
+    """The quantized twin of each shard, its rows lined up with the
+    shard's fp32 rows: the column twin's rows of the shard (a view when
+    the shard sits on the twin's device), and the zero rows' twin on the
+    divisibility pads (masked by ``row_id = -1``).  Quantization is per
+    row, so this is the twin of the padded sharded corpus.  Cached per
+    (mode, spec) on the catalog, or on the live corpus's device dict."""
+    from ..data.quantized import quantize_corpus
+    key = (options.quant, options.dist)
+    live_key = f"quant:{options.quant}:dist:{options.dist!r}"
+    cached = (live._dev.get(live_key) if live is not None
+              else catalog.quantized_for(table, column, key))
+    if cached is not None:
+        return cached
+    full = quant.plan_arrays()
+    n, per = quant.qvecs.shape[0], sharded.shards[0].shape[0]
+    out = []
+    for s, shard in enumerate(sharded.shards):
+        lo, hi = min(s * per, n), min((s + 1) * per, n)
+        part = {k: v[lo:hi] for k, v in full.items()}
+        if hi - lo < per:
+            pad = quantize_corpus(shard.new_zeros(
+                (per - (hi - lo), shard.shape[1])), options.quant)
+            part = {k: torch.cat([part[k].to(shard.device), v])
+                    for k, v in pad.plan_arrays().items()}
+        out.append({k: v.to(shard.device) for k, v in part.items()})
+    out = tuple(out)
+    if live is not None:
+        live._dev[live_key] = out
+    else:
+        catalog.register_quantized(table, column, out, key=key)
+    return out
 
 
 def _tree_stack(trees: list):
@@ -538,6 +614,13 @@ def _vmap_fallback(fn: Callable) -> Callable:
 def _batch_lowering(a: Analysis, options: EngineOptions):
     """(batch_builder | None, batch_native, human-readable reason)."""
     qc = a.query_class
+    if options.dist is not None:
+        spec = options.dist
+        mesh = dict(zip(spec.axes, spec.mesh_shape))
+        return BATCH_BUILDERS[qc], True, (
+            f"native sharded (distributed fused flat scan: "
+            f"{spec.num_shards} shard(s) over mesh {mesh}, "
+            f"merge depth {spec.merge_depth})")
     if options.join_lowering == "perleft" and qc in JOIN_LOWERING_FAMILIES:
         return None, False, "vmap-of-scalar fallback (perleft join lowering)"
     if qc in JOIN_LOWERING_FAMILIES:
@@ -589,6 +672,32 @@ def _validate_quant(options: EngineOptions) -> None:
             f"{options.rescore_factor}")
 
 
+def _validate_dist(options: EngineOptions) -> None:
+    """Reject option combinations the sharded lowering cannot honor (the
+    reference's checks and messages).  The sharded lowering is the exact
+    fused flat scan (the index is bypassed), so the comparison engines
+    (pase, vbase, brute_sort), whose measured inefficiency lives in the
+    bypassed plan structure, and the perleft join loop cannot compose with
+    it."""
+    if options.dist is None:
+        return
+    from ..dist.sharding import DistSpec
+    if not isinstance(options.dist, DistSpec):
+        raise TypeError(f"EngineOptions.dist must be a DistSpec, got "
+                        f"{type(options.dist).__name__}")
+    if options.engine not in ("chase", "brute"):
+        raise ValueError(
+            f"EngineOptions.dist runs the exact distributed flat scan and "
+            f"only composes with engine 'chase' or 'brute', not "
+            f"{options.engine!r} (the comparison engines' plan-structural "
+            f"inefficiencies would be silently bypassed)")
+    if options.join_lowering != "batch":
+        raise ValueError(
+            "EngineOptions.dist requires join_lowering='batch': the sharded "
+            "lowering IS a query-batched scan (left rows ride the shard x "
+            "tile composition); the perleft loop has no sharded twin")
+
+
 def _validate_live(a: Analysis, catalog: Catalog,
                    options: EngineOptions) -> None:
     """Reject option combinations the live lowering cannot honor (the
@@ -611,9 +720,10 @@ def _validate_live(a: Analysis, catalog: Catalog,
 
 
 def _single_via_batch(bfn: Callable) -> Callable:
-    """Single-query front for live and quantized plans: they have ONE
-    lowering, the query-batched scan (which carries the delta merge or the
-    quantized rescore), so the single-query pipeline runs it at Q = 1 and
+    """Single-query front for sharded, live and quantized plans: they have
+    ONE lowering, the query-batched scan (which carries the shard
+    composition, the delta merge or the quantized rescore), so the
+    single-query pipeline runs it at Q = 1 and
     slices the leading axis off every output leaf (bitwise a one-element
     exact-shape batch)."""
 
@@ -625,16 +735,12 @@ def _single_via_batch(bfn: Callable) -> Callable:
     return fn
 
 
-def _validate_slice(a: Analysis, options: EngineOptions) -> None:
-    """Reject what the port does not lower yet: the sharded scans.  Every
-    class lowers over an IVF index under every engine, and without one
-    every engine takes the reference's missing-index branch, the flat scan
-    (``brute_sort`` its full sort)."""
+def _validate_slice(a: Analysis) -> None:
+    """Reject what does not lower: a plan that matches no hybrid pattern
+    (the reference hands it to its interpreter engine)."""
     if a.query_class == QueryClass.NON_HYBRID:
         raise NotImplementedError(
             "plan did not match a hybrid pattern; use the interpreter engine")
-    if options.dist is not None:
-        raise not_ported("EngineOptions.dist (sharded scans)", "13")
 
 
 def compile_query(sql: str, catalog: Catalog,
@@ -655,22 +761,24 @@ def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
                  options: EngineOptions, static_binds: dict) -> CompiledQuery:
     """Compile an already-parsed logical plan (the plan-cache entry point)."""
     a = analyze(plan, catalog)
-    _validate_quant(options)
-    _validate_slice(a, options)
+    _validate_slice(a)
+    _validate_dist(options)
     _validate_live(a, catalog, options)
+    _validate_quant(options)
     rewritten = rewrite(a)
     dep_keys = _catalog_dep_keys(a, catalog, options)
     with _scan_lock(a, catalog):
         arrays = _gather_arrays(a, catalog, options)
-        # snapshot after _gather_arrays: registering a new twin bumps a key
-        # this plan must not see as a change on its first execute
+        # snapshot after _gather_arrays: registering a new twin or sharded
+        # handle bumps a key this plan must not see as a change on its first
+        # execute
         bound = catalog.version_snapshot(dep_keys)
     batch_builder, batch_native, batch_reason = _batch_lowering(a, options)
-    if (options.quant is not None
+    if (options.dist is not None or options.quant is not None
             or catalog.live_for(*_scan_of(a)) is not None):
-        # one lowering per live or quant plan: the batched pipeline (which
-        # carries the delta merge or the quantized rescore) serves the
-        # single query at Q = 1
+        # one lowering per dist, live or quant plan: the batched pipeline
+        # (which carries the shard composition, the delta merge or the
+        # quantized rescore) serves the single query at Q = 1
         bfn = batch_builder(a, catalog, options, Bindings(static_binds))
         fn = _single_via_batch(bfn)
     else:

@@ -35,15 +35,21 @@ flat scans stream the corpus's int8 or bf16 twin and re-rank in exact fp32
 The IVF probes stay fp32 under ``quant``.  Over a live corpus
 (``data/mutations.py``) the batched builders read its segments and merge
 its delta segment into every class's result (the live section below).
+Under ``dist`` every class lowers onto the sharded fused flat scan (the
+sharded section below).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Callable
 
 import torch
 
-from ..dist.collectives import merge_topk_level
+from ..dist.collectives import (distributed_range_batch,
+                                distributed_range_batch_q,
+                                distributed_topk_batch,
+                                distributed_topk_batch_q, merge_topk_level)
+from ..dist.sharding import DistSpec
 from ..index.delta import delta_range_batch, delta_topk_batch
 from ..index.flat import (FlatIndex, compact_range, masked_topk,
                           stable_smallest_k)
@@ -71,7 +77,10 @@ class EngineOptions:
     use_pallas: bool = False       # fused scan kernels for flat scans
     max_pairs: int = 512           # per-left-row buffer for join families
     join_lowering: str = "batch"   # batch | perleft
-    dist: Any = None               # sharded scan spec (not yet ported)
+    # a DistSpec row-shards the scanned corpus over its mesh and lowers
+    # every class onto the sharded fused flat scan (the index is bypassed,
+    # so only 'chase' and 'brute' compose); a mesh change misses the cache
+    dist: DistSpec | None = None
     # quantized twin streamed by the batched flat scans, re-ranked in exact
     # fp32 (kernels/quant.py); needs use_pallas
     quant: str | None = None       # None | 'int8' | 'bf16'
@@ -83,6 +92,19 @@ class EngineOptions:
         """Stable serialization for the plan-cache key (the frozen
         dataclass repr covers every field)."""
         return repr(self)
+
+
+def probe_ceiling(options: EngineOptions) -> int:
+    """The probe-budget ceiling of plans compiled under ``options``, which
+    the adaptive optimizer clamps predicted budgets to.  0 means the
+    lowering has no probe lane: flat scans and the sharded scan run in one
+    pass, so a runtime ``probe_budget`` does nothing and effort bucketing
+    is pure overhead."""
+    if options.engine not in ("chase", "vbase", "pase"):
+        return 0
+    if options.dist is not None:
+        return 0
+    return int(options.probe.max_probes)
 
 
 def _metric_of(catalog: Catalog, table: str, column: str) -> Metric:
@@ -364,6 +386,103 @@ def _radius_batch(radius_expr: Expr, table: Table, binds: dict,
 
 
 # ---------------------------------------------------------------------------
+# the sharded lowering, selected by EngineOptions.dist
+# ---------------------------------------------------------------------------
+#
+# A DistSpec row-shards the scanned corpus over a mesh of devices
+# (dist/sharding.py); each shard runs the query-tiled fused scan for ALL Q
+# queries on its device, then a hierarchical per-query merge
+# (dist/collectives.py).  The lowering is exact and engine-independent:
+# the index is bypassed (a row-sharded corpus has no co-sharded IVF
+# gather), so at one shard every class equals the flat batched path
+# (engine 'brute', use_pallas) bit for bit.  The qvalid lane reaches every
+# shard: a size-bucket pad query emits nothing and counts nothing.  The
+# plan's ``arrays`` carry the ShardedCorpus handle (``sharded``) and, under
+# quant, each shard's twin (``dquant``).
+
+
+def _dist_masks(arrays, rm) -> list:
+    """The row mask of each shard: with a predicate (``rm`` (Q, N) or a
+    shared (N,)) its columns of the shard, the divisibility-pad columns
+    False; without one the shard's shared ``row_ids >= 0`` mask (None on a
+    shard with no pad row), so no (Q, N) mask is built."""
+    sharded = arrays["sharded"]
+    if rm is None:
+        return list(sharded.shared_masks)
+    n = rm.shape[-1]
+    per = sharded.shards[0].shape[0]
+    out = []
+    for s in range(sharded.num_shards):
+        lo, hi = s * per, (s + 1) * per
+        part = rm[..., min(lo, n):min(hi, n)]
+        if part.shape[-1] < per:
+            part = torch.cat([part, part.new_zeros(
+                part.shape[:-1] + (per - part.shape[-1],))], dim=-1)
+        out.append(part)
+    return out
+
+
+def _dist_topk_core(opts: EngineOptions, metric: Metric, k: int):
+    """``(arrays, qs, rm, qvalid) -> (ids, sims, valid, stats)``: the
+    sharded twin of the fused flat batched top-k (exact; the counters are
+    the flat path's, N distance evals per valid query and no probe)."""
+    spec = opts.dist
+
+    def run(arrays, qs, rm, qvalid=None):
+        sharded = arrays["sharded"]
+        qn, n, dev = qs.shape[0], arrays["corpus"].shape[0], qs.device
+        masks = _dist_masks(arrays, rm)
+        if opts.quant is not None:
+            fn = distributed_topk_batch_q(sharded.mesh, metric, k, spec.axes,
+                                          rescore_factor=opts.rescore_factor)
+            ids, sims, valid = fn(sharded.shards, arrays["dquant"],
+                                  sharded.row_ids, qs, masks, qvalid)
+        else:
+            fn = distributed_topk_batch(sharded.mesh, metric, k, spec.axes)
+            ids, sims, valid = fn(sharded.shards, sharded.row_ids, qs, masks,
+                                  qvalid)
+        stats = {"probes": torch.zeros((qn,), dtype=torch.int32, device=dev),
+                 "distance_evals": _flat_evals(qvalid, qn, n, dev)}
+        return ids, sims, valid, stats
+
+    return run
+
+
+def _dist_range_core(opts: EngineOptions, metric: Metric, capacity: int):
+    """``(arrays, qs, radius, rm, qvalid) -> (ids, sims, valid, count,
+    stats)``: the sharded twin of :func:`_flat_range_topk_batch`.  The
+    buffer is ``min(capacity, N)`` wide whatever the shard count (the
+    shards' buffers concatenate and re-truncate best-first at each merge
+    level); ``count`` stays exact past truncation (the sum of the shards'
+    counts)."""
+    spec = opts.dist
+
+    def run(arrays, qs, radius, rm, qvalid=None):
+        sharded = arrays["sharded"]
+        qn, n, dev = qs.shape[0], arrays["corpus"].shape[0], qs.device
+        cap = min(int(capacity), n)
+        radius = torch.as_tensor(radius, dtype=torch.float32,
+                                 device=dev).expand(qn)
+        masks = _dist_masks(arrays, rm)
+        if opts.quant is not None:
+            fn = distributed_range_batch_q(
+                sharded.mesh, metric, cap, spec.axes,
+                rescore_factor=opts.rescore_factor)
+            ids, sims, valid, count = fn(sharded.shards, arrays["dquant"],
+                                         sharded.row_ids, qs, radius, masks,
+                                         qvalid)
+        else:
+            fn = distributed_range_batch(sharded.mesh, metric, cap, spec.axes)
+            ids, sims, valid, count = fn(sharded.shards, sharded.row_ids, qs,
+                                         radius, masks, qvalid)
+        stats = {"probes": torch.zeros((qn,), dtype=torch.int32, device=dev),
+                 "distance_evals": _flat_evals(qvalid, qn, n, dev)}
+        return ids, sims, valid, count, stats
+
+    return run
+
+
+# ---------------------------------------------------------------------------
 # the IVF engines' post-processing (Q1, Q2)
 # ---------------------------------------------------------------------------
 
@@ -614,6 +733,8 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
     index = catalog.index_for(a.table, a.vector_column)
     cfg = opts.probe
     live = catalog.live_for(a.table, a.vector_column) is not None
+    dist = (_dist_topk_core(opts, metric, k) if opts.dist is not None
+            else None)
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
         corpus = arrays["corpus"]
@@ -629,7 +750,9 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         else:
             row_mask = mask_fn(binds, qn) if mask_fn else None   # (Q, N)
         probe = dict(cfg=cfg, probe_budget=probe_budget, qvalid=qvalid)
-        if opts.engine == "chase" and index is not None:
+        if dist is not None:
+            ids, sims, valid, stats = dist(arrays, qs, row_mask, qvalid)
+        elif opts.engine == "chase" and index is not None:
             ids, sims, valid, stats = ivf_topk_batch(
                 arrays["index"], corpus, qs, k, row_mask, **probe)
         elif opts.engine == "vbase" and index is not None:
@@ -742,6 +865,8 @@ def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
     cfg = opts.probe
     radius_expr = a.radius
     live = catalog.live_for(a.table, a.vector_column) is not None
+    dist = (_dist_range_core(opts, metric, cfg.capacity)
+            if opts.dist is not None else None)
 
     def fn(arrays, binds, qvalid=None, probe_budget=None):
         corpus = arrays["corpus"]
@@ -757,7 +882,10 @@ def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         else:
             row_mask = mask_fn(binds, qn) if mask_fn else None   # (Q, N)
         probe = dict(cfg=cfg, probe_budget=probe_budget, qvalid=qvalid)
-        if opts.engine == "chase" and index is not None:
+        if dist is not None:
+            ids, sims, valid, count, stats = dist(arrays, qs, radius,
+                                                  row_mask, qvalid)
+        elif opts.engine == "chase" and index is not None:
             ids, sims, valid, count, stats = ivf_range_batch(
                 arrays["index"], corpus, qs, radius, row_mask, **probe)
         elif opts.engine == "vbase" and index is not None:
@@ -804,9 +932,13 @@ def _dist_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions):
     index = catalog.index_for(a.right_table, a.right_vector)
     cfg = dataclasses.replace(opts.probe, capacity=opts.max_pairs)
     live = catalog.live_for(a.right_table, a.right_vector) is not None
+    dist = (_dist_range_core(opts, metric, opts.max_pairs)
+            if opts.dist is not None else None)
 
     def main(arrays, qs, radius, rm, qvalid, probe_budget):
         corpus = arrays["corpus"]
+        if dist is not None:
+            return dist(arrays, qs, radius, rm, qvalid)
         if opts.engine not in ("chase", "vbase") or index is None:
             # the flat scan has no probe lane: probe_budget does nothing
             return _flat_range_topk_batch(opts, metric, corpus, qs, radius,
@@ -998,10 +1130,14 @@ def _knn_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions,
     metric = _metric_of(catalog, a.right_table, a.right_vector)
     index = catalog.index_for(a.right_table, a.right_vector)
     live = catalog.live_for(a.right_table, a.right_vector) is not None
+    dist = (_dist_topk_core(opts, metric, k) if opts.dist is not None
+            else None)
 
     def main(arrays, qs, rm, qvalid, probe_budget):
         corpus = arrays["corpus"]
         m, n = qs.shape[0], corpus.shape[0]
+        if dist is not None:
+            return dist(arrays, qs, rm, qvalid)
         if opts.engine == "chase" and index is not None:
             return ivf_topk_batch(arrays["index"], corpus, qs, k, rm,
                                   opts.probe, probe_budget=probe_budget,
@@ -1230,13 +1366,18 @@ def _category_core(opts: EngineOptions, metric: Metric, index, C: int,
     read their category from the live delta columns."""
     cfg = dataclasses.replace(opts.probe, num_categories=C, k_per_category=k)
     probed = index is not None and opts.engine in _CATEGORY_PROBE_ENGINES
+    dist = (_dist_range_core(opts, metric, cfg.capacity)
+            if opts.dist is not None else None)
 
     def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None,
              dmask=None):
         corpus, cats = arrays["corpus"], arrays["categories"]
         radius = torch.as_tensor(radius, dtype=torch.float32,
                                  device=qs.device).expand(qs.shape[0])
-        if probed:
+        if dist is not None:
+            ids, sims, valid, _count, stats = dist(arrays, qs, radius, rm,
+                                                   qvalid)
+        elif probed:
             ids, sims, valid, stats = _category_probe(
                 opts, metric, cfg, arrays["index"], corpus, cats, qs, radius,
                 rm, probe_budget, qvalid)

@@ -148,7 +148,8 @@ class Catalog:
 
     Every registration bumps a monotonic catalog clock and stamps the
     touched key (``("table", name)``, ``("index", table, column)``,
-    ``("quantized", table, column)`` or ``("live", table, column)``);
+    ``("sharded", table, column)``, ``("quantized", table, column)`` or
+    ``("live", table, column)``);
     compiled plans snapshot the versions of the keys they captured and
     compare at execute time (``CompiledQuery.ensure_fresh``), so a
     re-registered table raises ``StalePlanError`` instead of serving frozen
@@ -158,6 +159,7 @@ class Catalog:
     def __init__(self):
         self._tables: dict[str, Table] = {}
         self._indexes: dict[tuple, Any] = {}
+        self._sharded: dict[tuple, Any] = {}
         self._quantized: dict[tuple, Any] = {}
         self._live: dict[tuple, Any] = {}
         self._clock = 0
@@ -179,12 +181,14 @@ class Catalog:
 
     def register(self, name: str, table: Table) -> None:
         """Register (or replace) a table under ``name``; bumps
-        ``("table", name)`` and drops the old table's quantized twins (their
-        fp32 source changed)."""
+        ``("table", name)`` and drops the old table's quantized twins and
+        sharded handles (their fp32 source changed; the reference keeps the
+        sharded handles, which a re-prepared plan would then read)."""
         table.name = name
         self._tables[name] = table
-        for key in [k for k in self._quantized if k[0] == name]:
-            del self._quantized[key]
+        for reg in (self._quantized, self._sharded):
+            for key in [k for k in reg if k[0] == name]:
+                del reg[key]
         self._bump(("table", name))
 
     def table(self, name: str) -> Table:
@@ -212,7 +216,8 @@ class Catalog:
                            key: Any = None) -> None:
         """Attach a :class:`~repro_torch.data.quantized.QuantizedCorpus` twin
         to a (table, vector column) pair, keyed by ``key`` (default
-        ``quant.mode``, so int8 and bf16 twins coexist).  Bumps
+        ``quant.mode``, so int8 and bf16 twins coexist; a sharded plan's
+        per-shard twin is keyed ``(mode, spec)``).  Bumps
         ``("quantized", table, column)``: quant plans carry the twin's
         tensors in their bound ``arrays`` dict and re-bind a re-registered
         twin in place."""
@@ -220,8 +225,8 @@ class Catalog:
         self._bump(("quantized", table, column))
 
     def quantized_for(self, table: str, column: str, key: Any):
-        """The QuantizedCorpus registered for (table, column) under ``key``
-        (a mode string), or None."""
+        """The twin registered for (table, column) under ``key`` (a mode
+        string, or ``(mode, spec)`` for a sharded twin), or None."""
         return self._quantized.get((table, column, key))
 
     def register_live(self, table: str, column: str, live: Any) -> None:
@@ -260,5 +265,17 @@ class Catalog:
         self._clock = max(self._clock, int(to))
 
     def register_sharded(self, table: str, column: str, sharded: Any) -> None:
-        """Sharded corpora belong to a later slice of the port."""
-        raise not_ported("Catalog.register_sharded", "13")
+        """Attach a :class:`~repro_torch.dist.sharding.ShardedCorpus` handle
+        to a (table, vector column) pair, keyed by the handle's own mesh
+        spec (``sharded.spec``), so handles for different meshes coexist:
+        every plan compiled with a matching ``EngineOptions.dist`` reuses
+        the handle's placement instead of re-slicing the corpus per
+        prepare.  Bumps ``("sharded", table, column)`` (spec-independent:
+        any handle change re-binds every dist plan on the pair)."""
+        self._sharded[(table, column, sharded.spec)] = sharded
+        self._bump(("sharded", table, column))
+
+    def sharded_for(self, table: str, column: str, spec: Any):
+        """The ShardedCorpus registered for (table, column) on exactly the
+        mesh ``spec`` (a ``DistSpec``) describes, or None."""
+        return self._sharded.get((table, column, spec))

@@ -1,0 +1,194 @@
+"""Corpus sharding for distributed hybrid queries (the corpus half of
+``src/repro/dist/sharding.py``; its logical-axis rules serve the model
+side, which the port does not have yet).
+
+The reference is one controller: one process calls ``Statement.execute``
+and ``shard_map`` fans the scan out over the devices of a mesh.  The port
+keeps that shape in one process: each shard's rows sit on one
+``torch.device`` of the mesh, each shard runs the fused kernels on its
+device, and the hierarchical merge gathers the (Q, k) candidates of each
+mesh axis onto one device, innermost axis first
+(``dist/collectives.py``).  On the CPU every shard is the CPU (the
+analogue of the reference's fake CPU devices); on the card a mesh of n
+shards needs n CUDA devices.
+
+* :class:`DistSpec` is the fingerprintable mesh description that rides
+  ``EngineOptions.dist`` (a plan compiled for one mesh misses the plan
+  cache on any other);
+* :func:`resolve_mesh` turns a spec into a :class:`Mesh` of devices;
+* :class:`ShardedCorpus` is the row-sharded corpus handle the catalog
+  registers, so every plan on a (table, column) reuses ONE placement.  A
+  shard whose rows already sit on its device and need no padding is a
+  view of the catalog's tensor: one shard on the card copies nothing.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+class DeviceCountError(RuntimeError):
+    """A :class:`DistSpec` names more shards than the machine has devices
+    of the catalog's type."""
+
+
+@dataclasses.dataclass(frozen=True)
+class DistSpec:
+    """Fingerprintable mesh description for ``EngineOptions.dist``.
+
+    ``mesh_shape[i]`` is the device count along ``axes[i]``; the shard
+    count is their product.  Hierarchical merges run innermost axis first
+    (``axes[-1]``), then outward — ``merge_depth`` is ``len(axes)``.  The
+    stable ``repr`` folds into ``EngineOptions.fingerprint()``, so another
+    mesh shape OR axis name misses the plan cache."""
+    mesh_shape: tuple[int, ...] = (1,)
+    axes: tuple[str, ...] = ("data",)
+
+    def __post_init__(self):
+        object.__setattr__(self, "mesh_shape", tuple(self.mesh_shape))
+        object.__setattr__(self, "axes", tuple(self.axes))
+        if len(self.mesh_shape) != len(self.axes):
+            raise ValueError(
+                f"mesh_shape {self.mesh_shape} and axes {self.axes} must "
+                f"have the same length")
+        if not self.axes:
+            raise ValueError("DistSpec needs at least one mesh axis")
+        if len(set(self.axes)) != len(self.axes):
+            raise ValueError(f"duplicate mesh axis names: {self.axes}")
+        if any((not isinstance(s, int)) or s < 1 for s in self.mesh_shape):
+            raise ValueError(
+                f"mesh_shape entries must be ints >= 1, got {self.mesh_shape}")
+
+    @property
+    def num_shards(self) -> int:
+        """Total corpus shard count (product of the mesh axis sizes)."""
+        return math.prod(self.mesh_shape)
+
+    @property
+    def merge_depth(self) -> int:
+        """Hierarchical-merge levels: one per mesh axis (innermost first)."""
+        return len(self.axes)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """Devices laid out on named axes: ``devices`` is an object array of
+    ``torch.device`` of the mesh's shape (C order = shard order)."""
+    devices: np.ndarray
+    axis_names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size (as ``jax.sharding.Mesh.shape``)."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def flat(self) -> list:
+        """The devices in shard order."""
+        return list(self.devices.reshape(-1))
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh(spec: DistSpec, kind: str) -> Mesh:
+    n = spec.num_shards
+    if kind == "cuda":
+        have = torch.cuda.device_count()
+        if have < n:
+            raise DeviceCountError(
+                f"DistSpec {spec} needs {n} CUDA devices, have {have}: "
+                f"each shard sits on a device of its own")
+        devs = [torch.device("cuda", i) for i in range(n)]
+    elif kind == "cpu":
+        devs = [torch.device("cpu")] * n
+    else:
+        raise DeviceCountError(f"DistSpec runs on cuda or cpu, not {kind}")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devs
+    return Mesh(arr.reshape(spec.mesh_shape), spec.axes)
+
+
+def resolve_mesh(spec: DistSpec, device="cuda") -> Mesh:
+    """The mesh a :class:`DistSpec` describes on ``device``'s type (built
+    once per spec and type, so every plan of a spec shares one placement).
+    On ``cuda`` it takes the first ``num_shards`` devices and raises
+    :class:`DeviceCountError`, naming the count, when there are fewer; on
+    ``cpu`` every shard is the CPU."""
+    return _mesh(spec, torch.device(device).type)
+
+
+def _shard_shape(mesh: Mesh, axes: tuple) -> int:
+    if tuple(axes) != tuple(mesh.axis_names):
+        raise ValueError(f"corpus axes {axes} must be the mesh's axes "
+                         f"{mesh.axis_names} (engine meshes are dedicated)")
+    return mesh.devices.size
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedCorpus:
+    """A row-sharded corpus and its global row ids, pinned to one mesh.
+
+    Rows are zero-padded up to a multiple of the shard count
+    (``num_rows`` keeps the real count); pad rows carry ``row_id = -1`` and
+    are masked out of every scan.  ``shards[s]`` holds shard ``s``'s rows
+    on ``mesh.flat[s]`` (global rows ``s * rows_per`` on), ``row_ids[s]``
+    their global ids, and ``shared_masks[s]`` the shard's ``row_ids >= 0``
+    mask, or None where the shard has no pad row (the kernels' unmasked
+    path)."""
+    mesh: Mesh
+    axes: tuple[str, ...]
+    shards: tuple
+    row_ids: tuple
+    shared_masks: tuple
+    num_rows: int
+
+    @classmethod
+    def build(cls, mesh: Mesh, corpus: torch.Tensor,
+              axes: Sequence[str] = ("data",)) -> "ShardedCorpus":
+        """Row-shard ``corpus`` over ``axes``, zero-padding to
+        divisibility.  A shard already on its device with no pad row is a
+        view of ``corpus`` (no copy)."""
+        axes = tuple(axes)
+        shards = _shard_shape(mesh, axes)
+        n = int(corpus.shape[0])
+        per = -(-n // shards)
+        parts, ids, masks = [], [], []
+        for s, dev in enumerate(mesh.flat):
+            lo, hi = s * per, (s + 1) * per
+            rows = corpus[min(lo, n):min(hi, n)]
+            if rows.shape[0] < per:
+                rows = torch.cat([rows.to(torch.float32), rows.new_zeros(
+                    (per - rows.shape[0], corpus.shape[1]),
+                    dtype=torch.float32)])
+            parts.append(rows.to(device=dev, dtype=torch.float32))
+            gid = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+            ids.append(torch.where(gid < n, gid, -1))
+            masks.append(None if hi <= n else ids[-1] >= 0)
+        return cls(mesh, axes, tuple(parts), tuple(ids), tuple(masks), n)
+
+    @property
+    def num_shards(self) -> int:
+        """Corpus shard count."""
+        return len(self.shards)
+
+    @property
+    def padded_rows(self) -> int:
+        """Row count after divisibility padding."""
+        return sum(int(s.shape[0]) for s in self.shards)
+
+    @property
+    def spec(self) -> DistSpec:
+        """The :class:`DistSpec` of this handle's mesh (the catalog's
+        registry key)."""
+        return DistSpec(tuple(int(s) for s in self.mesh.devices.shape),
+                        tuple(self.mesh.axis_names))
+
+    def matches(self, spec: DistSpec) -> bool:
+        """True iff this handle's mesh is the one ``spec`` describes."""
+        return (self.axes == spec.axes
+                and tuple(self.mesh.devices.shape) == spec.mesh_shape
+                and tuple(self.mesh.axis_names) == spec.axes)

@@ -41,7 +41,7 @@ import torch
 from ..api.hints import ExecutionHints
 from ..api.result import ResultBatch
 from ..core.compiler import _host, _tree_map
-from ..core.schema import not_ported
+from ..opt.advisor import host_counters
 from .resilience import DeadlineExceededError, LoadController
 
 
@@ -87,16 +87,6 @@ class SimRecord:
         return self.finish - self.arrival
 
 
-def _leading_probes(stats: dict) -> np.ndarray:
-    """Per-bind-set probe counters on the host: joins report (Q, L) —
-    reduce to the per-bind-set maximum (a bind set is heavy if ANY of its
-    left rows is)."""
-    probes = _host(stats["probes"])
-    if probes.ndim > 1:
-        probes = probes.max(axis=tuple(range(1, probes.ndim)))
-    return probes
-
-
 def _pilot_info(pilot) -> "int | dict":
     """JSON-able form of a pilot budget (scalar int or array summary)."""
     if np.ndim(pilot) == 0:
@@ -138,45 +128,78 @@ def run_effort_bucketed(compiled, binds: dict, pilot_budget=0, *,
     ``pilot_budget`` may be a scalar, a (Q,) per-bind-set array, or — for
     join plans — a (Q, L) per-left array.  A bind set is heavy if ANY of
     its queries / left rows hit its own budget; phase 2 re-runs those sets
-    unbudgeted.  The classification reads the phase-1 probe counters on
-    the host (the one device-to-host copy); the bind gather runs on the
-    host binds and the scatter on the outputs' device.  ``compiled`` may
-    be a ``CompiledQuery`` or a session-API ``Statement``.  The
-    stats-driven ``advisor`` is a later slice of the port."""
-    if advisor is not None:
-        raise not_ported("run_effort_bucketed(advisor=...) (adaptive "
-                         "optimizer)", "11")
+    unbudgeted.  The classification reads the phase-1 probe and eval
+    counters on the host in one device-to-host copy; the bind gather runs
+    on the host binds and the scatter on the outputs' device.
+    ``compiled`` may be a ``CompiledQuery`` or a session-API ``Statement``.
+
+    With ``advisor`` (a :class:`~repro_torch.opt.advisor.LoweringAdvisor`)
+    the pilot comes from its stats-driven prediction: a cold or probe-less
+    plan runs one lock-step phase, a warmed plan gets a predicted scalar
+    pilot or per-left budgets, and the merged counters fold back into the
+    advisor's stats either way.  That reading is the same one host copy
+    (plus one of the heavy rows' counters when phase 2 ran), and the
+    latency it records ends when that copy returns."""
+    inner = getattr(compiled, "compiled", compiled)
     executor = compiled.executor
+    decision = None
+    if advisor is not None and advisor.enabled:
+        decision = advisor.advise_batch(inner, binds)
+        pilot_budget = decision.pilot if decision.pilot is not None else 0
     scalar_pilot = np.ndim(pilot_budget) == 0
-    if scalar_pilot and pilot_budget <= 0:
+    if scalar_pilot and pilot_budget <= 0 and advisor is None:
         raise ValueError("pilot_budget must be positive")
-    if not compiled.batch_native:
-        # the loop-of-singles fallback has no probe_budget lane: a pilot run
-        # would execute the FULL unbudgeted batch and classify every query
-        # heavy — strictly more work than lock-step.  Run single-phase.
+    t0 = time.perf_counter()
+    if not compiled.batch_native or (scalar_pilot and pilot_budget <= 0):
+        # one phase: the loop-of-singles fallback has no probe_budget lane
+        # (a pilot run would execute the FULL batch and call every query
+        # heavy), and an advisor's lock-step decision (a cold or probe-less
+        # plan) still feeds its counters back
         out = executor(binds)
-        qn = _leading_probes(out["stats"]).shape[0]
-        return out, {"n_light": qn, "n_heavy": 0,
-                     "pilot_budget": _pilot_info(pilot_budget),
-                     "skipped": "plan has no native batched lowering"}
+        counters = host_counters(out)
+        info = {"n_light": _per_bind_set(counters["probes"]).shape[0],
+                "n_heavy": 0, "pilot_budget": _pilot_info(pilot_budget)}
+        if not compiled.batch_native:
+            info["skipped"] = "plan has no native batched lowering"
+        return out, _observed(advisor, inner, decision, counters, t0, info)
     budget = (int(pilot_budget) if scalar_pilot
               else np.asarray(pilot_budget, np.int32))
     out1 = executor(binds, probe_budget=budget)
-    probes = _host(out1["stats"]["probes"])
+    counters = host_counters(out1)
+    probes = counters["probes"]
     limit = budget
     if not scalar_pilot and probes.ndim == 2 and np.ndim(budget) == 1:
         limit = budget[:, None]            # per-bind-set vs (Q, L) stats
-    hit = probes >= limit
-    if hit.ndim > 1:
-        hit = hit.any(axis=tuple(range(1, hit.ndim)))
-    heavy = np.nonzero(hit)[0]
+    heavy = np.nonzero(_per_bind_set(probes >= limit))[0]
     qn = probes.shape[0]
     info = {"n_light": int(qn - heavy.size), "n_heavy": int(heavy.size),
             "pilot_budget": _pilot_info(budget)}
     if heavy.size == 0:
-        return out1, info
+        return out1, _observed(advisor, inner, decision, counters, t0, info)
     out2 = executor({k: _host(v)[heavy] for k, v in binds.items()})
-    return _scatter_rows(out1, out2, heavy), info
+    if decision is not None:
+        for key, v in host_counters(out2).items():
+            counters[key][heavy] = v
+    merged = _scatter_rows(out1, out2, heavy)
+    return merged, _observed(advisor, inner, decision, counters, t0, info)
+
+
+def _per_bind_set(x: np.ndarray) -> np.ndarray:
+    """Per-bind-set values of (Q, ...) host counters or flags: joins report
+    (Q, L), reduced by the maximum (a bind set is heavy if ANY of its left
+    rows is)."""
+    return x.max(axis=tuple(range(1, x.ndim))) if x.ndim > 1 else x
+
+
+def _observed(advisor, inner, decision, counters: dict, t0: float,
+              info: dict) -> dict:
+    """Fold the finished execution's host counters into the advisor (if
+    any) and attach the decision summary to ``info`` under ``"opt"``."""
+    if advisor is not None and decision is not None:
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        advisor.observe(inner, decision, counters, latency_ms)
+        info["opt"] = decision.summary()
+    return info
 
 
 def _device_of(compiled) -> torch.device:
@@ -200,16 +223,15 @@ class BatchScheduler:
     :class:`~repro_torch.core.compiler.CompiledQuery` or a session-API
     :class:`~repro_torch.api.Statement` (``Database.serve`` builds the
     latter; a Statement translates renamed bind parameters onto the cached
-    plan before stacking).  ``advisor`` (the adaptive optimizer) is a later
-    slice of the port and must be None."""
+    plan before stacking).  With ``advisor`` (a
+    :class:`~repro_torch.opt.LoweringAdvisor`) every drain runs the
+    advisor's effort decision instead of the static ``pilot_budget``."""
 
     def __init__(self, compiled, config: SchedulerConfig | None = None,
                  clock: Callable[[], float] = time.monotonic,
                  advisor=None):
-        if advisor is not None:
-            raise not_ported("BatchScheduler(advisor=...) (adaptive "
-                             "optimizer)", "11")
         self.compiled = compiled
+        self.advisor = advisor
         # None-sentinel, NOT a `config=SchedulerConfig()` default: a
         # class-level default dataclass would be one shared instance
         self.config = config if config is not None else SchedulerConfig()
@@ -395,10 +417,16 @@ class BatchScheduler:
 
     def execute(self, binds_list: list[dict]):
         """Execute one coalesced batch through the bucketed executor
-        (effort-bucketed when ``pilot_budget`` > 0), after re-binding the
-        plan to the catalog's current registrations."""
+        (effort-bucketed when ``pilot_budget`` > 0; the advisor's predicted
+        budgets replace the static pilot when one is attached), after
+        re-binding the plan to the catalog's current registrations."""
         self.compiled.ensure_fresh()
         binds = self.compiled._stack_binds(binds_list, {})
+        if self.advisor is not None:
+            out, _info = run_effort_bucketed(self.compiled, binds,
+                                             self.config.pilot_budget,
+                                             advisor=self.advisor)
+            return out
         if self.config.pilot_budget > 0:
             out, _info = run_effort_bucketed(self.compiled, binds,
                                              self.config.pilot_budget)

@@ -139,8 +139,16 @@ def test_predicates_match_reference_single_and_batched(catalogs):
 
 def test_unported_registrations_raise(catalogs):
     _, cat = catalogs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cat.register_sharded("laion", "vec", object())
+    # ported: a sharded handle is stored under its spec, bumps its key
+    from repro_torch.dist import DistSpec, ShardedCorpus, resolve_mesh
+    spec = DistSpec((2,), ("data",))
+    handle = ShardedCorpus.build(resolve_mesh(spec, "cpu"),
+                                 cat.table("laion")["vec"], spec.axes)
+    before = cat.version(("sharded", "laion", "vec"))
+    cat.register_sharded("laion", "vec", handle)
+    assert cat.sharded_for("laion", "vec", spec) is handle
+    assert cat.sharded_for("laion", "vec", DistSpec()) is None
+    assert cat.version(("sharded", "laion", "vec")) > before
     assert cat.live_for("laion", "vec") is None
     assert cat.quantized_for("laion", "vec", "int8") is None   # ported
     # ported: an index registration is stored and bumps its version key

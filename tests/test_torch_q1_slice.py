@@ -18,7 +18,9 @@ from repro.api import connect as ref_connect
 from repro.data import make_laion_catalog as ref_make_catalog
 from repro_torch.api import ExecutionHints, connect
 from repro_torch.data import make_laion_catalog
+from repro_torch.dist import DistSpec
 from repro_torch.index import build_ivf
+from repro_torch.opt import LoweringAdvisor
 from repro_torch.serving import (BatchScheduler, MutationError,
                                  run_effort_bucketed)
 from repro_torch.testing import assert_topk_close
@@ -253,11 +255,19 @@ def test_unported_surfaces_raise(env):
     assert connect(local).prepare(Q1, K=K).compiled._arrays["index"] is index
     for sql in (q4, q5):
         assert connect(local).prepare(sql).compiled._arrays["index"] is index
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # the sharded scans are ported: one shard is the flat path bit for bit,
+    # and a dist option that is no DistSpec is refused
+    flat = connect(cat, engine="brute", use_pallas=True).prepare(Q1, K=K)
+    sharded = connect(cat, engine="brute", use_pallas=True,
+                      dist=DistSpec()).prepare(Q1, K=K)
+    for key in ("ids", "sim", "valid"):
+        assert torch.equal(sharded.execute(_binds(3))[key],
+                           flat.execute(_binds(3))[key])
+    assert sharded.explain().shards == 1
+    with pytest.raises(TypeError, match="DistSpec"):
         connect(cat, engine="brute", use_pallas=True,
                 dist=object()).prepare(Q1, K=K)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        connect(cat, adaptive=True)
+    # the on-disk plan cache is still a later slice
     with pytest.raises(NotImplementedError, match="item 12"):
         connect(cat, aot_cache_path="unused")
     db = connect(cat, engine="brute")
@@ -265,12 +275,21 @@ def test_unported_surfaces_raise(env):
     # the live corpus is ported: a table without one rejects a mutation
     with pytest.raises(MutationError, match="no live corpus"):
         db.insert("laion", [1], None)
-    for call in (lambda: db.advise(Q1, K=K),
-                 lambda: run_effort_bucketed(
-                     st, st._stack_binds(_binds(2), {}), 2,
-                     advisor=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    # the adaptive optimizer is ported: advise scores the lanes, and an
+    # advised flat plan runs lock-step (no probe lane) with its answer
+    advice = db.advise(Q1, K=K)
+    assert advice["recommended"] == "flat"
+    assert advice["n_rows"] == SMALL["n_rows"]
+    binds = st._stack_binds(_binds(2), {})
+    out, info = run_effort_bucketed(st, binds, 0,
+                                    advisor=LoweringAdvisor(cat))
+    assert info["opt"]["path"] == "lockstep"
+    assert info["opt"]["source"] == "flat"
+    assert torch.equal(out["ids"], st.execute(_binds(2))["ids"])
+    adb = connect(cat, engine="brute", adaptive=True)
+    res = adb.prepare(Q1, K=K).execute(_binds(2))
+    assert res.explain().path == "opt"
+    assert torch.equal(res["ids"], st.execute(_binds(2))["ids"])
     # the serving tier is ported: serve() schedules and pilot_budget runs
     # the effort path (flat plans probe nothing, so every query is light)
     assert isinstance(db.serve(st), BatchScheduler)

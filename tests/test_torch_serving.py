@@ -541,11 +541,47 @@ def test_effort_bucketed_rejects_bad_pilot(env, pilot):
 
 
 def test_advisor_is_a_later_slice(env):
-    binds, _ = _stacked(env, 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_sched.run_effort_bucketed(env["q"], binds, 4, advisor=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_sched.BatchScheduler(env["q"], advisor=object())
+    """The advisor hooks, once a later slice, are ported: advised effort
+    runs decide as the reference's (equal constants, one catalog history)
+    and equal lock-step bit for bit, and an advised BatchScheduler drains
+    the lock-step answers."""
+    from repro.opt import CostModel as RefCost
+    from repro.opt import LoweringAdvisor as RefAdvisor
+    from repro_torch.opt import CostModel, LoweringAdvisor
+
+    # headroom below 1 predicts pilots under the p75, so phase 2 runs
+    consts = dict(int8_speedup=1.5, bf16_speedup=1.2, ivf_gather_penalty=3.0,
+                  headroom=0.5)
+    adv = LoweringAdvisor(env["cat"], cost=CostModel(**consts))
+    ref_adv = RefAdvisor(env["ref_cat"], cost=RefCost(**consts))
+    heavy = []
+    for step in range(4):
+        binds, ref_binds = _stacked(env, 12, seed=step + 1)
+        lock = env["q"].executor(binds)
+        out, info = port_sched.run_effort_bucketed(env["q"], binds, 0,
+                                                   advisor=adv)
+        _, ref_info = ref_sched.run_effort_bucketed(env["ref_q"], ref_binds,
+                                                    0, advisor=ref_adv)
+        _bitwise(out, lock, f"advised step {step}")
+        got, want = dict(info.pop("opt")), dict(ref_info.pop("opt"))
+        got.pop("plan"), want.pop("plan")          # the options' reprs differ
+        assert got == want and info == ref_info, step
+        heavy.append(info["n_heavy"])
+    assert got["source"] == "stats" and got["path"] == "effort"
+    assert any(heavy), heavy          # phase 2 ran, its counters merged
+    sched = port_sched.BatchScheduler(
+        env["q"], port_sched.SchedulerConfig(max_batch=8, max_wait_ms=0.0),
+        advisor=adv)
+    reqs = _requests(env, 5)
+    rids = [sched.submit(**r) for r in reqs]
+    sched.flush()
+    direct = env["q"].execute_bucketed(binds_list=reqs)
+    for i, rid in enumerate(rids):
+        _bitwise(sched.result(rid), {k: (v[i] if not isinstance(v, dict)
+                                          else {s: x[i]
+                                                for s, x in v.items()})
+                                     for k, v in direct.items()},
+                 f"advised request {i}")
 
 
 def test_effort_hint_through_statement(env):
