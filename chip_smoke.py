@@ -5,7 +5,8 @@
 Six query paths, each from SQL text through ``connect -> prepare ->
 execute`` under ``engine="brute", use_pallas=True``, and the public
 ``repro_torch.kernels.pairwise_keys``, on the laion1m shape (1,000,000 rows
-of 512-d fp32 vectors, 100 queries; configs/chase_laion.py):
+of 512-d fp32 vectors, 100 queries; configs/chase_laion.py's
+``bench_config()`` at the paper's scale):
 
   Q1  VKNN-SF, the filtered vector top-k, K = 50, ``price < p`` at
       selectivity 0.3 (kernels scan_topk, scan_topk_batch);
@@ -268,8 +269,28 @@ one JSON line each:
            this run's own measure of the card's constants (quantized Q1
            against fp32 at a list of 64, and the per-row gather penalty
            from chase's distance evals)
-then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line.  Any failure raises and exits non-zero without the last line.
+  interp   (after adaptive) the Volcano interpreter runs Q1 over 20,000
+           rows of the corpus taken on the card with ``Table.take``; one
+           gate: its ids hold against the compiled flat Q1 on the same rows
+           (scan_topk) under the tie rule.  Line ``e2e_interp``: the
+           interpreted ms, the same ``scaled`` to 1M rows, the compiled Q1
+           on the full corpus (a single dict and a list of 100), the
+           ratios and the interpreter's counters
+  aot      (after interp) the on-disk plan cache over flat Q1 (a single
+           dict, lists of 1, 8, 100), Q2 (a list of 100) and Q3 (one bind
+           set): no cache, a cold cache, a new Database on the same path
+           and a plan-cache hit, then two child processes
+           (``--aot-child``) with empty kernel build directories: A on an
+           empty cache (started after the catalog is built, joined before
+           the ivf phase) pays nvcc, B on A's cache restores the library
+           from its annex.  Gates: every result equal with torch.equal,
+           exact counters, trace_counts 0 on restored buckets, no nvcc in
+           B, a truncated entry and a stale token each one typed cold
+           miss.  Line ``e2e_aot``: prepare and first-execute ms per
+           session, each child's seconds from spawn to first result and
+           its nvcc seconds
+then the ``script`` line (seconds since the script's imports), the
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.  Any failure raises and exits non-zero without the last line.
 
 Tolerance: 1e-5 at D <= 130 and 1e-4 at D = 512 on sims and keys, on the
 key gap that may reorder a near-tie, and on the distance from the radius
@@ -277,6 +298,7 @@ within which a row may be a hit on one side only (fp32 sums of up to 512
 unit-scale products taken in a different order).  A Q5/Q6 answer is held
 list by list, each (query, category) list as a range buffer of its hits.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -289,10 +311,17 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+T_START = time.perf_counter()
 
-N_ROWS, N_QUERIES, DIM, N_MODES, K = 1_000_000, 100, 512, 256, 50
+from repro_torch.configs.chase_laion import bench_config  # noqa: E402
+
+# the paper's laion1m scale (configs/chase_laion.py gives it in comments)
+LAION1M = dataclasses.replace(bench_config(), n_rows=1_000_000, n_queries=100)
+N_ROWS, N_QUERIES, DIM, N_MODES, K = (LAION1M.n_rows, LAION1M.n_queries,
+                                      LAION1M.dim, LAION1M.n_modes,
+                                      LAION1M.k_top)
 SELECTIVITY = 0.3
-RANGE_TARGET = 120            # the radius's hit count per query (§7.1)
+RANGE_TARGET = LAION1M.range_match_target  # the radius's hit count (§7.1)
 BATCHES = (1, 8, 64, 100)
 CAPACITY = 4096               # Q2 result buffer (ProbeConfig.capacity)
 MAX_PAIRS = 512               # Q3 per-left-row buffer
@@ -308,7 +337,8 @@ Q3 = ("SELECT queries.id AS qid, images.sample_id AS tid "
       "FROM queries JOIN images "
       "ON DISTANCE(queries.embedding, images.embedding) <= ${r} "
       "AND images.capture_date > queries.capture_date")
-K_CATEGORY, EX = 10, 3        # Q5/Q6: top 10 per level; Q5 excludes cuisine 3
+K_CATEGORY, EX = LAION1M.k_category, 3   # Q5/Q6: top 10 per level; Q5
+                                         # excludes cuisine 3
 Q4 = ("SELECT qid, tid FROM (SELECT users.id AS qid, movies.sample_id AS tid, "
       "RANK() OVER (PARTITION BY users.id "
       "ORDER BY DISTANCE(users.embedding, movies.embedding)) AS rank "
@@ -342,10 +372,11 @@ REPLACES = {"scan_topk": "src/repro/kernels/scan_topk.py:241",
             "replay_keys": "src/repro/kernels/quant.py:208",
             "pairwise_keys": "src/repro/kernels/distance.py:48"}
 MODES = ("int8", "bf16")
-# the IVF index of this workload (src/repro/configs/chase_laion.py, copied)
-NLIST, KMEANS_ITERS = 256, 10
-IVF_PROBE = dict(max_probes=64, capacity=4096, stop_after_no_improve=6,
-                 out_range_stop=4, min_probes=8)
+# the IVF index of this workload (configs/chase_laion.py)
+NLIST, KMEANS_ITERS = bench_config().nlist, bench_config().kmeans_iters
+IVF_PROBE = {name: getattr(bench_config().probe, name)
+             for name in ("max_probes", "capacity", "stop_after_no_improve",
+                          "out_range_stop", "min_probes")}
 IVF_ENGINES = ("chase", "vbase", "pase")
 RESCORE = (2, 3, 4, 6, 8)     # Q1 candidate multiples tried, smallest first
 SERVE_BATCH, SERVE_WAIT_MS = 32, 5.0
@@ -360,6 +391,10 @@ NEEDLE = 0.002                # every 8th request's predicate selectivity
 LIVE_DELTA_CAP, LIVE_INSERTS, LIVE_BATCHES, LIVE_NEAR = 4096, 2048, 4, 64
 LIVE_DELETES, LIVE_DELETE_INSERTED, LIVE_TOUCH, LIVE_POST = 1000, 16, 10, 512
 LIVE_RECALL = 0.99            # chase over the live IVF against live flat
+# the interp phase: Q1 interpreted over a subsample of the products table
+INTERP_ROWS, INTERP_QUERIES = 20_000, 3
+# the aot phase's children run Q1 at these list lengths
+AOT_CHILD_BATCHES = (1, 8, 100)
 # published dense peaks (NVIDIA data sheets): bytes/s, fp32 CUDA-core FLOP/s
 PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12),
          "SXM": (3.35e12, 67.0e12)}
@@ -2026,6 +2061,429 @@ def adaptive_phase(cat, qv, r, drive, launches, smi: str, name: str) -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
+def interp_phase(cat, qv, p, drive, launches, reset_counts, counts,
+                 smi: str, name: str) -> None:
+    """The ``interp`` phase: the Volcano interpreter
+    (``repro_torch.core.interpreter.run_interpreted``) runs Q1 (K = 50,
+    ``price < p`` at selectivity 0.3) over a subsample of ``INTERP_ROWS``
+    rows of the products table, built on the card with ``Table.take``
+    (sorted seeded row indices), for ``INTERP_QUERIES`` queries bound as
+    tensors on the card.  One gate: the interpreted sample ids hold against
+    the compiled flat Q1 on the same subsample (``brute``,
+    ``use_pallas=True``: ``scan_topk``) by ``assert_topk_close``'s rule,
+    the interpreted rows' sims taken as the interpreter takes them (one
+    float32 numpy dot per row); the interpreter launches no kernel.  Line
+    ``e2e_interp``: the interpreted ms (host copies of the columns
+    included), the same scaled to the corpus's rows (labelled ``scaled``,
+    as benchmarks/q1_vknn.py does), the compiled Q1 on the subsample and on
+    the full corpus (a single dict and a list of 100), the ratios and the
+    four counters."""
+    from repro_torch.api import connect
+    from repro_torch.core.interpreter import run_interpreted
+    from repro_torch.core.schema import Catalog
+    from repro_torch.testing import assert_topk_close
+
+    t_phase = time.perf_counter()
+    products = cat.table("products")
+    dev = products.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.randperm(products.num_rows, generator=gen,
+                         device=dev)[:INTERP_ROWS].sort().values
+    sub = products.take(idx)
+    sub_cat = Catalog()
+    sub_cat.register("products", sub)
+    sub_ids = sub["sample_id"].cpu().numpy()
+    sub_vecs = sub["embedding"].cpu().numpy()
+    sub_price = sub["price"].cpu().numpy()
+    pos_of = {int(s): i for i, s in enumerate(sub_ids)}
+    qv_dev = torch.from_numpy(qv).to(dev)
+    stmt = connect(sub_cat, engine="brute", use_pallas=True).prepare(Q1, K=K)
+
+    interp_ms, counters, interp = [], [], []
+    for i in range(INTERP_QUERIES):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows, ctr = run_interpreted(Q1, sub_cat, {"qv": qv_dev[i], "p": p,
+                                                  "K": K})
+        interp_ms.append((time.perf_counter() - t) * 1e3)
+        if any(counts().values()):
+            raise AssertionError(f"the interpreter launched {counts()}")
+        ids = np.array([int(r["sample_id"]) for r in rows], np.int64)
+        pos = np.array([pos_of[s] for s in ids], np.int64)
+        sims = np.array([float(np.dot(sub_vecs[j], qv[i])) for j in pos],
+                        np.float32)
+        if len(ids) != K or not (sub_price[pos] < p).all():
+            raise AssertionError(f"interp query {i}: {len(ids)} rows, or a "
+                                 f"row fails price < p")
+        interp.append({"ids": ids, "sim": sims,
+                       "valid": np.ones(len(ids), bool)})
+        counters.append(dataclasses.asdict(ctr))
+    results = drive("interp_compiled", [
+        (f"single{i}", stmt, {"qv": qv[i], "p": p}, None)
+        for i in range(INTERP_QUERIES)])
+    if launches["interp_compiled"]["scan_topk"] < INTERP_QUERIES:
+        raise AssertionError(f"compiled Q1 on the subsample launched "
+                             f"{launches['interp_compiled']}")
+    errs = []
+    for i, (label, _s, _b, _h, res) in enumerate(results):
+        valid = res["valid"].cpu().numpy()
+        compiled = {"ids": np.where(valid, sub_ids[res["ids"].cpu().numpy()
+                                                   .clip(0)], -1),
+                    "sim": res["sim"].cpu().numpy(), "valid": valid}
+        errs.append(assert_topk_close(interp[i], compiled, atol=1e-4,
+                                      tie_tol=1e-4,
+                                      what=f"interp q1 {label}"))
+    full = connect(cat, engine="brute", use_pallas=True).prepare(Q1, K=K)
+    binds = [{"qv": qv[i], "p": p} for i in range(N_QUERIES)]
+    sub_single = latency_ms(lambda: stmt.execute(binds[0]))
+    single = latency_ms(lambda: full.execute(binds[0]))
+    list100 = latency_ms(lambda: full.execute(binds))
+    interp_med = statistics.median(interp_ms)
+    scaled = interp_med * products.num_rows / INTERP_ROWS
+    emit({"phase": "interp", "rows": INTERP_ROWS, "queries": INTERP_QUERIES,
+          "max_abs_err": max(errs), "launches": launches["interp_compiled"]})
+    emit({"phase": "e2e_interp", "device": name, "nvidia_smi": smi,
+          "subsample_rows": INTERP_ROWS, "corpus_rows": products.num_rows,
+          "interpreted_ms": interp_ms, "interpreted_ms_median": interp_med,
+          "scaled": True, "interpreted_ms_scaled": scaled,
+          "compiled_subsample_single_ms": sub_single,
+          "compiled_single_ms": single, "compiled_list100_ms": list100,
+          "ratio_scaled_over_single": scaled / single,
+          "ratio_scaled_over_list100_per_query": scaled / (list100
+                                                           / N_QUERIES),
+          "ratio_subsample_single": interp_med / sub_single,
+          "counters": counters,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def _tree_equal(a: dict, b: dict, what: str) -> None:
+    """Two result trees equal leaf for leaf with ``torch.equal``."""
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: keys {sorted(a)} != {sorted(b)}")
+    for key in a:
+        if isinstance(a[key], dict):
+            _tree_equal(a[key], b[key], f"{what}.{key}")
+        elif not torch.equal(a[key].to(b[key].device), b[key]):
+            raise AssertionError(f"{what}.{key}: not bit for bit")
+
+
+def _rewrite_header(path: str, **fields) -> None:
+    """Rewrite header fields of an on-disk plan-cache entry, keeping its
+    framing and checksums valid."""
+    import struct
+
+    from repro_torch.core.aot import MAGIC
+    with open(path, "rb") as f:
+        blob = f.read()
+    off = len(MAGIC)
+    (hlen,) = struct.unpack(">I", blob[off:off + 4])
+    header = json.loads(blob[off + 4:off + 4 + hlen].decode())
+    header.update(fields)
+    hj = json.dumps(header, sort_keys=True).encode()
+    with open(path, "wb") as f:
+        f.write(MAGIC + struct.pack(">I", len(hj)) + hj
+                + blob[off + 4 + hlen:])
+
+
+def aot_child(data_path: str, cache_dir: str, build_dir: str,
+              out_path: str, device: str) -> None:
+    """A child of the ``aot`` phase (``chip_smoke.py --aot-child ...``):
+    with ``build.BUILD_DIR`` set to an empty directory before any kernel
+    loads, it rebuilds the products table from the parent's ``torch.save``,
+    connects with ``aot_cache_path``, prepares Q1 and runs it at lists of
+    ``AOT_CHILD_BATCHES``, then saves the outputs and prints one JSON line:
+    the wall-clock time of the first result, the ``nvcc`` runs, the cache
+    counters and the executor's state."""
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    build.BUILD_DIR = Path(build_dir)
+    from repro_torch.api import connect
+    from repro_torch.core.schema import Catalog, Table
+
+    blob = torch.load(data_path, map_location=device, weights_only=False)
+    cat = Catalog()
+    cat.register("products", Table(blob["schema"], blob["columns"]))
+    db = connect(cat, engine="brute", use_pallas=True,
+                 aot_cache_path=cache_dir)
+    t = time.perf_counter()
+    stmt = db.prepare(Q1, K=K)
+    prepare_ms = (time.perf_counter() - t) * 1e3
+    qv, p = blob["qv"], blob["p"]
+    outs, first_ms, first_result_at = {}, {}, None
+    for qn in AOT_CHILD_BATCHES:
+        t = time.perf_counter()
+        res = stmt.execute([{"qv": qv[i], "p": p} for i in range(qn)])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        first_ms[qn] = (time.perf_counter() - t) * 1e3
+        if first_result_at is None:
+            first_result_at = time.time()
+        outs[f"q1_list{qn}"] = {k: v.cpu() for k, v in res.data.items()
+                                if isinstance(v, torch.Tensor)}
+    torch.save(outs, out_path)
+    ex = stmt.executor
+    print(json.dumps({"first_result_at": first_result_at,
+                      "finished_at": time.time(),
+                      "prepare_ms": prepare_ms, "first_execute_ms": first_ms,
+                      "nvcc": build.BUILDS,
+                      "nvcc_s": sum(b["seconds"] for b in build.BUILDS),
+                      "aot": db.cache_info().aot,
+                      "trace_counts": ex.trace_counts,
+                      "aot_loaded": ex.aot_loaded,
+                      "libraries": sorted(os.listdir(build_dir))}),
+          flush=True)
+
+
+class AotChildren:
+    """The ``aot`` phase's child processes (:func:`aot_child`) and their
+    scratch directory.  ``start`` writes the products table and the binds
+    with one ``torch.save`` and spawns child A on an empty cache right
+    after the catalog is built, so its cold ``nvcc`` runs beside the
+    ``full``, ``slice`` and ``slice_quant`` phases, which time nothing;
+    ``join_a`` waits for it before the ``ivf`` phase, the first that
+    times anything; ``aot_phase`` runs child B on A's cache.  ``close``
+    (also at exit) stops every child still running and removes the
+    directory."""
+
+    def __init__(self, cat, qv, p):
+        import atexit
+        import tempfile
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+        self.procs = []
+        atexit.register(self.close)
+        products = cat.table("products")
+        self.device = products.device
+        self.data_path = os.path.join(self.work, "products.pt")
+        t = time.perf_counter()
+        torch.save({"schema": products.schema,
+                    "columns": dict(products.columns),
+                    "qv": qv[:N_QUERIES], "p": p}, self.data_path)
+        self.save_s = time.perf_counter() - t
+        self.cache_a = os.path.join(self.work, "cache_a")
+        self.a = self.spawn("a", self.cache_a)
+        self.rep_a = None
+
+    def spawn(self, tag: str, cache_dir: str):
+        build_dir = os.path.join(self.work, f"build_{tag}")
+        os.makedirs(build_dir)
+        out = os.path.join(self.work, f"out_{tag}.pt")
+        log = open(os.path.join(self.work, f"log_{tag}.txt"), "w+")
+        started = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--aot-child",
+             self.data_path, cache_dir, build_dir, out, self.device.type],
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+        self.procs.append((proc, log))
+        return proc, log, started, out
+
+    def finish(self, tag: str, child) -> dict:
+        proc, log, started, out = child
+        rc = proc.wait(timeout=600)
+        log.seek(0)
+        text = log.read()
+        if rc != 0:
+            raise AssertionError(f"aot child {tag} exited {rc}:\n{text}")
+        rep = json.loads(text.strip().splitlines()[-1])
+        rep["first_result_s"] = rep.pop("first_result_at") - started
+        rep["wall_s"] = rep.pop("finished_at") - started
+        rep["outputs"] = torch.load(out, map_location=self.device)
+        return rep
+
+    def join_a(self) -> dict:
+        """Child A's report, waiting for it the first time (the seconds
+        waited are ``join_wait_s``)."""
+        if self.rep_a is None:
+            t = time.perf_counter()
+            self.rep_a = self.finish("a", self.a)
+            self.rep_a["join_wait_s"] = time.perf_counter() - t
+        return self.rep_a
+
+    def close(self) -> None:
+        import shutil
+        for proc, log in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def aot_phase(cat, qv, p, r, children: AotChildren, reset_counts, counts,
+              launches, smi: str, name: str) -> None:
+    """The ``aot`` phase: the on-disk plan cache (``connect(...,
+    aot_cache_path=...)``, ``repro_torch.core.aot``) over Q1 (a single dict
+    and lists of 1, 8, 100), Q2 (a list of 100) and Q3 (the batch
+    lowering, one bind set), ``brute`` with ``use_pallas=True``.
+
+    In process, four sessions each prepare the three statements and run
+    the six executions once: no cache, a cold cache (entries saved), a new
+    ``Database`` on the same path (disk hits), and the same ``Database``
+    again (plan-cache hits).  Across processes, two children
+    (:class:`AotChildren`), each with an empty ``build.BUILD_DIR``: child A
+    on an empty cache pays ``nvcc`` (started after the catalog was built);
+    child B on A's cache restores the library from its annex.
+
+    Gates: every result of every session and child equals the uncached
+    session's with ``torch.equal``; the cache counters are exact (cold: 5
+    misses and 5 saves; disk: 5 hits; plan-cache hits add none); restored
+    buckets have ``trace_counts`` 0 and count in ``aot_loaded``; child B
+    runs no ``nvcc``; a truncated entry and a stale catalog token each give
+    one typed cold miss, then equal results.  Line ``e2e_aot``: prepare and
+    first-execute ms per session, the children's wall time from spawn to
+    first result and their ``nvcc`` seconds, entry and library sizes."""
+    import shutil
+    import warnings
+
+    from repro_torch.api import AOTCacheWarning, connect
+
+    t_phase = time.perf_counter()
+    work = children.work
+    try:
+        stmts = {"q1": (Q1, {"K": K}), "q2": (Q2, {}), "q3": (Q3, {})}
+        q1b = [{"qv": qv[i], "p": p} for i in range(N_QUERIES)]
+        q2b = [{"qv": qv[i], "r": r, "p": p} for i in range(N_QUERIES)]
+        runs = {"q1_single": ("q1", q1b[0]), "q1_list1": ("q1", q1b[:1]),
+                "q1_list8": ("q1", q1b[:8]), "q1_list100": ("q1", q1b),
+                "q2_list100": ("q2", q2b), "q3_batch": ("q3", [{"r": r}])}
+        opts = dict(engine="brute", use_pallas=True)
+
+        def session(db, label: str) -> dict:
+            prep, first, data, sts = {}, {}, {}, {}
+            for key, (sql, static) in stmts.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                sts[key] = db.prepare(sql, **static)
+                prep[key] = (time.perf_counter() - t) * 1e3
+            reset_counts()
+            for run, (key, binds) in runs.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = sts[key].execute(binds)
+                torch.cuda.synchronize()
+                first[run] = (time.perf_counter() - t) * 1e3
+                data[run] = res.data
+            launches[f"aot_{label}"] = counts()
+            for kname in ("scan_topk", "scan_topk_batch",
+                          "range_scan_batch"):
+                if launches[f"aot_{label}"][kname] < 1:
+                    raise AssertionError(f"aot {label}: {kname} not "
+                                         f"launched")
+            return {"statements": sts, "data": data, "prepare_ms": prep,
+                    "first_execute_ms": first,
+                    "prepare_ms_total": sum(prep.values()),
+                    "first_execute_ms_total": sum(first.values()),
+                    "aot": db.cache_info().aot,
+                    "plan_cache": dataclasses.asdict(db.cache_info())}
+
+        cache_dir = os.path.join(work, "cache")
+        sessions = {"uncached": session(connect(cat, **opts), "uncached")}
+        sessions["cold"] = session(
+            connect(cat, aot_cache_path=cache_dir, **opts), "cold")
+        disk_db = connect(cat, aot_cache_path=cache_dir, **opts)
+        sessions["disk"] = session(disk_db, "disk")
+        sessions["memory"] = session(disk_db, "memory")
+        want = sessions["uncached"]["data"]
+        for label in ("cold", "disk", "memory"):
+            for run in runs:
+                _tree_equal(sessions[label]["data"][run], want[run],
+                            f"aot {label} {run}")
+        entries = len(runs) - 1            # the single dict rides no bucket
+        zero = {"hits": 0, "misses": 0, "corrupt": 0, "stale": 0,
+                "errors": 0, "saves": 0}
+        expect = {"cold": dict(zero, misses=entries, saves=entries),
+                  "disk": dict(zero, hits=entries),
+                  "memory": dict(zero, hits=entries)}
+        for label, want_aot in expect.items():
+            if sessions[label]["aot"] != want_aot:
+                raise AssertionError(f"aot {label}: counters "
+                                     f"{sessions[label]['aot']} != "
+                                     f"{want_aot}")
+        if sessions["memory"]["plan_cache"]["hits"] != len(stmts):
+            raise AssertionError("aot memory: the plan cache missed")
+        for key, st in sessions["disk"]["statements"].items():
+            ex = st.executor
+            if any(ex.trace_counts.values()) or not ex.aot_loaded \
+                    or set(ex.aot_loaded) != set(ex.trace_counts):
+                raise AssertionError(f"aot disk {key}: trace_counts "
+                                     f"{ex.trace_counts}, aot_loaded "
+                                     f"{ex.aot_loaded}")
+        files = sorted(f for f in os.listdir(cache_dir) if f.endswith(".aot"))
+        kdir = os.path.join(cache_dir, "kernels")
+        libs = sorted(os.listdir(kdir)) if os.path.isdir(kdir) else []
+
+        # poisons: a truncated entry and a stale token, on copies
+        ex = sessions["cold"]["statements"]["q1"].executor
+        (sig8,) = [sig for (b, sig) in ex._aot_exec if b == 8]
+        entry = os.path.basename(ex._aot.cache.entry_path(ex._aot, 8, sig8))
+        poisons = {}
+        for poison, counter in (("truncated", "corrupt"),
+                                ("catalog_token", "stale")):
+            pdir = os.path.join(work, f"poison_{poison}")
+            shutil.copytree(cache_dir, pdir)
+            path = os.path.join(pdir, entry)
+            if poison == "truncated":
+                with open(path, "r+b") as f:
+                    f.truncate(os.path.getsize(path) // 2)
+            else:
+                _rewrite_header(path, catalog_token="deadbeef" * 8)
+            pdb = connect(cat, aot_cache_path=pdir, **opts)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = pdb.prepare(Q1, K=K).execute(q1b[:8])
+            typed = [str(w.message) for w in caught
+                     if issubclass(w.category, AOTCacheWarning)]
+            info = pdb.cache_info().aot
+            if (info[counter] != 1 or info["saves"] != 1 or len(typed) != 1
+                    or counter not in typed[0]):
+                raise AssertionError(f"aot poison {poison}: {info} {typed}")
+            _tree_equal(res.data, want["q1_list8"], f"aot poison {poison}")
+            poisons[poison] = {"aot": info, "warning": typed[0]}
+
+        rep_a = children.join_a()
+        rep_b = children.finish("b", children.spawn("b", children.cache_a))
+        for tag, rep in (("a", rep_a), ("b", rep_b)):
+            for run, out in rep.pop("outputs").items():
+                _tree_equal(out, {k: v for k, v in want[run].items()
+                                  if isinstance(v, torch.Tensor)},
+                            f"aot child {tag} {run}")
+        n_child = len(AOT_CHILD_BATCHES)
+        if rep_a["aot"]["saves"] != n_child or rep_b["aot"] != dict(
+                zero, hits=n_child):
+            raise AssertionError(f"aot children: {rep_a['aot']} / "
+                                 f"{rep_b['aot']}")
+        if rep_b["nvcc"] or any(rep_b["trace_counts"].values()):
+            raise AssertionError(f"aot child b built {rep_b['nvcc']} "
+                                 f"{rep_b['trace_counts']}")
+        if children.device.type == "cuda" and (not rep_a["nvcc"]
+                                   or not rep_b["libraries"]):
+            raise AssertionError("aot child a built nothing, or child b "
+                                 "restored no library")
+        summary = {label: {k: v for k, v in s.items()
+                           if k not in ("statements", "data")}
+                   for label, s in sessions.items()}
+        emit({"phase": "aot", "entries": files, "libraries": libs,
+              "poisons": poisons,
+              "launches": {k: v for k, v in launches.items()
+                           if k.startswith("aot_")}})
+        emit({"phase": "e2e_aot", "device": name, "nvidia_smi": smi,
+              "sessions": summary,
+              "prepare_saved_ms_disk": (summary["uncached"]
+                                        ["prepare_ms_total"]
+                                        - summary["disk"]["prepare_ms_total"]),
+              "entry_bytes": sum(os.path.getsize(os.path.join(cache_dir, f))
+                                 for f in files),
+              "library_bytes": sum(os.path.getsize(os.path.join(kdir, f))
+                                   for f in libs),
+              "children": {"a": rep_a, "b": rep_b},
+              "nvcc_saved_s": rep_a["nvcc_s"] - rep_b["nvcc_s"],
+              "data_save_s": children.save_s,
+              "phase_s": time.perf_counter() - t_phase})
+    finally:
+        children.close()
+
+
 def live_phase(cat, qv, p, r, drive, launches, reset_counts, counts,
                smi: str, name: str) -> None:
     """The ``live`` phase: a live corpus attached to products.embedding of
@@ -3341,6 +3799,10 @@ def main() -> None:
     r = np.float32(np.median(kth.cpu().numpy()))
     setup_s = time.perf_counter() - t0
 
+    # the aot phase's child A starts now: its cold nvcc runs beside the
+    # full and slice phases, which time nothing
+    aot_children = AotChildren(cat, qv, p)
+
     def near(radius, tol: float = 1e-4) -> torch.Tensor:
         """Per query, the rows whose sim lies within ``tol`` of
         ``radius``."""
@@ -3864,6 +4326,9 @@ def main() -> None:
                        if key.endswith(MODES)},
           "runs": qchecked})
 
+    # the aot phase's child A ends before the first phase that times
+    aot_children.join_a()
+
     # -- ivf: the IVF index and the chase, vbase and pase engines -------------
     index = ivf_phase(cat, qv, p, r, sims, near_q, drive, launches, smi,
                       name)
@@ -3884,6 +4349,13 @@ def main() -> None:
 
     # -- adaptive: the advisor over the ivf phase's index ---------------------
     adaptive_phase(cat, qv, r, drive, launches, smi, name)
+
+    # -- interp: the Volcano interpreter against the compiled Q1 --------------
+    interp_phase(cat, qv, p, drive, launches, reset_counts, counts, smi, name)
+
+    # -- aot: the on-disk plan cache, in process and across processes ---------
+    aot_phase(cat, qv, p, r, aot_children, reset_counts, counts, launches,
+              smi, name)
 
     # -- times ----------------------------------------------------------------
     nb, _rows = st_mod.single_plan(N_ROWS)
@@ -4473,6 +4945,7 @@ def main() -> None:
         emit({"phase": "e2e", "path": f"q5_q6_{mode}", "device": name,
               "nvidia_smi": smi, "q5": q5_runs, "q6": q6_runs})
 
+    emit({"phase": "script", "seconds": time.perf_counter() - T_START})
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": SOURCES[kname],
          "replaces": REPLACES[kname],
@@ -4484,4 +4957,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--aot-child"]:
+        aot_child(*sys.argv[2:])
+    else:
+        main()

@@ -9,12 +9,14 @@
     server = db.serve(stmt)                    # submit/poll scheduler
     db.attach_live("products", "embedding", path)   # a mutable corpus
     db.insert("products", ids, vectors)        # seen at the next execute
+    db = connect(catalog, aot_cache_path=dir)  # on-disk plan cache
 
 Results hold torch tensors on the catalog's device.
 """
+from ..core.aot import AOTCacheWarning
 from .database import CacheInfo, Database, Statement, connect
 from .hints import ExecutionHints
 from .result import ExplainReport, Result, ResultBatch
 
 __all__ = ["connect", "Database", "Statement", "CacheInfo", "ExecutionHints",
-           "ExplainReport", "Result", "ResultBatch"]
+           "ExplainReport", "Result", "ResultBatch", "AOTCacheWarning"]

@@ -33,8 +33,12 @@ flat path.
 * ``EngineOptions(dist=DistSpec(...))`` runs every class on the sharded
   fused flat scan; ``explain()`` reports ``shards`` and ``merge_depth``.
 
-The on-disk plan cache belongs to a later slice of the port and raises
-``NotImplementedError``.
+* ``connect(cat, aot_cache_path=dir)`` attaches the on-disk plan cache
+  (:mod:`repro_torch.core.aot`): a prepare in a new process restores the
+  plan's analysis and rewritten plan from disk (no ``analyze`` or
+  ``rewrite``), a bucket's first execute restores its entry and writes the
+  kernel libraries it needs back into ``build/kernels/`` (no ``nvcc``),
+  and ``cache_info().aot`` / ``explain().aot`` report the counters.
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ from ..core.compiler import (CompiledQuery, StalePlanError, compile_plan,
                              _stacked_qn)
 from ..core.expr import Param
 from ..core.physical import EngineOptions
-from ..core.schema import Catalog, not_ported
+from ..core.schema import Catalog
 from ..core.sql import parse_sql
 from .hints import ExecutionHints
 from .result import ExplainReport, Result, ResultBatch
@@ -60,7 +64,9 @@ NO_HINTS = ExecutionHints()
 @dataclasses.dataclass(frozen=True)
 class CacheInfo:
     """Plan-cache statistics snapshot (functools-style).  ``aot`` is the
-    on-disk cache's counters in the reference; always None here."""
+    on-disk cache's counter snapshot (hits / misses / corrupt / stale /
+    errors / saves) when the session connected with ``aot_cache_path``,
+    else None."""
     hits: int
     misses: int
     entries: int
@@ -96,26 +102,28 @@ def connect(catalog: Catalog, options: EngineOptions | None = None,
     batched executions feed runtime stats back and get predicted probe
     budgets, hints always winning; ``stats_path`` persists and restores its
     stats store there (the reference's JSON: either package reads the
-    other's file)."""
-    if aot_cache_path is not None:
-        raise not_ported("connect(aot_cache_path=...) (on-disk plan cache)",
-                          "12")
+    other's file).  ``aot_cache_path`` names a directory for the on-disk
+    plan cache: entries persist write-through and restore on restart with
+    no front-end pass and no kernel build, so a new process preparing a
+    statement seen before is warm."""
     if option_overrides:
         options = dataclasses.replace(options or EngineOptions(),
                                       **option_overrides)
     return Database(catalog, options or EngineOptions(),
                     max_cached_plans=max_cached_plans, adaptive=adaptive,
-                    stats_path=stats_path)
+                    stats_path=stats_path, aot_cache_path=aot_cache_path)
 
 
 class Database:
     """A connection-like session: catalog + options + normalized plan cache
-    (LRU-bounded by ``max_cached_plans``), and with ``adaptive`` the
-    session's lowering advisor."""
+    (LRU-bounded by ``max_cached_plans``), with ``adaptive`` the session's
+    lowering advisor, and with ``aot_cache_path`` the on-disk plan cache
+    (``aot_cache``)."""
 
     def __init__(self, catalog: Catalog, options: EngineOptions | None = None,
                  max_cached_plans: int | None = 128, adaptive: bool = False,
-                 stats_path: str | None = None):
+                 stats_path: str | None = None,
+                 aot_cache_path: str | None = None):
         if max_cached_plans is not None and max_cached_plans < 1:
             raise ValueError(
                 f"max_cached_plans must be >= 1 or None, "
@@ -127,6 +135,10 @@ class Database:
         if adaptive:
             from ..opt import LoweringAdvisor
             self.advisor = LoweringAdvisor(catalog, stats_path=stats_path)
+        self.aot_cache = None
+        if aot_cache_path is not None:
+            from ..core.aot import AOTPlanCache
+            self.aot_cache = AOTPlanCache(aot_cache_path)
         self._cache: "collections.OrderedDict[tuple, _CacheEntry]" = (
             collections.OrderedDict())
         self._hits = 0
@@ -167,8 +179,8 @@ class Database:
                 entry = None
         if entry is None:
             self._misses += 1
-            compiled = compile_plan(sql, plan, self.catalog, eff_options,
-                                    dict(static_binds))
+            compiled = self._compile(sql, plan, eff_options,
+                                     dict(static_binds), key)
             entry = _CacheEntry(compiled, param_order, fp)
             self._cache[key] = entry
             self._trim()
@@ -185,10 +197,44 @@ class Database:
         """One-shot convenience: ``prepare`` (cached) + ``execute``."""
         return self.prepare(sql, hints=hints, **static_binds).execute(binds)
 
+    def _compile(self, sql: str, plan, options: EngineOptions,
+                 static_binds: dict, key: tuple) -> CompiledQuery:
+        """Compile a plan-cache miss.  Under the on-disk cache the plan's
+        portable part is restored from any valid entry of the plan (no
+        ``analyze`` or ``rewrite``), and the fresh executor is routed
+        through the cache: persisted buckets restore, cold ones persist
+        write-through, which makes LRU eviction evict to disk."""
+        if self.aot_cache is None:
+            return compile_plan(sql, plan, self.catalog, options,
+                                static_binds)
+        from ..core.aot import plan_binding
+        compiled = None
+        found = self.aot_cache.restore_plan(key, self.catalog)
+        if found is not None:
+            parts, binding, path = found
+            try:
+                compiled = compile_plan(sql, plan, self.catalog, options,
+                                        static_binds, restored=parts)
+            except Exception as exc:                   # noqa: BLE001
+                self.aot_cache.reject(path, "corrupt",
+                                      f"restored plan does not compile "
+                                      f"({type(exc).__name__}: {exc})")
+        if compiled is None:
+            compiled = compile_plan(sql, plan, self.catalog, options,
+                                    static_binds)
+            binding = plan_binding(self.aot_cache, key, self.catalog,
+                                   compiled.analysis, options)
+        compiled.executor.attach_aot(binding)
+        return compiled
+
     def cache_info(self) -> CacheInfo:
-        """Hits / misses / live entries / evictions of the plan cache."""
+        """Hits / misses / live entries / evictions of the plan cache, plus
+        the on-disk cache's counter snapshot when ``aot_cache_path`` is
+        set."""
         return CacheInfo(self._hits, self._misses, len(self._cache),
-                         self._evictions, self.max_cached_plans)
+                         self._evictions, self.max_cached_plans,
+                         aot=(None if self.aot_cache is None
+                              else self.aot_cache.stats()))
 
     def serve(self, statement: "Statement | str", config=None, *,
               max_batch: int = 64, max_wait_ms: float = 2.0,
@@ -497,6 +543,9 @@ class Statement:
                 shards=None if dist is None else dist.num_shards,
                 merge_depth=None if dist is None else dist.merge_depth,
                 freshness=None if live is None else live.freshness(),
+                aot=(None if self._db.aot_cache is None else
+                     {**self._db.aot_cache.stats(),
+                      "loaded": dict(ex.aot_loaded)}),
                 **exec_fields)
 
         return build

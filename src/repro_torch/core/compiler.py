@@ -13,7 +13,9 @@ The compilation product is split in two, as in the reference:
 PyTorch runs eagerly, so there is nothing to trace: a bucket's executor is
 a plain closure over the plan, and ``trace_counts[bucket]`` counts the
 executor objects built for that bucket.  "Compiled once per bucket" keeps
-its meaning — a second batch in the same bucket builds nothing.
+its meaning — a second batch in the same bucket builds nothing.  With the
+on-disk plan cache attached (``core/aot.py``) a bucket restored from disk
+builds nothing either: it counts in ``aot_loaded`` instead.
 
 The port compiles all six query classes (Q1 VKNN-SF, Q2 DR-SF, the Q3
 distance join, the Q4 KNN join, Q5 category partition, the Q6 category
@@ -191,6 +193,7 @@ class CompiledPlan:
     batch_fn: Callable
     batch_native: bool
     batch_reason: str
+    static_binds: dict = dataclasses.field(default_factory=dict)
 
 
 def _bucket_for(qn: int) -> int:
@@ -240,6 +243,28 @@ class BucketedExecutor:
         self.arrays = arrays
         self._cache: dict[int, Callable] = {}
         self.trace_counts: dict[int, int] = {}
+        # on-disk plan cache: binding + executors keyed (bucket, argument
+        # signature), and the buckets restored from disk
+        self._aot = None
+        self._aot_exec: dict[tuple[int, str], Callable] = {}
+        self.aot_loaded: dict[int, int] = {}
+
+    def attach_aot(self, binding) -> None:
+        """Route this executor through an on-disk plan cache
+        (:class:`repro_torch.core.aot.AOTPlanCache`).
+
+        Once attached, a bucket with a valid entry on disk is restored
+        (its kernel libraries written back, nothing built:
+        ``trace_counts`` stays 0 and ``aot_loaded`` counts it), and a
+        bucket without one builds its executor and persists an entry
+        write-through after its first execute.  Failure anywhere in the
+        persistence path degrades to the plain executor with a typed
+        :class:`~repro_torch.core.aot.AOTCacheWarning`."""
+        self._aot = binding
+
+    def _run(self, arrays, binds, qvalid, probe_budget):
+        return self.plan.batch_fn(arrays, binds, qvalid=qvalid,
+                                  probe_budget=probe_budget)
 
     def bucket_for(self, qn: int) -> int:
         """Enclosing power-of-two bucket a batch of ``qn`` queries runs in."""
@@ -254,12 +279,7 @@ class BucketedExecutor:
         """The (lazily built) executor for one bucket."""
         if bucket not in self._cache:
             self.trace_counts[bucket] = self.trace_counts.get(bucket, 0) + 1
-
-            def run(arrays, binds, qvalid, probe_budget):
-                return self.plan.batch_fn(arrays, binds, qvalid=qvalid,
-                                          probe_budget=probe_budget)
-
-            self._cache[bucket] = run
+            self._cache[bucket] = self._run
         return self._cache[bucket]
 
     def run_padded(self, binds: dict, qn: int, probe_budget=None):
@@ -275,9 +295,56 @@ class BucketedExecutor:
             if budget.ndim >= 1 and budget.shape[0] == qn:
                 budget = _pad_leading(budget, bucket)
             probe_budget = budget
-        out = self.executable(bucket)(self.arrays, padded, valid,
-                                      probe_budget)
+        args = (self.arrays, padded, valid, probe_budget)
+        if self._aot is not None:
+            out = self._aot_call(bucket, args)
+        else:
+            out = self.executable(bucket)(*args)
         return out, bucket, valid
+
+    # -- on-disk plan cache (core/aot.py) -----------------------------------
+
+    def _aot_call(self, bucket: int, args: tuple):
+        """Dispatch one bucket execution through the on-disk cache, keyed
+        (bucket, argument signature): a live corpus's growth or an index
+        replacement that changes a shape gets an entry of its own."""
+        from . import aot as _aot
+        sig = _aot.args_signature(args)
+        fn = self._aot_exec.get((bucket, sig))
+        if fn is not None:
+            return fn(*args)
+        if self._aot.cache.load(self._aot, bucket, sig):
+            # restored from disk: the annex's libraries are in place and
+            # no executor object is built for the bucket
+            self.trace_counts.setdefault(bucket, 0)
+            self.aot_loaded[bucket] = self.aot_loaded.get(bucket, 0) + 1
+            self._aot_exec[(bucket, sig)] = self._run
+            return self._run(*args)
+        return self._aot_compile(bucket, sig, args)
+
+    def _aot_compile(self, bucket: int, sig: str, args: tuple):
+        """Cold path under an attached cache: serialize the plan's portable
+        part, build the bucket's executor, run it once recording the kernel
+        libraries it reaches, persist the entry, return the outputs.  An
+        unserializable plan runs the plain executor without persisting
+        (serializing builds nothing, so ``trace_counts`` needs no snapshot
+        to stay honest)."""
+        from ..kernels import build
+        from . import aot as _aot
+        binding = self._aot
+        try:
+            portable = _aot.export_plan(self.plan)
+        except Exception as exc:                       # noqa: BLE001
+            binding.cache.note_unserializable(binding.plan_key, exc)
+            fn = self.executable(bucket)
+            self._aot_exec[(bucket, sig)] = fn
+            return fn(*args)
+        fn = self.executable(bucket)
+        with build.recording() as used:
+            out = fn(*args)
+        binding.cache.save(binding, bucket, sig, portable, used)
+        self._aot_exec[(bucket, sig)] = fn
+        return out
 
     def __call__(self, binds: dict, probe_budget=None):
         """Bucketed execution: pad -> run the bucket's executor -> slice."""
@@ -435,6 +502,34 @@ class CompiledQuery:
                              f"{bad}")
         return {k: (np.broadcast_to(v, (qn,)) if v.ndim == 0 else v)
                 for k, v in binds.items()}
+
+    def export_batch(self, binds_list: list[dict] | None = None,
+                     **stacked) -> bytes:
+        """Serialize the batched plan's portable part (``core/aot.py``):
+        the rewritten plan, analysis, options and static binds.  The binds
+        are checked as ``execute_batch`` checks them; the bytes do not
+        depend on Q (an eager plan runs every Q).
+
+        The round-trip partner is :meth:`deserialize_batch`: the bytes
+        restore, in this or a later process, a callable taking the same
+        ``(arrays, binds)`` the batched pipeline takes, equal to
+        :meth:`execute_batch` bit for bit."""
+        from . import aot as _aot
+        self.ensure_fresh()
+        self._stack_binds(binds_list, stacked)
+        return _aot.export_plan(self.plan)
+
+    @staticmethod
+    def deserialize_batch(data: bytes, catalog: Catalog):
+        """Restore an :meth:`export_batch` payload to a callable taking
+        ``(arrays, binds)``, with no ``analyze`` or ``rewrite``.  Unlike the
+        reference's it takes the catalog: the eager builders close over
+        the predicate columns, which an exported XLA module carries as
+        constants."""
+        from . import aot as _aot
+        parts = _aot.load_plan(data)
+        return _pipelines(parts["analysis"], catalog, parts["options"],
+                          parts["static_binds"])[1]
 
     def explain(self) -> str:
         """Engine/class/lowering summary plus both plan trees, as text."""
@@ -737,10 +832,12 @@ def _single_via_batch(bfn: Callable) -> Callable:
 
 def _validate_slice(a: Analysis) -> None:
     """Reject what does not lower: a plan that matches no hybrid pattern
-    (the reference hands it to its interpreter engine)."""
+    runs on the interpreter engine
+    (:func:`repro_torch.core.interpreter.run_interpreted`)."""
     if a.query_class == QueryClass.NON_HYBRID:
         raise NotImplementedError(
-            "plan did not match a hybrid pattern; use the interpreter engine")
+            "plan did not match a hybrid pattern; use the interpreter engine "
+            "(repro_torch.core.interpreter.run_interpreted)")
 
 
 def compile_query(sql: str, catalog: Catalog,
@@ -757,22 +854,10 @@ def compile_query(sql: str, catalog: Catalog,
     return compile_plan(sql, plan, catalog, options, static_binds)
 
 
-def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
-                 options: EngineOptions, static_binds: dict) -> CompiledQuery:
-    """Compile an already-parsed logical plan (the plan-cache entry point)."""
-    a = analyze(plan, catalog)
-    _validate_slice(a)
-    _validate_dist(options)
-    _validate_live(a, catalog, options)
-    _validate_quant(options)
-    rewritten = rewrite(a)
-    dep_keys = _catalog_dep_keys(a, catalog, options)
-    with _scan_lock(a, catalog):
-        arrays = _gather_arrays(a, catalog, options)
-        # snapshot after _gather_arrays: registering a new twin or sharded
-        # handle bumps a key this plan must not see as a change on its first
-        # execute
-        bound = catalog.version_snapshot(dep_keys)
+def _pipelines(a: Analysis, catalog: Catalog, options: EngineOptions,
+               static_binds: dict):
+    """(single fn, batch fn, batch_native, batch_reason) of an analysed
+    plan."""
     batch_builder, batch_native, batch_reason = _batch_lowering(a, options)
     if (options.dist is not None or options.quant is not None
             or catalog.live_for(*_scan_of(a)) is not None):
@@ -786,8 +871,38 @@ def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
                                      Bindings(static_binds))
         bfn = (batch_builder(a, catalog, options, Bindings(static_binds))
                if batch_native else _vmap_fallback(fn))
+    return fn, bfn, batch_native, batch_reason
+
+
+def compile_plan(sql: str, plan: PlanNode, catalog: Catalog,
+                 options: EngineOptions, static_binds: dict,
+                 restored: dict | None = None) -> CompiledQuery:
+    """Compile an already-parsed logical plan (the plan-cache entry point).
+
+    ``restored`` is the portable part of an on-disk cache entry
+    (:func:`repro_torch.core.aot.load_plan`): its analysis and rewritten
+    plan stand in for ``analyze`` and ``rewrite``, which are not called."""
+    if restored is None:
+        a = analyze(plan, catalog)
+    else:
+        a = restored["analysis"]
+    _validate_slice(a)
+    _validate_dist(options)
+    _validate_live(a, catalog, options)
+    _validate_quant(options)
+    rewritten = rewrite(a) if restored is None else restored["rewritten_plan"]
+    dep_keys = _catalog_dep_keys(a, catalog, options)
+    with _scan_lock(a, catalog):
+        arrays = _gather_arrays(a, catalog, options)
+        # snapshot after _gather_arrays: registering a new twin or sharded
+        # handle bumps a key this plan must not see as a change on its first
+        # execute
+        bound = catalog.version_snapshot(dep_keys)
+    fn, bfn, batch_native, batch_reason = _pipelines(a, catalog, options,
+                                                     static_binds)
     compiled_plan = CompiledPlan(sql, a, plan, rewritten, options, fn, bfn,
-                                 batch_native, batch_reason)
+                                 batch_native, batch_reason,
+                                 dict(static_binds))
     executor = BucketedExecutor(compiled_plan, arrays)
     return CompiledQuery(compiled_plan, arrays, executor, _catalog=catalog,
                          _dep_keys=dep_keys, _bound_versions=bound)

@@ -7,9 +7,8 @@ validity mask, never a physical shrink.
 
 The :class:`Catalog` keeps the reference's versioned registration clock so
 compiled plans can detect a re-registered table or re-bind a re-registered
-IVF index or quantized twin, and a live corpus's mutations through its
-``("live", table, column)`` key.  Sharded registrations belong to a later
-slice of the port and raise ``NotImplementedError`` until then.
+IVF index, quantized twin or sharded handle, and a live corpus's
+mutations through its ``("live", table, column)`` key.
 """
 from __future__ import annotations
 
@@ -75,6 +74,11 @@ def float_col(dtype=torch.float32) -> ColumnType:
     return ColumnType(ColumnKind.FLOAT, dtype)
 
 
+def bool_col() -> ColumnType:
+    """Boolean column declaration."""
+    return ColumnType(ColumnKind.BOOL)
+
+
 def category_col(num_categories: int | None = None) -> ColumnType:
     """Dictionary-encoded category column declaration."""
     return ColumnType(ColumnKind.CATEGORY, num_categories=num_categories)
@@ -97,6 +101,14 @@ class Schema:
 
     def __getitem__(self, name: str) -> ColumnType:
         return self.columns[name]
+
+    def vector_columns(self) -> list[str]:
+        """Names of the schema's vector columns."""
+        return [n for n, t in self.columns.items() if t.kind == ColumnKind.VECTOR]
+
+    def names(self) -> list[str]:
+        """All column names, in declaration order."""
+        return list(self.columns.keys())
 
 
 class Table:
@@ -133,6 +145,38 @@ class Table:
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.columns[name]
+
+    def with_column(self, name: str, ctype: ColumnType,
+                    values: torch.Tensor) -> "Table":
+        """A new Table with one extra (or replaced) column."""
+        cols = dict(self.columns)
+        cols[name] = values
+        schema = Schema({**dict(self.schema.columns), name: ctype},
+                        self.schema.primary_key)
+        return Table(schema, cols, self.valid, self.name)
+
+    def with_valid(self, valid: torch.Tensor) -> "Table":
+        """A new Table sharing columns but with a replaced validity mask."""
+        return Table(self.schema, self.columns, valid, self.name)
+
+    def take(self, idx: torch.Tensor,
+             valid: torch.Tensor | None = None) -> "Table":
+        """Gather rows by index on the table's device (output size = idx
+        size); a row stays valid where it was valid and ``valid`` (when
+        given) holds."""
+        idx = torch.as_tensor(idx, device=self.device)
+        cols = {n: v[idx] for n, v in self.columns.items()}
+        base_valid = self.valid[idx]
+        if valid is not None:
+            base_valid = base_valid & torch.as_tensor(valid,
+                                                      device=self.device)
+        return Table(self.schema, cols, base_valid, self.name)
+
+    def to_numpy(self) -> dict:
+        """Host-side copy of all columns plus the ``__valid`` mask."""
+        out = {n: v.detach().cpu().numpy() for n, v in self.columns.items()}
+        out["__valid"] = self.valid.detach().cpu().numpy()
+        return out
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -279,3 +323,7 @@ class Catalog:
         """The ShardedCorpus registered for (table, column) on exactly the
         mesh ``spec`` (a ``DistSpec``) describes, or None."""
         return self._sharded.get((table, column, spec))
+
+    def tables(self) -> list[str]:
+        """Names of all registered tables."""
+        return list(self._tables)

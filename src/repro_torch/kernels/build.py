@@ -7,15 +7,20 @@ around a launch: input checks, raw pointers, the current stream, and the C
 launcher with its ctypes signature.  Libraries land in ``build/kernels/`` at the repository root,
 named by a digest of their sources and flags, so an edited source never
 reuses a stale library.  There is no fallback: a missing ``nvcc`` or a
-failed build raises.
+failed build raises.  ``recording()`` collects the sources whose library
+a piece of code reaches (the on-disk plan cache stores them beside its
+entries, ``core/aot.py``), and ``BUILDS`` logs every ``nvcc`` run with its
+wall time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -34,6 +39,10 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_recorders: list[set] = []
+_recorders_lock = threading.Lock()
+# one record per build() that ran nvcc: {"sources": [...], "seconds": wall}
+BUILDS: list[dict] = []
 
 
 def _nvcc() -> str:
@@ -82,13 +91,33 @@ def build(sources=SOURCES) -> dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, target(s))
+    BUILDS.append({"sources": list(todo),
+                   "seconds": time.perf_counter() - started})
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds
 
 
+@contextlib.contextmanager
+def recording():
+    """Collect, into the set this yields, every source whose library is
+    reached (``library``) while the block runs, on any thread."""
+    used: set = set()
+    with _recorders_lock:
+        _recorders.append(used)
+    try:
+        yield used
+    finally:
+        with _recorders_lock:
+            _recorders.remove(used)
+
+
 def library(source: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
+    if _recorders:
+        with _recorders_lock:
+            for used in _recorders:
+                used.add(source)
     lib = _loaded.get(source)
     if lib is None:
         build((source,))

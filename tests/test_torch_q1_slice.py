@@ -230,7 +230,7 @@ def test_stale_table_reprepares(env):
     assert torch.equal(before["ids"], after["ids"])
 
 
-def test_unported_surfaces_raise(env):
+def test_unported_surfaces_raise(env, tmp_path):
     _, cat = env
     # the default engine (chase) and the Q4-Q6 classes run on the flat path
     # without an index; over one, chase probes it on every class
@@ -267,9 +267,10 @@ def test_unported_surfaces_raise(env):
     with pytest.raises(TypeError, match="DistSpec"):
         connect(cat, engine="brute", use_pallas=True,
                 dist=object()).prepare(Q1, K=K)
-    # the on-disk plan cache is still a later slice
-    with pytest.raises(NotImplementedError, match="item 12"):
-        connect(cat, aot_cache_path="unused")
+    # the on-disk plan cache is ported: a cold execute persists its entry
+    aot_db = connect(cat, engine="brute", aot_cache_path=str(tmp_path))
+    aot_db.prepare(Q1, K=K).execute(_binds(3))
+    assert aot_db.cache_info().aot["saves"] == 1
     db = connect(cat, engine="brute")
     st = db.prepare(Q1, K=K)
     # the live corpus is ported: a table without one rejects a mutation
