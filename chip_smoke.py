@@ -289,6 +289,26 @@ one JSON line each:
            miss.  Line ``e2e_aot``: prepare and first-execute ms per
            session, each child's seconds from spawn to first result and
            its nvcc seconds
+  lm_gates (after slice_quant, while the aot phase's child A builds its
+           kernels: it times nothing) the LM side's model gates: the ten
+           smoke configs in fp32 on the card (forward = prefill to 2e-3,
+           card = CPU to 1e-4), qwen2-1.5b (28 layers) in fp32 at full
+           width (forward = prefill to 2e-3) and mamba2-370m (48 layers)
+           in fp64 at full width (forward = prefill to 1e-6; the fp32
+           forward's distance from it reported).  Line ``lm_gates``
+  lm       (after aot) the LM side and the RAG tier:
+           ``launch.serve.serve_arch`` (the ``--arch`` CLI's code) for
+           qwen2-1.5b at full width in bf16 with ``--rag`` over 1,000,000 x
+           1,536 docs, B = 8, 128 prompt tokens, 64 generated, and the
+           flat Q1 on the same catalog (scan_topk, scan_topk_batch at
+           D = 1,536).  Five gates: the filters; chase under termination
+           "bound" = flat as sets; flat use_pallas=True = use_pallas=False
+           (1e-4); the scheduled retrieve_for_decode = retrieve_batch; two
+           greedy generates equal, inside the vocabulary.  Line ``e2e_lm``:
+           retrieval ms, recall@4, the two kernels' ms beside their plain,
+           library and bound ms, prefill ms, decode ms a token, tokens/s
+           beside the weight-bytes bound of a decode step, peak memory,
+           worst errors
 then the ``script`` line (seconds since the script's imports), the
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.  Any failure raises and exits non-zero without the last line.
 
@@ -395,6 +415,21 @@ LIVE_RECALL = 0.99            # chase over the live IVF against live flat
 INTERP_ROWS, INTERP_QUERIES = 20_000, 3
 # the aot phase's children run Q1 at these list lengths
 AOT_CHILD_BATCHES = (1, 8, 100)
+# the lm phase: smoke configs at (B, S); full-width forward = decode gates
+# (arch, B, S, dtype), each at its dtype's tolerance: qwen2-1.5b in fp32 at
+# its 28 layers, mamba2-370m in fp64 at its 48 layers.  In fp32 a random
+# full-width mamba2's rounding grows from layer to layer until its forward
+# and decode replay part by about 1.9 at 48 layers; the reference's own
+# pair parts beyond 2e-3 at 48 layers of smoke width, and in fp64 the
+# port's pair agrees to 1e-11 (tests/test_torch_decode.py).  The mamba2
+# gate also reports how far the fp32 forward lies from the fp64 one
+LM_SMOKE_SHAPE = (2, 64)
+LM_FULL_GATES = (("qwen2-1.5b", 2, 64, "float32"),
+                 ("mamba2-370m", 2, 256, "float64"))
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-1.5b", 8, 128, 64
+LM_DOCS, LM_NLIST = 1_000_000, 64   # HybridRetriever.build's default lists
+LM_TOL_DECODE = {"float32": 2e-3, "float64": 1e-6}
+LM_TOL_DEVICE = 1e-4
 # published dense peaks (NVIDIA data sheets): bytes/s, fp32 CUDA-core FLOP/s
 PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12),
          "SXM": (3.35e12, 67.0e12)}
@@ -444,6 +479,33 @@ def run_ms(fn, one_ms: float) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / count
+
+
+def roofline(nbytes: float, ops_: float, bw: float,
+             flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for work that moves
+    ``nbytes`` and does ``ops_`` operations, and which of the two bounds
+    it."""
+    t_bytes, t_ops = nbytes / bw * 1e3, ops_ / flops * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def timed(table: dict) -> dict:
+    """The kernel table's times: per kernel (its wrapper, its plain
+    version, its library yardstick, (bound ms, bound by)), one call of
+    each between an event pair and the wrapper and the yardstick per call
+    over a back-to-back run."""
+    out = {}
+    for kname, (kernel, plain, lib, (b_ms, b_by)) in table.items():
+        reps = (2, 5) if kname.endswith("batch") else (3, 10)
+        row = out[kname] = {"ms": time_ms(kernel),
+                            "plain_ms": time_ms(plain, *reps),
+                            "library_ms": time_ms(lib, *reps),
+                            "bound_ms": b_ms, "bound_by": b_by}
+        row["run_ms"] = run_ms(kernel, row["ms"])
+        row["library_run_ms"] = run_ms(lib, row["library_ms"])
+    return out
 
 
 def latency_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -2241,7 +2303,8 @@ class AotChildren:
     scratch directory.  ``start`` writes the products table and the binds
     with one ``torch.save`` and spawns child A on an empty cache right
     after the catalog is built, so its cold ``nvcc`` runs beside the
-    ``full``, ``slice`` and ``slice_quant`` phases, which time nothing;
+    ``full``, ``slice``, ``slice_quant`` and ``lm_gates`` phases, which
+    time nothing;
     ``join_a`` waits for it before the ``ivf`` phase, the first that
     times anything; ``aot_phase`` runs child B on A's cache.  ``close``
     (also at exit) stops every child still running and removes the
@@ -3077,6 +3140,324 @@ def live_phase(cat, qv, p, r, drive, launches, reset_counts, counts,
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _close_err(got: torch.Tensor, want: torch.Tensor, tol: float,
+               what: str) -> float:
+    """Max abs difference; raises unless |got - want| <= tol + tol·|want|
+    everywhere (numpy's allclose rule at rtol = atol = tol)."""
+    dt = torch.promote_types(got.dtype, torch.float32)
+    got, want = got.to(dt), want.to(device=got.device, dtype=dt)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (got - want).abs()
+    if (diff > tol + tol * want.abs()).any():
+        raise AssertionError(f"{what}: max abs diff {float(diff.max())} "
+                             f"beyond {tol}")
+    return float(diff.max())
+
+
+def lm_gates_phase(smi: str, name: str) -> dict:
+    """The ``lm`` phase's model gates, which time nothing; they run while
+    the ``aot`` phase's child A builds its kernels.
+
+    1. Every family at smoke size in fp32 (the ten ``smoke_config()``s,
+       params made by ``init_params`` on the CPU and carried to the card),
+       B = 2, S = 64 (so the SSM configs take the chunked path): on the card
+       ``forward`` agrees with ``prefill`` (the decode replay) to 2e-3 and
+       with the CPU's ``forward`` to 1e-4.
+    2. ``forward`` = ``prefill`` at full width (``LM_FULL_GATES``:
+       qwen2-1.5b, 28 layers, at B = 2, S = 64 in fp32 to 2e-3;
+       mamba2-370m, 48 layers, at B = 2, S = 256, two SSD chunks of 128, in
+       fp64 to 1e-6, beside the fp32 forward's distance from the fp64
+       one), params drawn on the card.  Line ``lm_gates``."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+    from repro_torch.models import forward, init_params, tree_leaves, tree_map
+    from repro_torch.serving import prefill
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    tol32 = LM_TOL_DECODE["float32"]
+
+    # -- 1. every family at smoke size, fp32 -------------------------------
+    smoke = {}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch, smoke=True)
+        p_cpu = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        p = tree_map(lambda v: v.to(dev), p_cpu)
+        g = torch.Generator().manual_seed(1)
+        b, s = LM_SMOKE_SHAPE
+        if cfg.input_mode == "tokens":
+            inp = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                           generator=g, dtype=torch.int32)}
+        else:
+            inp = {"embeds": torch.randn((b, s, cfg.d_model), generator=g)}
+        dinp = {key: v.to(dev) for key, v in inp.items()}
+        with torch.inference_mode():
+            cpu_logits, cpu_aux = forward(p_cpu, cfg, **inp)
+            logits, aux = forward(p, cfg, **dinp)
+        _cache, dec = prefill(p, cfg, max_seq=s, **dinp)
+        torch.cuda.synchronize()
+        smoke[arch] = {
+            "decode_err": _close_err(dec, logits, tol32,
+                                     f"lm smoke {arch} prefill = forward"),
+            "device_err": _close_err(logits.cpu(), cpu_logits, LM_TOL_DEVICE,
+                                     f"lm smoke {arch} card = cpu"),
+            "aux_err": abs(float(aux) - float(cpu_aux))}
+        if smoke[arch]["device_err"] > LM_TOL_DEVICE \
+                or smoke[arch]["aux_err"] > LM_TOL_DEVICE:
+            raise AssertionError(f"lm smoke {arch}: {smoke[arch]}")
+
+    # -- 2. full width forward = decode --------------------------------------
+    full = {}
+    for arch, b, s, dtype in LM_FULL_GATES:
+        cfg32 = dc.replace(configs.get_config(arch), param_dtype="float32",
+                           compute_dtype="float32")
+        cfg = dc.replace(cfg32, param_dtype=dtype, compute_dtype=dtype)
+        g = torch.Generator(dev).manual_seed(0)
+        # fp32 draws either way: an fp64 model holds the fp32 one's values
+        p32 = init_params(g, cfg32, dev)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                             device=dev, dtype=torch.int32)
+        p = p32 if dtype == "float32" else tree_map(
+            lambda v: v.to(cfg.pdtype()) if v.is_floating_point() else v,
+            p32)
+        with torch.inference_mode():
+            logits, _ = forward(p, cfg, tokens=toks)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _cache, dec = prefill(p, cfg, tokens=toks, max_seq=s)
+        torch.cuda.synchronize()
+        full[arch] = {"batch": b, "seq": s, "layers": cfg.num_layers,
+                      "dtype": dtype, "tol": LM_TOL_DECODE[dtype],
+                      "param_bytes": sum(v.numel() * v.element_size()
+                                         for v in tree_leaves(p)),
+                      "prefill_s": time.perf_counter() - t,
+                      "decode_err": _close_err(dec, logits,
+                                               LM_TOL_DECODE[dtype],
+                                               f"lm full {arch} prefill = "
+                                               f"forward ({dtype})")}
+        if p is not p32:
+            with torch.inference_mode():
+                logits32, _ = forward(p32, cfg32, tokens=toks)
+            full[arch]["fp32_forward_vs_fp64"] = float(
+                (logits32.to(logits.dtype) - logits).abs().max())
+            full[arch]["fp64_logit_absmax"] = float(logits.abs().max())
+            del logits32
+        del p, p32, logits, dec, _cache
+        torch.cuda.empty_cache()
+    out = {"smoke": smoke, "full": full}
+    emit({"phase": "lm_gates", "device": name, "nvidia_smi": smi, **out,
+          "tols": {"decode": LM_TOL_DECODE, "device": LM_TOL_DEVICE},
+          "phase_s": time.perf_counter() - t_phase})
+    return out
+
+
+def lm_phase(gates: dict, record, reset_counts, counts, launches, smi: str,
+             name: str) -> None:
+    """The ``lm`` phase: the slice on the card, after ``lm_gates_phase``'s
+    model gates (``gates``).
+
+    ``launch.serve.serve_arch`` (the ``--arch`` CLI's code) for qwen2-1.5b
+    at full width in bf16 with ``--rag`` over ``LM_DOCS`` x 1,536 fp32 docs
+    (64 IVF lists), then the flat Q1 on the same catalog (``brute``,
+    ``use_pallas=True``: ``scan_topk`` for a single dict,
+    ``scan_topk_batch`` for the list of 8), counters set to 0 before and
+    read after.  Gates: every valid retrieved doc passes the filters; under
+    ``termination="bound"`` the retriever's ids are the flat Q1's as sets;
+    the flat Q1 holds against ``use_pallas=False`` (``assert_topk_close``,
+    1e-4); ``retrieve_for_decode`` through ``make_scheduler()`` gives
+    ``retrieve_batch``'s ids; two greedy ``generate`` calls give equal
+    tokens inside the vocabulary.  Line ``e2e_lm``: retrieval ms (chase
+    and flat, a single query and the batch), recall@4 of chase's
+    ``counter`` termination against flat, ``scan_topk`` and
+    ``scan_topk_batch`` at D = 1,536 (``timed``: ms, plain and library
+    ms, bound), prefill ms, decode ms a token, tokens/s beside the
+    weight-bytes bound of a decode step, peak memory, each gate's worst
+    error."""
+    from repro_torch.api import connect
+    from repro_torch.core import EngineOptions, Metric
+    from repro_torch.index.ivf import ProbeConfig
+    from repro_torch.kernels import scan_topk as st_mod
+    from repro_torch.launch.serve import serve_arch
+    from repro_torch.models import tree_leaves
+    from repro_torch.serving import RAG_SQL, generate
+    from repro_torch.testing import assert_topk_close
+
+    t_phase = time.perf_counter()
+    bw, flops = peaks_for(name)
+    smoke, full = gates["smoke"], gates["full"]
+
+    # -- the slice: serve --arch qwen2-1.5b --rag at full width -------------
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = serve_arch(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                     gen=LM_GEN, rag=True, rag_docs=LM_DOCS, seed=0,
+                     device="cuda")
+    cat = run.retriever.catalog
+    qemb = run.query_embeddings
+    filters = {"min_freshness": 0.25, "safety_class": 0}
+    singles = [{"query_embedding": qemb[i], **filters}
+               for i in range(LM_BATCH)]
+    flat = connect(cat, engine="brute", use_pallas=True).prepare(RAG_SQL,
+                                                                  K=4)
+    flat_single = [flat.execute(b) for b in singles]
+    flat_list = flat.execute(singles)
+    torch.cuda.synchronize()
+    launches["lm"] = counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    if not (launches["lm"]["scan_topk"] >= LM_BATCH
+            and launches["lm"]["scan_topk_batch"] >= 1):
+        raise AssertionError(f"lm: the flat Q1 launched {launches['lm']}")
+
+    docs, fresh, safety = run.docs
+    cfg = run.cfg
+    checks = {}
+    # gate: the filters
+    ids, valid = run.ids.long(), run.valid
+    hit = ids[valid]
+    if not valid.any() or not ((fresh[hit] >= 0.25).all()
+                               and (safety[hit] == 0).all()):
+        raise AssertionError("lm: a retrieved doc fails the filters or none "
+                             "was retrieved")
+    # gate: flat under use_pallas=True against use_pallas=False
+    plain = connect(cat, engine="brute", use_pallas=False).prepare(RAG_SQL,
+                                                                   K=4)
+    errs = [assert_topk_close(r.data, plain.execute(b).data, atol=1e-4,
+                              tie_tol=1e-4, what=f"lm flat single {i}")
+            for i, (b, r) in enumerate(zip(singles, flat_single))]
+    record("scan_topk", max(errs))
+    err_list = assert_topk_close(flat_list.data, plain.execute(singles).data,
+                                 atol=1e-4, tie_tol=1e-4,
+                                 what="lm flat list of 8")
+    record("scan_topk_batch", err_list)
+    checks["flat_pallas_vs_plain_err"] = max(errs + [err_list])
+    flat_ids = flat_list["ids"].cpu().numpy()
+    flat_valid = flat_list["valid"].cpu().numpy()
+
+    def as_sets(i_, v_):
+        return [set(r[m].tolist()) for r, m in zip(i_, v_)]
+
+    # gate: exact chase (termination "bound") = flat, as sets
+    bound_probe = ProbeConfig(max_probes=LM_NLIST, termination="bound")
+    exact = run.retriever.db.prepare(
+        RAG_SQL, K=4, options=EngineOptions(engine="chase",
+                                            probe=bound_probe))
+    exact_res = exact.execute({"query_embedding": qemb, **filters})
+    if as_sets(exact_res["ids"].cpu().numpy(),
+               exact_res["valid"].cpu().numpy()) != as_sets(flat_ids,
+                                                            flat_valid):
+        raise AssertionError("lm: chase under termination bound is not the "
+                             "flat answer")
+    # recall@4 of the retriever's counter termination against flat
+    got_sets = as_sets(ids.cpu().numpy(), valid.cpu().numpy())
+    want_sets = as_sets(flat_ids, flat_valid)
+    recall = float(np.mean([len(g_ & w_) / max(1, len(w_))
+                            for g_, w_ in zip(got_sets, want_sets)]))
+    # gate: retrieve_for_decode through the scheduler = retrieve_batch
+    sched = run.retriever.make_scheduler()
+    prefix, s_ids, s_valid = run.retriever.retrieve_for_decode(
+        qemb, docs, scheduler=sched, **filters)
+    if not (torch.equal(s_ids, run.ids) and torch.equal(s_valid, run.valid)):
+        raise AssertionError("lm: the scheduled retrieval differs from "
+                             "retrieve_batch")
+    want_prefix = torch.where(run.valid[..., None],
+                              docs[run.ids.clamp(min=0).long()], 0.0)
+    if prefix.shape != (LM_BATCH, 4, cfg.d_model) \
+            or not torch.equal(prefix, want_prefix):
+        raise AssertionError("lm: retrieve_for_decode's prefix")
+    # gate: greedy generate twice, tokens inside the vocabulary; the second,
+    # warm, call gives the prefill and decode times
+    gen_t = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again = generate(run.params, cfg, run.prefix, LM_GEN, timings=gen_t)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    if not torch.equal(again, run.tokens) or again.shape != (LM_BATCH,
+                                                             LM_GEN):
+        raise AssertionError("lm: two greedy generate calls differ")
+    if not ((again >= 0) & (again < cfg.vocab_size)).all():
+        raise AssertionError("lm: a token outside the vocabulary")
+
+    # -- timings -------------------------------------------------------------
+    stacked = {"query_embedding": qemb, **filters}
+    chase_single_ms = latency_ms(lambda: run.retriever.statement.execute(
+        singles[0]))
+    chase_batch_ms = latency_ms(lambda: run.retriever.statement.execute(
+        stacked))
+    flat_single_ms = latency_ms(lambda: flat.execute(singles[0]))
+    flat_batch_ms = latency_ms(lambda: flat.execute(stacked))
+    # the kernels at D = 1,536, at the flat path's shapes
+    mask = ((fresh >= 0.25) & (safety == 0)).to(torch.int8)
+    qmask = mask[None].expand(LM_BATCH, -1).contiguous()
+    metric = Metric.INNER_PRODUCT
+    n_docs, dim = docs.shape
+    nb, _rows = st_mod.single_plan(n_docs)
+    _qt, splits, _ = st_mod.batch_plan(n_docs, LM_BATCH, 4)
+
+    def lib_single():
+        keys = -(docs @ qemb[0])
+        keys = keys.masked_fill(mask == 0, float("inf"))
+        return torch.topk(keys, 4, largest=False)
+
+    def lib_batch():
+        keys = -(qemb @ docs.T)
+        keys = keys.masked_fill(qmask == 0, float("inf"))
+        return torch.topk(keys, 4, dim=1, largest=False)
+
+    kernels = timed({
+        "scan_topk": (
+            lambda: st_mod.scan_topk(docs, qemb[0], mask, 4, metric),
+            lambda: st_mod.scan_topk_plain(docs, qemb[0], mask, 4, metric),
+            lib_single,
+            roofline(n_docs * dim * 4 + dim * 4 + n_docs + nb * 4 * 8,
+                     2 * n_docs * dim, bw, flops)),
+        "scan_topk_batch": (
+            lambda: st_mod.scan_topk_batch(docs, qemb, qmask, None, 4,
+                                           metric),
+            lambda: st_mod.scan_topk_batch_plain(docs, qemb, qmask, None, 4,
+                                                 metric),
+            lib_batch,
+            roofline(n_docs * dim * 4 + LM_BATCH * dim * 4
+                     + LM_BATCH * n_docs + LM_BATCH * splits * 4 * 8,
+                     2 * n_docs * dim * LM_BATCH, bw, flops))})
+    param_bytes = sum(v.numel() * v.element_size()
+                      for v in tree_leaves(run.params))
+    emit({"phase": "lm", "device": name, "nvidia_smi": smi,
+          "launches": launches["lm"], "gates": checks})
+    emit({"phase": "e2e_lm", "device": name, "nvidia_smi": smi,
+          "arch": LM_ARCH, "param_dtype": cfg.param_dtype,
+          "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+          "prefix_len": int(run.prefix.shape[1]), "docs": n_docs,
+          "dim": dim, "nlist": LM_NLIST, "timings_s": run.timings,
+          "retrieval_ms": {"chase_single": chase_single_ms,
+                           "chase_batch": chase_batch_ms,
+                           "flat_single": flat_single_ms,
+                           "flat_batch": flat_batch_ms},
+          "recall_at_4_counter": recall, "kernels_d1536": kernels,
+          "prefill_ms": gen_t["prefill_s"] * 1e3,
+          "generate_ms": gen_s * 1e3,
+          "decode_ms_per_token": gen_t["decode_s"] * 1e3 / LM_GEN,
+          "tokens_per_s": LM_BATCH * LM_GEN / gen_s,
+          "param_bytes": param_bytes,
+          "decode_step_bound_ms": param_bytes / bw * 1e3,
+          "peak_mb": peak,
+          "worst_err": {"smoke_decode": max(v["decode_err"]
+                                            for v in smoke.values()),
+                        "smoke_device": max(v["device_err"]
+                                            for v in smoke.values()),
+                        "full_decode": max(v["decode_err"]
+                                           for v in full.values()),
+                        "flat_pallas_vs_plain":
+                            checks["flat_pallas_vs_plain_err"]},
+          "phase_s": time.perf_counter() - t_phase})
+    del run, docs, fresh, safety, prefix, want_prefix, again, cat
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -4326,6 +4707,10 @@ def main() -> None:
                        if key.endswith(MODES)},
           "runs": qchecked})
 
+    # -- lm gates: the LM side's model gates, which time nothing, while the
+    # aot phase's child A builds its kernels --------------------------------
+    lm_gates = lm_gates_phase(smi, name)
+
     # the aot phase's child A ends before the first phase that times
     aot_children.join_a()
 
@@ -4357,6 +4742,9 @@ def main() -> None:
     aot_phase(cat, qv, p, r, aot_children, reset_counts, counts, launches,
               smi, name)
 
+    # -- lm: the LM side and the RAG tier -------------------------------------
+    lm_phase(lm_gates, record, reset_counts, counts, launches, smi, name)
+
     # -- times ----------------------------------------------------------------
     nb, _rows = st_mod.single_plan(N_ROWS)
     qt, splits, _ = st_mod.batch_plan(N_ROWS, bucket, K)
@@ -4373,9 +4761,7 @@ def main() -> None:
                          + live_q * N_ROWS * 6 + bucket * 9)
 
     def bound(nbytes, ops_):
-        t_bytes, t_ops = nbytes / bw * 1e3, ops_ / flops * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
-            "operations"
+        return roofline(nbytes, ops_, bw, flops)
 
     def lib_single():
         keys = -(corpus @ single_q)
@@ -4490,18 +4876,6 @@ def main() -> None:
             bound(N_ROWS * DIM * 4 + N_QUERIES * DIM * 4
                   + N_QUERIES * N_ROWS * 4, 2 * N_QUERIES * N_ROWS * DIM)),
     }
-
-    def timed(table: dict) -> dict:
-        out = {}
-        for kname, (kernel, plain, lib, (b_ms, b_by)) in table.items():
-            reps = (2, 5) if kname.endswith("batch") else (3, 10)
-            row = out[kname] = {"ms": time_ms(kernel),
-                                "plain_ms": time_ms(plain, *reps),
-                                "library_ms": time_ms(lib, *reps),
-                                "bound_ms": b_ms, "bound_by": b_by}
-            row["run_ms"] = run_ms(kernel, row["ms"])
-            row["library_run_ms"] = run_ms(lib, row["library_ms"])
-        return out
 
     times = timed(calls)
     times_bf16 = timed(quant_calls(twins["bf16"]))

@@ -1,6 +1,15 @@
-"""Corpus sharding for distributed hybrid queries (the corpus half of
-``src/repro/dist/sharding.py``; its logical-axis rules serve the model
-side, which the port does not have yet).
+"""Logical-axis sharding rules plus the engine's corpus-sharding handles
+(the port of ``src/repro/dist/sharding.py``).
+
+**Logical-axis rules** (`logical_axis_rules` / `constrain`): model code
+names axes ("batch", "heads", ...) and a launcher binds those names to
+mesh axes through a rules dict.  With no rules or no mesh active, or on a
+mesh of one device, `constrain` returns its input, so single-device
+serving pays no sharding tax.  Model meshes of more than one device (the
+reference's ``with_sharding_constraint``) belong to ROADMAP.md queue 1
+item 14 (c).
+
+**Corpus sharding for distributed hybrid queries:**
 
 The reference is one controller: one process calls ``Statement.execute``
 and ``shard_map`` fans the scan out over the devices of a mesh.  The port
@@ -23,13 +32,74 @@ shards needs n CUDA devices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Sequence
+import threading
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from ..core.schema import not_ported
+
+_STATE = threading.local()
+
+
+def _stack() -> list:
+    if not hasattr(_STATE, "stack"):
+        _STATE.stack = []
+    return _STATE.stack
+
+
+@contextlib.contextmanager
+def logical_axis_rules(rules: Mapping[str, Any], mesh=None):
+    """Activate a logical->mesh axis mapping for the enclosed region (a
+    stack per thread; ``mesh`` is a :class:`Mesh` or None)."""
+    _stack().append((dict(rules), mesh))
+    try:
+        yield
+    finally:
+        _stack().pop()
+
+
+def current_rules() -> dict | None:
+    """The innermost active logical-axis rules dict, or None."""
+    s = _stack()
+    return s[-1][0] if s else None
+
+
+def current_mesh():
+    """The innermost active mesh bound by logical_axis_rules, or None."""
+    s = _stack()
+    return s[-1][1] if s else None
+
+
+def logical_to_spec(logical_axes: Sequence, rules: Mapping[str, Any]) -> tuple:
+    """Map logical axis names through the rules to PartitionSpec entries."""
+    out = []
+    for name in logical_axes:
+        entry = rules.get(name) if name is not None else None
+        if isinstance(entry, (list, tuple)):
+            entry = tuple(entry) if entry else None
+        out.append(entry)
+    return tuple(out)
+
+
+def constrain(x, logical_axes: Sequence):
+    """The reference's sharding constraint by logical names: ``x`` itself
+    when no rules or mesh are active, or when the mesh holds one device
+    (every axis of size 1 leaves a dimension whole).  A model mesh of more
+    than one device is ROADMAP.md queue 1 item 14 (c)."""
+    s = _stack()
+    if not s:
+        return x
+    rules, mesh = s[-1]
+    if rules is None or mesh is None or mesh.devices.size <= 1:
+        return x
+    raise not_ported("constrain under a mesh of more than one device",
+                     "14 (c)")
 
 
 class DeviceCountError(RuntimeError):

@@ -17,8 +17,12 @@ never a hang.  A drain runs on the event loop's default executor (a worker
 thread), on the served plan's device and stream, and the request's future
 resolves once the card has finished its batch.
 
-The reference's LM decode path (``--arch``) belongs to a later slice of
-the port.
+LM decode path, with an optional CHASE hybrid retrieval before decoding
+(``serve_arch`` runs it and returns the retrieval, the tokens and the
+timings; ``main`` prints what the reference prints):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --smoke --batch 2 --prompt-len 16 --gen 16 --rag [--device cpu]
 """
 from __future__ import annotations
 
@@ -30,7 +34,6 @@ from typing import Any
 
 import numpy as np
 
-from ..core.schema import not_ported
 from ..serving.resilience import (AdmissionConfig, AdmissionController,
                                   BackpressureError, DeadlineExceededError,
                                   DegradePolicy, MutationError,
@@ -307,15 +310,131 @@ async def _front_door_demo(args) -> int:
     return 0
 
 
+# -- the LM decode path ------------------------------------------------------
+
+
+def doc_tokens(ids, vocab_size: int):
+    """The stub doc -> token map ``ids * 7919 % vocab`` in int32 arithmetic:
+    the product wraps at 2**31 as the reference's numpy int32 product does
+    (past 271,183 docs), and the remainder is non-negative (invalid lanes
+    are -1)."""
+    import torch
+
+    prod = ids.to(torch.int64) * 7919
+    prod = (prod + 2**31) % 2**32 - 2**31
+    return torch.remainder(prod, vocab_size).to(torch.int32)
+
+
+@dataclasses.dataclass
+class ArchServe:
+    """What one ``serve_arch`` run made and measured.  ``retriever``,
+    ``docs``, ``query_embeddings``, ``ids``, ``sims`` and ``valid`` are None
+    without ``rag``; ``timings`` holds seconds (``init_s``, ``rag_build_s``,
+    ``retrieve_s``, ``generate_s`` and its parts ``prefill_s`` and
+    ``decode_s``), each read after the device finished."""
+    cfg: Any
+    params: dict
+    prompts: Any
+    prefix: Any
+    tokens: Any
+    timings: dict
+    retriever: Any = None
+    docs: Any = None
+    query_embeddings: Any = None
+    ids: Any = None
+    sims: Any = None
+    valid: Any = None
+
+
+def _synchronize(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_arch(arch: str, *, smoke: bool = False, batch: int = 2,
+               prompt_len: int = 16, gen: int = 16, rag: bool = False,
+               rag_docs: int = 2000, seed: int = 0,
+               device: str = "cuda") -> ArchServe:
+    """Batched greedy generation for ``arch`` with random parameters from
+    ``seed``, on ``device``; with ``rag``, a CHASE hybrid retrieval first
+    (``HybridRetriever`` over ``rag_docs`` unit docs of width d_model,
+    freshness >= 0.25 and safety = 0, K = 4), whose doc ids become token
+    prefixes.  The parameters, prompts and docs are drawn on ``device``
+    from ``torch.Generator`` s seeded with ``seed``."""
+    import torch
+
+    from ..configs import get_config
+    from ..models import init_params
+    from ..serving.decode import generate
+    from ..serving.rag import HybridRetriever
+
+    cfg = get_config(arch, smoke=smoke)
+    if cfg.input_mode != "tokens":
+        raise SystemExit(f"{arch} is embeddings-mode; use the "
+                         "hybrid_serving example for frontend-stub serving")
+    dev = torch.device(device)
+    timings = {}
+    t0 = time.perf_counter()
+    g = torch.Generator(dev).manual_seed(seed)
+    params = init_params(g, cfg, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=g, device=dev, dtype=torch.int32)
+    _synchronize(dev)
+    timings["init_s"] = time.perf_counter() - t0
+    run = ArchServe(cfg, params, prompts, prompts, None, timings)
+
+    if rag:
+        t0 = time.perf_counter()
+        gd = torch.Generator(dev).manual_seed(seed)
+        docs = torch.randn((rag_docs, cfg.d_model), generator=gd,
+                           device=dev)
+        docs.div_(torch.linalg.vector_norm(docs, dim=1, keepdim=True))
+        fresh = torch.rand(rag_docs, generator=gd, device=dev)
+        safety = torch.randint(0, 4, (rag_docs,), generator=gd, device=dev,
+                               dtype=torch.int32)
+        run.retriever = HybridRetriever.build(docs, fresh, safety, k=4)
+        run.docs = (docs, fresh, safety)
+        _synchronize(dev)
+        timings["rag_build_s"] = time.perf_counter() - t0
+        # query embedding = mean prompt embedding (stub encoder)
+        t0 = time.perf_counter()
+        qemb = params["embed"][prompts.long()].to(torch.float32).mean(1)
+        qemb = qemb / (torch.linalg.vector_norm(qemb, dim=-1, keepdim=True)
+                       + 1e-6)
+        run.query_embeddings = qemb
+        run.ids, run.sims, run.valid = run.retriever.retrieve_batch(
+            qemb, min_freshness=0.25, safety_class=0)
+        _synchronize(dev)
+        timings["retrieve_s"] = time.perf_counter() - t0
+        # doc ids map to doc token prefixes (stub: hash to token ids)
+        run.prefix = torch.cat([doc_tokens(run.ids, cfg.vocab_size)
+                                .to(dev), prompts], dim=1)
+
+    t0 = time.perf_counter()
+    run.tokens = generate(params, cfg, run.prefix, gen, timings=timings)
+    _synchronize(dev)
+    timings["generate_s"] = time.perf_counter() - t0
+    return run
+
+
 def main(argv=None) -> int:
-    """CLI: the --front-door resilience demo (the LM decode path of the
-    reference, ``--arch``, is a later slice of the port)."""
+    """CLI: the --front-door resilience demo, or the LM decode path."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", help="LM decode path (a later slice)")
+    ap.add_argument("--arch", help="LM decode path: model architecture")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--rag", action="store_true",
+                    help="hybrid retrieval (CHASE VKNN-SF) before decode")
+    ap.add_argument("--rag-docs", type=int, default=2000)
     ap.add_argument("--front-door", action="store_true",
                     help="resilient hybrid-query front-door demo")
     ap.add_argument("--device", default="cuda",
-                    help="where the catalog lives and the plans run")
+                    help="where the catalog, the parameters and the docs "
+                    "live and the plans and the model run")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--rows", type=int, default=1500)
     ap.add_argument("--watermark", type=int, default=64)
@@ -323,12 +442,23 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.arch:
-        raise not_ported("launch.serve --arch (the LM decode and RAG path)",
-                         "14")
-    if not args.front_door:
-        ap.error("--front-door is required (--arch is a later slice)")
-    return asyncio.run(_front_door_demo(args))
+    if args.front_door:
+        return asyncio.run(_front_door_demo(args))
+    if not args.arch:
+        ap.error("--arch is required unless --front-door is given")
+
+    run = serve_arch(args.arch, smoke=args.smoke, batch=args.batch,
+                     prompt_len=args.prompt_len, gen=args.gen, rag=args.rag,
+                     rag_docs=args.rag_docs, seed=args.seed,
+                     device=args.device)
+    if args.rag:
+        print(f"[serve] retrieved docs per request: {run.ids.tolist()}")
+    dt = run.timings["generate_s"]
+    toks = args.batch * args.gen
+    print(f"[serve] generated {toks} tokens in {dt:.2f}s "
+          f"({toks/dt:.1f} tok/s incl. the first call) on {args.device}")
+    print(run.tokens.cpu().numpy())
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
-"""The serving tier of the port: the dynamic batch scheduler, effort
-bucketing, and the resilience layer (admission control, deadlines,
-graceful degradation, seeded fault injection).  The reference's LM decode
-and RAG retrieval (``serving/decode.py``, ``serving/rag.py``) belong to a
-later slice."""
+"""The serving tier of the port: LM decode, hybrid RAG retrieval, the
+dynamic batch scheduler, effort bucketing, and the resilience layer
+(admission control, deadlines, graceful degradation, seeded fault
+injection)."""
+from .decode import build_serve_step, generate, prefill
 from .faults import (CRASH_SITES, FaultInjector, FaultSpec,
                      InjectedCrashError, InjectedKernelError)
+from .rag import RAG_SQL, HybridRetriever
 from .resilience import (AdmissionConfig, AdmissionController,
                          BackpressureError, DeadlineExceededError,
                          DegradePolicy, DeltaFullError, DuplicateIdError,
@@ -14,7 +15,8 @@ from .resilience import (AdmissionConfig, AdmissionController,
 from .scheduler import (BatchScheduler, ResilientScheduler, SchedulerConfig,
                         SimRecord, latency_stats, run_effort_bucketed)
 
-__all__ = ["BatchScheduler", "ResilientScheduler", "SchedulerConfig",
+__all__ = ["build_serve_step", "generate", "prefill", "RAG_SQL",
+           "HybridRetriever", "BatchScheduler", "ResilientScheduler", "SchedulerConfig",
            "SimRecord", "latency_stats", "run_effort_bucketed",
            "CRASH_SITES", "FaultInjector", "FaultSpec", "InjectedCrashError",
            "InjectedKernelError", "AdmissionConfig", "AdmissionController",

@@ -122,6 +122,10 @@ def test_chase_bench_config_matches_reference(make):
 
 
 def test_configs_package_exports_only_chase_laion():
+    """The package exports what the reference's does (the ``--arch``
+    registry beside ``chase_laion``), and ``chase_laion`` is the module."""
+    import repro.configs as ref_configs
     import repro_torch.configs as configs
-    assert configs.__all__ == ["chase_laion"]
+    assert configs.__all__ == ref_configs.__all__
+    assert "chase_laion" in configs.__all__
     assert configs.chase_laion is cfg

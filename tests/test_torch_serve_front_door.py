@@ -10,7 +10,8 @@ counters equal the reference's where the scenario fixes them; served rows
 equal the statement's direct answers; drains that run on different worker
 threads serve the same answers; ``submit_mutation`` with no live corpus
 raises the reference's MutationError; the ``--front-door`` CLI runs with
-``--device cpu``, and ``--arch`` names its ROADMAP.md item.  Mirrors the
+``--device cpu``, and so does ``--arch`` (the LM path with its RAG
+retrieval), with the reference's doc-token map and embeddings-mode exit.  Mirrors the
 QueryServer cases of ``tests/test_resilience.py``.
 """
 import asyncio
@@ -335,8 +336,34 @@ def test_front_door_cli_on_cpu(capsys):
     assert sum(counts.values()) == 32
 
 
-def test_front_door_cli_refuses_the_lm_path():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        port_serve.main(["--arch", "qwen2-1.5b"])
+def test_arch_cli_runs_on_cpu(capsys):
+    assert port_serve.main(["--arch", "qwen2-1.5b", "--smoke", "--rag",
+                            "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] retrieved docs per request" in out
+    assert "[serve] generated 32 tokens" in out and "on cpu" in out
     with pytest.raises(SystemExit):
         port_serve.main([])
+
+
+def test_arch_doc_tokens_match_the_reference_expression():
+    """``ids * 7919 % vocab`` in int32: the product wraps past 271,183
+    docs and the remainder stays non-negative, also for the -1 lanes."""
+    ids = np.array([[-1, 0, 1, 271_183], [271_184, 999_999, 1_000_000,
+                                          2**31 - 1]], np.int32)
+    for vocab in (151_936, 512, 32_000):
+        want = (ids * 7919 % vocab).astype(np.int32)
+        got = port_serve.doc_tokens(torch.from_numpy(ids), vocab)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (got >= 0).all()
+
+
+def test_arch_cli_refuses_embeddings_mode_as_the_reference():
+    with pytest.raises(SystemExit) as want:
+        ref_serve.main(["--arch", "musicgen-medium", "--smoke"])
+    with pytest.raises(SystemExit) as got:
+        port_serve.main(["--arch", "musicgen-medium", "--smoke", "--device",
+                         "cpu"])
+    assert str(got.value) == str(want.value)
+    assert "embeddings-mode" in str(got.value)
