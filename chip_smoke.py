@@ -309,6 +309,29 @@ one JSON line each:
            library and bound ms, prefill ms, decode ms a token, tokens/s
            beside the weight-bytes bound of a decode step, peak memory,
            worst errors
+  train_gates  (after lm_gates, while child A still builds: it times
+           nothing) the training path's smoke gates in fp32: the loss falls
+           by 0.3 over 40 steps on the bigram data, a 1e-6 clip norm moves
+           no leaf by 1e-2, ``launch/train.py``'s CLI relaunched on a copy
+           of a 6-step run's step-3 checkpoint equals that run at step 6
+           (rtol 1e-5, atol 1e-6), the compressed DP step on a mesh of the one card
+           trains, one train step of each of the ten smoke configs on
+           the card equals the port's CPU step (loss, grad norm, moments,
+           params) with the caller's fp32 matmuls at "high", and qwen2's
+           bf16 gradient with remat on the card lies as close to the fp32
+           one as the CPU's (mean 1.25x, largest 2.5x).  Line
+           ``train_gates``
+  train    (after lm) ``launch/train.py``'s ``train`` for qwen2-1.5b as
+           published (bf16, remat "block") at global batch 2 x 4,096
+           positions (train_4k's global batch of 256 cut to 2), AdamW with
+           fp32 moments, 1 warm-up and 8 timed steps.  Gates: finite losses
+           and grad norms above 0, step 0's loss = ``lm_loss`` of the same
+           initial params, the first update = AdamW's step-1 closed form on
+           two sampled leaves to half a bf16 ulp, no custom kernel
+           launched.  Line ``e2e_train``: per-step loss, grad norm, lr, ms;
+           median step ms, tokens/s end to end (data time included), model
+           FLOPs and their share of the dense bf16 peak, peak memory, the
+           pipeline's host ms a batch
 then the ``script`` line (seconds since the script's imports), the
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.  Any failure raises and exits non-zero without the last line.
 
@@ -318,8 +341,11 @@ within which a row may be a hit on one side only (fp32 sums of up to 512
 unit-scale products taken in a different order).  A Q5/Q6 answer is held
 list by list, each (query, category) list as a range buffer of its hits.
 """
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -430,20 +456,41 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-1.5b", 8, 128, 64
 LM_DOCS, LM_NLIST = 1_000_000, 64   # HybridRetriever.build's default lists
 LM_TOL_DECODE = {"float32": 2e-3, "float64": 1e-6}
 LM_TOL_DEVICE = 1e-4
+# the train phase: qwen2-1.5b as published (bf16, remat "block") through
+# launch/train.py's train(), the global batch cut from train_4k's 256 to 2
+# at its sequence length (8,192 tokens a step); 1 warm-up step and 8 timed
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = "qwen2-1.5b", 2, 1, 8
+TRAIN_LOSS_TOL = 2.0**-8     # step 0's loss against lm_loss: a bf16 ulp
+# the train phase's smoke gates (fp32 smoke configs): one step of each on
+# the card against the port's CPU step at (B, S), the gradient held through
+# the moments to TRAIN_TOL_G of each leaf's largest entry (the SSM configs'
+# card = CPU forward already parts by 4-8e-5)
+TRAIN_SMOKE_SHAPE = (2, 64)
+TRAIN_TOL_G = {"mamba2-370m": 1e-3, "zamba2-1.2b": 5e-3}
+TRAIN_TOL_G_DEFAULT = 2e-5
+# a bf16 gradient's distance from the fp32 one on the card, as a multiple
+# of the CPU's (tests/test_torch_bf16.py's rule)
+BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.25, 2.5
 # published dense peaks (NVIDIA data sheets): bytes/s, fp32 CUDA-core FLOP/s
 PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12),
          "SXM": (3.35e12, 67.0e12)}
+# and the dense bf16 tensor-core FLOP/s of the same parts
+BF16_PEAKS = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def peaks_for(name: str) -> tuple[float, float]:
+def _part(name: str) -> str:
     for key in ("PCIe", "NVL"):
         if key in name:
-            return PEAKS[key]
-    return PEAKS["SXM"]
+            return key
+    return "SXM"
+
+
+def peaks_for(name: str) -> tuple[float, float]:
+    return PEAKS[_part(name)]
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -1200,12 +1247,23 @@ def ivf_joins_phase(cat, qv, r, sims, index, drive, launches, smi: str,
         slow = label.endswith("list4") or (
             "perleft" in label and "pase" not in label
             and "brute" not in label)
-        ms = latency_ms(lambda: st.execute(b), iters=2 if slow else 3,
-                        warmup=1 if slow else 2)
+        iters, warmup = (2, 1) if slow else (3, 2)
+        for _ in range(warmup):
+            st.execute(b)
+        # the peak above what the warm-up left resident and the loop
+        # counters of one execute come from the timed executes themselves
+        # (each execute of the same binds does the same rounds): no execute
+        # of its own for them, which the script's time can spare
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         ivf_mod.loop_stats.update(rounds=0, syncs=0)
-        mb = peak_mb(lambda: st.execute(b))
+        ms = latency_ms(lambda: st.execute(b), iters=iters, warmup=0)
+        mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+        loops = {k: v // iters if v % iters == 0 else v / iters
+                 for k, v in ivf_mod.loop_stats.items()}
         e2e[label] = {"latency_ms": ms, "left_rows_per_s": rows * 1e3 / ms,
-                      "peak_mb": mb, **ivf_mod.loop_stats}
+                      "peak_mb": mb, **loops}
     emit({"phase": "e2e_ivf_joins", "device": name, "nvidia_smi": smi,
           "runs": e2e})
 
@@ -3460,6 +3518,504 @@ def lm_phase(gates: dict, record, reset_counts, counts, launches, smi: str,
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _matmul_precision(precision: str):
+    """A caller's ``torch.set_float32_matmul_precision`` around a call,
+    restored afterwards (torch refuses to read the legacy setting once the
+    per-backend ones were set; it is then at its default, "highest")."""
+    try:
+        saved = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        saved = "highest"
+    torch.set_float32_matmul_precision(precision)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+def _step_close(got, want, lr: float, tol: float, what: str) -> dict:
+    """One AdamW step of the same params and batch on two devices: the
+    gradient held through the moments (after one step m = (1 - b1) ĝ, so
+    per leaf |m - m_want| <= tol · max |m_want|, and v to twice that), the
+    params to the bound that follows (a gradient error δ moves the step-1
+    update lr · ĝ / (|ĝ| + eps) by at most lr · min(2, 2δ / (|ĝ| + eps)),
+    δ = tol · max |ĝ| of the leaf) plus fp32 rounding.  Returns the worst
+    moment error so relative and the largest param difference."""
+    from repro_torch.models import tree_leaves
+
+    worst_m, worst_p = 0.0, 0.0
+    for key, k in (("m", 1.0), ("v", 2.0)):
+        for a, b in zip(tree_leaves(got.opt[key]), tree_leaves(want.opt[key])):
+            a, b = a.double().cpu(), b.double().cpu()
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max()) / (scale or 1.0)
+            if err > k * tol:
+                raise AssertionError(f"{what}: {key} {err} beyond {k * tol}")
+            if key == "m":
+                worst_m = max(worst_m, err)
+    for a, b, m in zip(tree_leaves(got.params), tree_leaves(want.params),
+                       tree_leaves(want.opt["m"])):
+        a, b = a.double().cpu(), b.double().cpu()
+        ghat = m.double().cpu().abs() / 0.1
+        delta = tol * float(ghat.max())
+        allowed = (2e-7 * b.abs() + 1e-8
+                   + lr * torch.clamp(2 * delta / (ghat + 1e-8), max=2.0))
+        diff = (a - b).abs()
+        if (diff > allowed).any():
+            raise AssertionError(f"{what}: params beyond the step-1 bound "
+                                 f"({int((diff > allowed).sum())} entries)")
+        worst_p = max(worst_p, float(diff.max()))
+    return {"moment_err": worst_m, "param_max_diff": worst_p}
+
+
+def train_gates_phase(smi: str, name: str) -> dict:
+    """The ``train`` phase's smoke gates, the reference's training tests
+    on the card; they time nothing and run while the ``aot`` phase's child
+    A builds its kernels.  fp32 smoke configs throughout.
+
+    1. qwen2 smoke, 40 steps on the bigram data (B = 4, S = 32, lr 3e-3,
+       3 warm-up steps, no weight decay): the mean of the last 5 losses is
+       at least 0.3 below the first 5 (``tests/test_training.py``).
+    2. A clip norm of 1e-6 moves no leaf by more than 1e-2.
+    3. Resume = straight through, by ``launch/train.py``'s CLI on the card,
+       as a crash and a relaunch: ``--steps 6 --ckpt-every 3 --ckpt-dir
+       A``, A's ``step_3`` copied into a fresh B, then the same flags on
+       B; the step-6 checkpoints agree to rtol 1e-5, atol 1e-6
+       (``tests/test_checkpoint.py``); whether they are equal bit for bit
+       is reported.
+    4. The compressed DP step on a mesh of the one card, 30 steps (B = 8,
+       S = 32): the last 5 losses' mean 0.3 below the first 5's
+       (``tests/test_distributed.py``).
+    5. One train step of each of the ten smoke configs (B = 2, S = 64,
+       params drawn on the CPU and carried over): the card against the
+       port's CPU step, the loss to 1e-5 relative (1e-4 for the SSM
+       configs), the grad norm and the moments to ``TRAIN_TOL_G`` and the
+       params to the step-1 bound (:func:`_step_close`).  The card's step
+       runs with the caller's fp32 matmul precision at "high" (TF32
+       allowed), so only the step's own ``full_fp32`` scope keeps its
+       forward, backward and recompute in full fp32.
+    6. qwen2 smoke in bf16 params and compute with remat "block" (the
+       published settings), B = 2, S = 64, under the same "high"
+       precision: the card's bf16 gradient against the fp32 gradient at
+       the same bf16 values (on the CPU) is held to the port's CPU bf16
+       gradient's distance from it, per leaf, by ``tests/test_torch_bf16``'s
+       rule: mean error at most ``BF16_MEAN_RATIO`` times the CPU's, the
+       largest at most ``BF16_MAX_RATIO`` times (each floored at half a
+       bf16 ulp of the leaf's largest entry); the loss within 2**-8 of the
+       fp32 loss.
+    Line ``train_gates``."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import init_params, tree_leaves, tree_map
+    from repro_torch.training import (AdamWConfig, TrainState, adamw_init,
+                                      build_train_step)
+    from repro_torch.training.step import (build_compressed_dp_step,
+                                           value_and_grad)
+    from repro_torch.training.train_state import prng_key
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    qwen = configs.get_config("qwen2-1.5b", smoke=True)
+    out = {}
+
+    def fresh(cfg, opt_cfg, device):
+        p = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        p = tree_map(lambda v: v.to(device), p)
+        return TrainState.create(p, adamw_init(opt_cfg, p),
+                                 prng_key(0, device))
+
+    # -- 1. the loss falls on the bigram data ------------------------------
+    opt_cfg = AdamWConfig(lr_peak=3e-3, warmup_steps=3, total_steps=40,
+                          weight_decay=0.0)
+    data = SyntheticLM(DataConfig(global_batch=4, seq_len=32,
+                                  vocab_size=qwen.vocab_size))
+    state, step = fresh(qwen, opt_cfg, dev), build_train_step(qwen, opt_cfg)
+    losses = []
+    for i in range(40):
+        state, m = step(state, data.batch_at(i, device=dev))
+        losses.append(float(m["loss"]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first - 0.3:
+        raise AssertionError(f"train gate 1: loss {first} -> {last}")
+    out["bigram"] = {"first5": first, "last5": last}
+
+    # -- 2. clipping ---------------------------------------------------------
+    opt_cfg = AdamWConfig(lr_peak=1e-3, clip_norm=1e-6, warmup_steps=1,
+                          total_steps=5)
+    data = SyntheticLM(DataConfig(global_batch=2, seq_len=16,
+                                  vocab_size=qwen.vocab_size))
+    state = fresh(qwen, opt_cfg, dev)
+    s1, _m = build_train_step(qwen, opt_cfg)(state,
+                                             data.batch_at(0, device=dev))
+    delta = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(tree_leaves(state.params),
+                                tree_leaves(s1.params)))
+    if not delta < 1e-2:
+        raise AssertionError(f"train gate 2: clipped step moved {delta}")
+    out["clip_max_move"] = delta
+
+    # -- 3. resume = straight through, by the launcher -----------------------
+    def resume_pair() -> tuple[float, bool, bool]:
+        """(max |resumed - straight|, equal bit for bit, within rtol 1e-5,
+        atol 1e-6) of the two runs' step-6 params."""
+        root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        try:
+            args = ["--arch", "qwen2-1.5b", "--smoke", "--global-batch",
+                    "2", "--seq-len", "16", "--lr", "1e-3", "--device",
+                    "cuda", "--log-every", "3", "--steps", "6",
+                    "--ckpt-every", "3"]
+            a, b = os.path.join(root, "a"), os.path.join(root, "b")
+            train_mod.main(args + ["--ckpt-dir", a])
+            shutil.copytree(os.path.join(a, "step_3"),
+                            os.path.join(b, "step_3"))
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                train_mod.main(args + ["--ckpt-dir", b])
+            if "[train] resumed from step 3" not in log.getvalue():
+                raise AssertionError("train gate 3: B did not resume")
+            target = fresh(qwen, AdamWConfig(), "cpu")
+            want = checkpointer.restore(a, 6, target)
+            got = checkpointer.restore(b, 6, target)
+            if int(got.step) != 6 or checkpointer.latest_step(b) != 6:
+                raise AssertionError("train gate 3: the resumed run's step")
+            pairs = list(zip(tree_leaves(got.params),
+                             tree_leaves(want.params)))
+            return (max(float((x - y).abs().max()) for x, y in pairs),
+                    all(torch.equal(x, y) for x, y in pairs),
+                    all(torch.allclose(x, y, rtol=1e-5, atol=1e-6)
+                        for x, y in pairs))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    # the two runs are equal bit for bit on an H100 (an updated leaf keeps
+    # its parameter's layout); the gate is the reference's tolerance
+    out["resume"] = dict(zip(("max_abs_diff", "bitwise", "within_tol"),
+                             resume_pair()))
+    if not out["resume"]["within_tol"]:
+        raise AssertionError(f"train gate 3: resumed params differ from "
+                             f"straight-through ones: {out['resume']}")
+
+    # -- 4. the compressed DP step on a mesh of the one card -----------------
+    opt_cfg = AdamWConfig(lr_peak=3e-3, warmup_steps=2, total_steps=30)
+    data = SyntheticLM(DataConfig(global_batch=8, seq_len=32,
+                                  vocab_size=qwen.vocab_size))
+    mesh = mesh_mod.make_mesh((1,), ("data",))
+    state = fresh(qwen, opt_cfg, dev)
+    params, opt = state.params, state.opt
+    err = [tree_map(torch.zeros_like, params)]
+    dp = build_compressed_dp_step(qwen, opt_cfg, mesh)
+    losses = []
+    for i in range(30):
+        params, opt, err, m = dp(params, opt, err,
+                                 data.batch_at(i, device=dev))
+        losses.append(float(m["loss"]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first - 0.3:
+        raise AssertionError(f"train gate 4: loss {first} -> {last}")
+    out["compressed_dp"] = {"first5": first, "last5": last}
+
+    # -- 5. one step of every smoke config: card = CPU -----------------------
+    b_, s_ = TRAIN_SMOKE_SHAPE
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    per_arch = {}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch, smoke=True)
+        tol = TRAIN_TOL_G.get(arch, TRAIN_TOL_G_DEFAULT)
+        data = SyntheticLM(DataConfig(global_batch=b_, seq_len=s_,
+                                      vocab_size=cfg.vocab_size,
+                                      input_mode=cfg.input_mode,
+                                      d_model=cfg.d_model))
+        step = build_train_step(cfg, opt_cfg)
+        want, wm = step(fresh(cfg, opt_cfg, "cpu"),
+                        data.batch_at(0, device="cpu"))
+        with _matmul_precision("high"):
+            got, gm = step(fresh(cfg, opt_cfg, dev),
+                           data.batch_at(0, device=dev))
+            torch.cuda.synchronize()
+        loss_tol = 1e-4 if cfg.ssm is not None else 1e-5
+        rec = {"loss_rel": abs(float(gm["loss"]) / float(wm["loss"]) - 1),
+               "grad_norm_rel": abs(float(gm["grad_norm"])
+                                    / float(wm["grad_norm"]) - 1),
+               "tol_g": tol}
+        if not (math.isfinite(float(gm["loss"])) and rec["loss_rel"]
+                <= loss_tol and rec["grad_norm_rel"] <= tol
+                and float(gm["grad_norm"]) > 0):
+            raise AssertionError(f"train gate 5 {arch}: {rec}")
+        rec.update(_step_close(got, want, float(wm["lr"]), tol,
+                               f"train gate 5 {arch}"))
+        per_arch[arch] = rec
+    out["card_vs_cpu"] = per_arch
+
+    # -- 6. a bf16 step with remat: card against CPU, by the bf16 ratios -----
+    cfgb = dataclasses.replace(qwen, param_dtype="bfloat16",
+                               compute_dtype="bfloat16", remat="block")
+    pb = tree_map(lambda v: v.to(torch.bfloat16),
+                  init_params(torch.Generator().manual_seed(0), qwen, "cpu"))
+    data = SyntheticLM(DataConfig(global_batch=b_, seq_len=s_,
+                                  vocab_size=qwen.vocab_size))
+    batch = data.batch_at(0, device="cpu")
+    l32, g32 = value_and_grad(tree_map(lambda v: v.float(), pb), qwen, batch)
+    lc, gc = value_and_grad(pb, cfgb, batch)
+    with _matmul_precision("high"):
+        ld, gd = value_and_grad(tree_map(lambda v: v.to(dev), pb), cfgb,
+                                data.batch_at(0, device=dev))
+        torch.cuda.synchronize()
+    worst = {"mean_ratio": 0.0, "max_ratio": 0.0}
+    for i, (want, cpu, card) in enumerate(zip(tree_leaves(g32),
+                                              tree_leaves(gc),
+                                              tree_leaves(gd))):
+        if card.dtype != torch.bfloat16:
+            raise AssertionError(f"train gate 6: leaf {i} is {card.dtype}")
+        want = want.double()
+        floor = float(want.abs().max()) * 2.0**-9
+        e_cpu = (cpu.double() - want).abs()
+        e_card = (card.double().cpu() - want).abs()
+        mean_r = float(e_card.mean()) / max(float(e_cpu.mean()), floor)
+        max_r = float(e_card.max()) / max(float(e_cpu.max()), floor)
+        worst["mean_ratio"] = max(worst["mean_ratio"], mean_r)
+        worst["max_ratio"] = max(worst["max_ratio"], max_r)
+        if mean_r > BF16_MEAN_RATIO or max_r > BF16_MAX_RATIO:
+            raise AssertionError(f"train gate 6: leaf {i}: the card's bf16 "
+                                 f"gradient {mean_r} (mean) / {max_r} (max) "
+                                 f"times the CPU's distance from fp32")
+    loss_rel = abs(float(ld) / float(l32) - 1)
+    if not loss_rel <= 2.0**-8:
+        raise AssertionError(f"train gate 6: bf16 loss {float(ld)} against "
+                             f"fp32 {float(l32)}")
+    out["bf16_remat"] = {**worst, "loss_rel_fp32": loss_rel,
+                         "cpu_loss_rel_fp32": abs(float(lc) / float(l32) - 1),
+                         "bf16_reduced_precision_reduction":
+                             torch.backends.cuda.matmul
+                             .allow_bf16_reduced_precision_reduction}
+    del g32, gc, gd
+    emit({"phase": "train_gates", "device": name, "nvidia_smi": smi, **out,
+          "phase_s": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_step_profile(run, cfg, seq: int, step: int) -> dict:
+    """One more step of ``run``'s training from its final state, apart
+    from the timed ones: the forward + backward (``value_and_grad``) and
+    the AdamW update timed apart by CUDA events, under ``torch.profiler``:
+    the device's busy time (kernel time) against the step's host clock,
+    the GEMM kernels' share of it, and the top operators and kernels by
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.training import AdamWConfig, adamw_update
+    from repro_torch.training.step import value_and_grad
+
+    opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=1, total_steps=step)
+    batch = SyntheticLM(DataConfig(seed=0, global_batch=TRAIN_BATCH,
+                                   seq_len=seq, vocab_size=cfg.vocab_size)
+                        ).batch_at(step, device="cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev[0].record()
+        _loss, grads = value_and_grad(run.state.params, cfg, batch)
+        ev[1].record()
+        new = adamw_update(opt_cfg, run.state.params, grads, run.state.opt)
+        ev[2].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del grads, new
+    events = prof.key_averages()
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in events
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total}
+    ops = {e.key: e.self_device_time_total / 1e3 for e in events
+           if e.key.startswith("aten::") and e.self_device_time_total}
+    busy = sum(kernels.values())
+    gemm = sum(v for k, v in kernels.items()
+               if any(w in k.lower() for w in ("gemm", "xmma", "nvjet",
+                                               "cutlass")))
+    return {"fwd_bwd_ms": ev[0].elapsed_time(ev[1]),
+            "adamw_ms": ev[1].elapsed_time(ev[2]),
+            "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
+            "busy_share": busy / wall_ms, "gemm_ms": gemm,
+            "kernel_launches": sum(e.count for e in events
+                                   if e.device_type == DeviceType.CUDA),
+            "top_ops_ms": dict(sorted(ops.items(),
+                                      key=lambda kv: -kv[1])[:12]),
+            "top_kernels_ms": {k[:80]: v for k, v in sorted(
+                kernels.items(), key=lambda kv: -kv[1])[:8]}}
+
+
+def train_phase(gates: dict, reset_counts, counts, launches, smi: str,
+                name: str) -> None:
+    """The ``train`` phase: qwen2-1.5b as published (28 layers, d_model
+    1,536, vocab 151,936, bf16 params and compute, remat "block") trained
+    through ``launch/train.py``'s ``train`` (the CLI's loop) on the card:
+    AdamW with fp32 moments, global batch ``TRAIN_BATCH`` at
+    ``SHAPES["train_4k"]``'s 4,096 positions, ``TRAIN_WARMUP`` +
+    ``TRAIN_TIMED`` steps, no checkpoint; counters set to 0 before and read
+    after (the training path launches none of the eight kernels).
+
+    Gates: every loss and grad norm finite, every grad norm above 0; step
+    0's loss equals ``lm_loss`` of the initial params (drawn again from
+    the same seed) on the same batch within ``TRAIN_LOSS_TOL``; the first
+    update follows AdamW's step-1 closed form on two sampled leaves, read
+    from the state after step 1: with m̂ = m / (1 - b1) = g·s, v̂ = v /
+    (1 - b2) = m̂² (to fp32 rounding), the new params are the bf16 rounding
+    of p0 - lr·(m̂ / (|m̂| + eps) + wd·p0), to half a bf16 ulp:
+    ``final_norm`` (p0 = 0: the update alone) and 4,096 entries of layer
+    0's ``wq`` (an update of about 2.5 ulps of p0).  Line ``e2e_train``:
+    each step's loss, grad norm,
+    lr and ms (CUDA-synchronised), the median step ms of the timed steps,
+    tokens/s end to end (the timed steps' tokens over the sum of their
+    step and data seconds), the model FLOPs (6·N·T plus attention, PaLM's 12·L·H·hd·S a
+    token) and their share of the card's dense bf16 peak, the peak memory
+    above what was resident, the state's bytes, the data pipeline's host
+    ms a batch, the kernels' launches, and one more step profiled
+    (:func:`_train_step_profile`)."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import init_params, lm_loss, tree_leaves
+    from repro_torch.training import AdamWConfig
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    seq = SHAPES["train_4k"].seq_len
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    cfg = configs.get_config(TRAIN_ARCH)
+    opt_cfg = AdamWConfig()
+    sampled = {}
+
+    def wq0(tree):
+        return tree["period"]["s0"]["attn"]["wq"][0].reshape(-1)[:4096]
+
+    def hook(step, state, metrics):
+        if step == 0:
+            sampled["lr"] = float(metrics["lr"])
+            for key, pick in (("final_norm", lambda t: t["final_norm"]),
+                              ("wq0", wq0)):
+                sampled[key] = {"p1": pick(state.params).clone(),
+                                "m": pick(state.opt["m"]).clone(),
+                                "v": pick(state.opt["v"]).clone()}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train_mod.train(TRAIN_ARCH, steps=steps, global_batch=TRAIN_BATCH,
+                          seq_len=seq, seed=0, device="cuda", on_step=hook)
+    torch.cuda.synchronize()
+    launches["train"] = counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    if any(launches["train"].values()):
+        raise AssertionError(f"train: a kernel launched {launches['train']}")
+    if cfg.param_dtype != "bfloat16" or cfg.remat != "block":
+        raise AssertionError("train: qwen2-1.5b is not the published config")
+    state_bytes = sum(v.numel() * v.element_size()
+                      for v in tree_leaves(run.state.params)
+                      + tree_leaves(run.state.opt))
+    n_params = sum(v.numel() for v in tree_leaves(run.state.params))
+    hist = run.history
+    for rec in hist:
+        print(f"[train] step={rec['step']} loss={rec['loss']:.4f} "
+              f"gnorm={rec['grad_norm']:.3f} lr={rec['lr']:.2e} "
+              f"step_ms={rec['step_s'] * 1e3:.1f} "
+              f"data_ms={rec['data_s'] * 1e3:.1f} ({smi})", flush=True)
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])
+                and rec["grad_norm"] > 0):
+            raise AssertionError(f"train: step {rec['step']}: {rec}")
+    breakdown = _train_step_profile(run, cfg, seq, steps)
+    del run
+    torch.cuda.empty_cache()
+
+    # step 0's loss against lm_loss of the same initial params and batch
+    p0 = init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    batch = SyntheticLM(DataConfig(seed=0, global_batch=TRAIN_BATCH,
+                                   seq_len=seq, vocab_size=cfg.vocab_size)
+                        ).batch_at(0, device=dev)
+    with torch.no_grad():
+        loss0 = float(lm_loss(p0, cfg, tokens=batch["tokens"],
+                              labels=batch["labels"]))
+    loss_rel = abs(hist[0]["loss"] / loss0 - 1)
+    if loss_rel > TRAIN_LOSS_TOL:
+        raise AssertionError(f"train: step 0's loss {hist[0]['loss']} "
+                             f"against lm_loss {loss0}")
+    # the first update's closed form
+    closed = {}
+    lr, b1, b2 = sampled["lr"], opt_cfg.b1, opt_cfg.b2
+    for key, start in (("final_norm", p0["final_norm"]), ("wq0", wq0(p0))):
+        got = sampled[key]
+        mhat = got["m"].double() / (1 - b1)
+        vhat = got["v"].double() / (1 - b2)
+        v_err = float(((vhat - mhat * mhat).abs()
+                       / (mhat * mhat).clamp(min=1e-30)).max())
+        if v_err > 1e-5:
+            raise AssertionError(f"train: {key} v̂ != m̂² ({v_err})")
+        p = start.double()
+        want = p - lr * (mhat / (mhat.abs() + opt_cfg.eps)
+                         + opt_cfg.weight_decay * p)
+        p1 = got["p1"].double()
+        diff = (p1 - want).abs()
+        # the bf16 rounding of the fp32 result: half a bf16 ulp (2**(e - 8)
+        # for |want| in [2**e, 2**(e + 1))), and fp32 slack
+        half_ulp = torch.where(
+            want != 0, 2.0 ** (torch.floor(torch.log2(want.abs())) - 8), 0.0)
+        ok = diff <= half_ulp + 1e-6 * want.abs()
+        if not bool(ok.all()):
+            raise AssertionError(f"train: {key}'s first update is not "
+                                 f"AdamW's (worst {float(diff.max())})")
+        closed[key] = {"max_abs_diff": float(diff.max()),
+                       "max_update": float((want - p).abs().max()),
+                       "v_rel_err": v_err}
+    del p0, batch
+    torch.cuda.empty_cache()
+
+    timed = hist[TRAIN_WARMUP:]
+    step_ms = statistics.median(rec["step_s"] * 1e3 for rec in timed)
+    tokens = TRAIN_BATCH * seq
+    # end to end: every timed step's tokens over the loop's whole time,
+    # the pipeline's batch and upload included
+    loop_s = sum(rec["step_s"] + rec["data_s"] for rec in timed)
+    tokens_per_s = tokens * len(timed) / loop_s
+    hd = cfg.hd()
+    flops = tokens * (6 * n_params
+                      + 12 * cfg.num_layers * cfg.num_heads * hd * seq)
+    peak_bf16 = BF16_PEAKS[_part(name)]
+    emit({"phase": "e2e_train", "device": name, "nvidia_smi": smi,
+          "arch": TRAIN_ARCH, "param_dtype": cfg.param_dtype,
+          "remat": cfg.remat, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "global_batch": TRAIN_BATCH, "seq_len": seq,
+          "tokens_per_step": tokens, "n_params": n_params,
+          "steps": [{k: rec[k] for k in ("step", "loss", "grad_norm", "lr")}
+                    | {"ms": rec["step_s"] * 1e3,
+                       "data_ms": rec["data_s"] * 1e3} for rec in hist],
+          "median_step_ms": step_ms, "timed_loop_s": loop_s,
+          "tokens_per_s": tokens_per_s,
+          "model_flops_per_step": flops, "peak_bf16_flops": peak_bf16,
+          "mfu": flops * tokens_per_s / tokens / peak_bf16,
+          "peak_mb_above_resident": peak, "resident_mb": base / 2**20,
+          "state_bytes": state_bytes,
+          "data_host_ms": statistics.median(rec["data_s"] * 1e3
+                                            for rec in hist),
+          "step0_loss": hist[0]["loss"], "lm_loss_step0": loss0,
+          "step0_loss_rel": loss_rel, "first_update": closed,
+          "profiled_step": breakdown,
+          "launches": launches["train"], "gates": gates,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -4710,6 +5266,8 @@ def main() -> None:
     # -- lm gates: the LM side's model gates, which time nothing, while the
     # aot phase's child A builds its kernels --------------------------------
     lm_gates = lm_gates_phase(smi, name)
+    # and the training path's smoke gates, which time nothing either
+    train_gates = train_gates_phase(smi, name)
 
     # the aot phase's child A ends before the first phase that times
     aot_children.join_a()
@@ -4744,6 +5302,9 @@ def main() -> None:
 
     # -- lm: the LM side and the RAG tier -------------------------------------
     lm_phase(lm_gates, record, reset_counts, counts, launches, smi, name)
+
+    # -- train: qwen2-1.5b trained at full width ------------------------------
+    train_phase(train_gates, reset_counts, counts, launches, smi, name)
 
     # -- times ----------------------------------------------------------------
     nb, _rows = st_mod.single_plan(N_ROWS)

@@ -5,18 +5,28 @@
   ``.tmp_step_<n>`` directory and committed by renaming it to
   ``step_<n>``: readers only trust manifested steps, so a crash mid-save
   is invisible.
-* The leaves of a nested dict are named by their key path in the
-  reference's form (``['cols']/['price']``, dict keys in sorted order), so
-  a directory written by either package restores in the other.
-* ``restore`` takes a *target tree* and returns host numpy arrays of its
-  structure, shapes checked and dtypes cast to the target's.
+* Leaves are named by their key path in the reference's form (its
+  ``tree_flatten_with_path`` walk): ``['k']`` for a dict key (keys in
+  sorted order), ``[0]`` for a list or tuple entry (an empty list has no
+  leaf), ``.name`` for a dataclass field (fields in declaration order; the
+  port's ``TrainState``), joined by ``/``; None is an empty subtree.  A
+  dataclass field marked ``metadata={"prngkey": True}`` holds the uint32[2]
+  key data of the reference's typed PRNG key and is stored, as the
+  reference stores a key, under ``<path>__prngkey``.  So a directory
+  written by either package restores in the other: the engine's
+  dict-of-columns snapshots, model parameters (``tail`` lists included)
+  and a whole ``TrainState``.
+* A bf16 tensor is stored as its 2-byte patterns (numpy's ``|V2``, the
+  dtype the reference's bfloat16 arrays take in an ``.npz``).
+* ``restore`` takes a *target tree* and returns a tree of its structure
+  (lists and dataclasses included) whose leaves have their target's shape
+  (checked) and dtype: a CPU tensor where the target leaf is a tensor (any
+  device, ``meta`` included), a numpy array elsewhere.
 * ``keep_last_k`` garbage collection after every commit.
-
-The reference's typed PRNG-key leaves have no counterpart here: no tree the
-port saves holds a key.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -25,20 +35,71 @@ import time
 from typing import Any
 
 import numpy as np
+import torch
 
 
-def _leaves(tree: Any, path: tuple = ()):
-    """(key-path string, leaf) pairs of a nested dict, keys sorted at every
-    level (the reference's ``tree_flatten_with_path`` order and names)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], path + (k,))
-        return
-    yield "/".join(f"[{k!r}]" for k in path), tree
+def _children(node: Any):
+    """The (key-path segment, child) pairs of a dict (keys sorted), list,
+    tuple or dataclass node, or None for a leaf."""
+    if isinstance(node, dict):
+        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return [(f"[{i}]", v) for i, v in enumerate(node)]
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return [(f".{f.name}" + ("__prngkey" if f.metadata.get("prngkey")
+                                 else ""), getattr(node, f.name))
+                for f in dataclasses.fields(node)]
+    return None
+
+
+def _rebuild(target: Any, leaf_fn, path: tuple = ()) -> Any:
+    """``target``'s structure with each leaf replaced by ``leaf_fn(key,
+    leaf)``, ``key`` its key-path string (see the module doc)."""
+    if target is None:
+        return None
+    kids = _children(target)
+    if kids is None:
+        return leaf_fn("/".join(path), target)
+    new = [_rebuild(v, leaf_fn, path + (seg,)) for seg, v in kids]
+    if isinstance(target, dict):
+        return {k: new[i] for i, k in enumerate(sorted(target))}
+    if isinstance(target, (list, tuple)):
+        return type(target)(new)
+    return type(target)(**{f.name: v for f, v in
+                           zip(dataclasses.fields(target), new)})
+
+
+def _to_host(leaf, copy: bool = True) -> np.ndarray:
+    """A leaf as a host numpy array (bf16 as ``|V2`` bit patterns); a
+    tensor is always copied, a numpy leaf where ``copy``."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().copy().view(np.dtype("V2"))
+        return t.numpy().copy()
+    return np.array(leaf) if copy else np.asarray(leaf)
+
+
+def _from_host(arr: np.ndarray, leaf, key: str):
+    """``arr`` (read back from a step) as ``leaf``'s kind, shape and dtype."""
+    if tuple(arr.shape) != tuple(np.shape(leaf)):
+        raise ValueError(f"{key}: shape {arr.shape} != "
+                         f"{tuple(np.shape(leaf))}")
+    if isinstance(leaf, torch.Tensor):
+        if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+            t = torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr))
+        return t.to(leaf.dtype)
+    return arr.astype(np.asarray(leaf).dtype, copy=False)
 
 
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    return {key: np.asarray(leaf) for key, leaf in _leaves(tree)}
+    flat = {}
+    _rebuild(tree, lambda key, leaf: flat.__setitem__(
+        key, _to_host(leaf, copy=False)))
+    return flat
 
 
 def save(ckpt_dir: str, step: int, tree: Any, keep_last_k: int = 3) -> str:
@@ -88,30 +149,20 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def _unflatten(target: Any, values: dict, path: tuple = ()) -> Any:
-    if isinstance(target, dict):
-        return {k: _unflatten(target[k], values, path + (k,))
-                for k in target}
-    return values["/".join(f"[{k!r}]" for k in path)]
-
-
 def restore(ckpt_dir: str, step: int, target_tree: Any) -> Any:
-    """Restore step ``step`` into the structure of ``target_tree``: host
-    numpy arrays, each of its target leaf's shape, cast to its dtype."""
+    """Restore step ``step`` into the structure of ``target_tree``: each
+    leaf of its target leaf's shape and dtype, a CPU tensor for a tensor
+    target and a numpy array otherwise."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         json.load(f)
     with np.load(os.path.join(path, "host_0.npz")) as data:
-        out = {}
-        for key, leaf in _leaves(target_tree):
+        def read(key, leaf):
             if key not in data:
                 raise KeyError(f"checkpoint missing {key}")
-            arr = data[key]
-            leaf = np.asarray(leaf)
-            if tuple(arr.shape) != tuple(leaf.shape):
-                raise ValueError(f"{key}: shape {arr.shape} != {leaf.shape}")
-            out[key] = arr.astype(leaf.dtype, copy=False)
-    return _unflatten(target_tree, out)
+            return _from_host(data[key], leaf, key)
+
+        return _rebuild(target_tree, read)
 
 
 class Checkpointer:
@@ -128,7 +179,7 @@ class Checkpointer:
     def save_async(self, step: int, tree: Any) -> None:
         """Start saving ``tree`` as ``step`` (after any save in flight)."""
         self.wait()
-        host_tree = _unflatten(tree, _host_copies(tree))
+        host_tree = _rebuild(tree, lambda _key, leaf: _to_host(leaf))
 
         def _run():
             try:
@@ -148,12 +199,3 @@ class Checkpointer:
             err, self._error = self._error, None
             raise err
 
-
-def _host_copies(tree: Any) -> dict[str, np.ndarray]:
-    """Leaf copies on the host (a tensor is copied off its device)."""
-    def host(leaf):
-        if hasattr(leaf, "detach"):
-            return leaf.detach().cpu().numpy().copy()
-        return np.array(leaf)
-
-    return {key: host(leaf) for key, leaf in _leaves(tree)}

@@ -6,7 +6,8 @@ import torch
 
 from .config import ModelConfig, MoEConfig, SSMConfig
 from .transformer import (block_kinds, decode_step, forward, init_cache,
-                          init_params, lm_loss, tree_leaves, tree_map)
+                          init_params, lm_loss, tree_leaves, tree_map,
+                          tree_unflatten)
 
 
 def _leaf(x, device) -> torch.Tensor:
@@ -36,4 +37,5 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> dict:
 
 __all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "block_kinds",
            "decode_step", "forward", "init_cache", "init_params", "lm_loss",
-           "params_from_numpy", "tree_leaves", "tree_map"]
+           "params_from_numpy", "tree_leaves", "tree_map",
+           "tree_unflatten"]

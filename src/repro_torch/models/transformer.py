@@ -23,6 +23,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.expr import full_fp32
 from ..dist.sharding import constrain
@@ -44,12 +45,34 @@ def tree_map(fn, tree):
 
 
 def tree_leaves(tree) -> list:
-    """The tensor leaves of a tree of dicts and lists, in key order."""
+    """The tensor leaves of a tree of dicts and lists in the reference's
+    order (``jax.tree.leaves``: dict keys sorted, list entries in order);
+    None is an empty subtree."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(tree, leaves) -> Any:
+    """A tree of ``tree``'s structure whose leaves are ``leaves``, given in
+    :func:`tree_leaves` order (None stays None)."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +198,26 @@ def _apply_shared(params: dict, cfg: ModelConfig, x, positions):
                          cfg.mlp_type)
 
 
+def _stacked_slices(params: dict, cfg: ModelConfig) -> list:
+    """Per period, its slots' parameter trees: views of the stacked
+    leaves, cut by one ``unbind`` per leaf (under autograd its backward
+    stacks the periods' gradients once)."""
+    nper, _ = _num_periods(cfg)
+    out = [{} for _ in range(nper)]
+    for j in range(len(cfg.layer_pattern)):
+        slot = params["period"][f"s{j}"]
+        leaves = [v.unbind(0) for v in tree_leaves(slot)]
+        for t in range(nper):
+            out[t][f"s{j}"] = tree_unflatten(slot, [v[t] for v in leaves])
+    return out
+
+
 def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None):
-    """Returns (logits (B,S,V), aux_loss)."""
+    """Returns (logits (B,S,V), aux_loss).  With gradients on and
+    ``cfg.remat == "block"``, each pattern period runs under
+    ``torch.utils.checkpoint`` (its activations are recomputed in the
+    backward, as the reference's ``jax.checkpoint`` of the period body);
+    with gradients off the ops are the same either way."""
     with full_fp32():
         x = _embed(params, cfg, tokens, embeds)
         s = x.shape[1]
@@ -185,15 +226,23 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None):
         pat = cfg.layer_pattern
         nper, ntail = _num_periods(cfg)
 
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for t in range(nper):
+        def period(x, aux, pp):
             for j, kind in enumerate(pat):
-                pp = tree_map(lambda v, t=t: v[t], params["period"][f"s{j}"])
-                x, a = _apply_block(pp, cfg, kind, x, positions)
+                x, a = _apply_block(pp[f"s{j}"], cfg, kind, x, positions)
                 aux = aux + a
             if cfg.shared_attn_every:
                 x = _apply_shared(params, cfg, x, positions)
-            x = constrain(x, ("batch", "seq_act", "embed"))
+            return constrain(x, ("batch", "seq_act", "embed")), aux
+
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for pp in (_stacked_slices(params, cfg) if nper else []):
+            if remat:
+                # the blocks draw no random numbers: no RNG state to keep
+                x, aux = checkpoint(period, x, aux, pp, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = period(x, aux, pp)
         for i in range(ntail):
             x, a = _apply_block(params["tail"][i], cfg, pat[i % len(pat)], x,
                                 positions)
