@@ -360,6 +360,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 T_START = time.perf_counter()
 
 from repro_torch.configs.chase_laion import bench_config  # noqa: E402
+from repro_torch.roofline import bound_ms, spec_for  # noqa: E402
 
 # the paper's laion1m scale (configs/chase_laion.py gives it in comments)
 LAION1M = dataclasses.replace(bench_config(), n_rows=1_000_000, n_queries=100)
@@ -468,29 +469,25 @@ TRAIN_LOSS_TOL = 2.0**-8     # step 0's loss against lm_loss: a bf16 ulp
 TRAIN_SMOKE_SHAPE = (2, 64)
 TRAIN_TOL_G = {"mamba2-370m": 1e-3, "zamba2-1.2b": 5e-3}
 TRAIN_TOL_G_DEFAULT = 2e-5
+# the roofline phase: the dry-run's predicted peak above the step's
+# arguments against the card's own in that step (they read 4 KB apart of
+# 24.7 GB on the H100 at 700 W; a lost checkpoint recompute would be
+# hundreds of MB)
+ROOFLINE_PEAK_TOL = 0.01
 # a bf16 gradient's distance from the fp32 one on the card, as a multiple
 # of the CPU's (tests/test_torch_bf16.py's rule)
 BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.25, 2.5
-# published dense peaks (NVIDIA data sheets): bytes/s, fp32 CUDA-core FLOP/s
-PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12),
-         "SXM": (3.35e12, 67.0e12)}
-# and the dense bf16 tensor-core FLOP/s of the same parts
-BF16_PEAKS = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _part(name: str) -> str:
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return key
-    return "SXM"
-
-
 def peaks_for(name: str) -> tuple[float, float]:
-    return PEAKS[_part(name)]
+    """The card's HBM bytes/s and fp32 CUDA-core FLOP/s, from its part's
+    published dense rates (``repro_torch.roofline.hw``)."""
+    hw = spec_for(name)
+    return hw.hbm_bw, hw.peak_flops_fp32
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -526,16 +523,6 @@ def run_ms(fn, one_ms: float) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / count
-
-
-def roofline(nbytes: float, ops_: float, bw: float,
-             flops: float) -> tuple[float, str]:
-    """The least time (ms) the card could take for work that moves
-    ``nbytes`` and does ``ops_`` operations, and which of the two bounds
-    it."""
-    t_bytes, t_ops = nbytes / bw * 1e3, ops_ / flops * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
-        "operations"
 
 
 def timed(table: dict) -> dict:
@@ -3345,7 +3332,7 @@ def lm_phase(gates: dict, record, reset_counts, counts, launches, smi: str,
     from repro_torch.testing import assert_topk_close
 
     t_phase = time.perf_counter()
-    bw, flops = peaks_for(name)
+    hw = spec_for(name)
     smoke, full = gates["smoke"], gates["full"]
 
     # -- the slice: serve --arch qwen2-1.5b --rag at full width -------------
@@ -3455,8 +3442,6 @@ def lm_phase(gates: dict, record, reset_counts, counts, launches, smi: str,
     qmask = mask[None].expand(LM_BATCH, -1).contiguous()
     metric = Metric.INNER_PRODUCT
     n_docs, dim = docs.shape
-    nb, _rows = st_mod.single_plan(n_docs)
-    _qt, splits, _ = st_mod.batch_plan(n_docs, LM_BATCH, 4)
 
     def lib_single():
         keys = -(docs @ qemb[0])
@@ -3473,17 +3458,15 @@ def lm_phase(gates: dict, record, reset_counts, counts, launches, smi: str,
             lambda: st_mod.scan_topk(docs, qemb[0], mask, 4, metric),
             lambda: st_mod.scan_topk_plain(docs, qemb[0], mask, 4, metric),
             lib_single,
-            roofline(n_docs * dim * 4 + dim * 4 + n_docs + nb * 4 * 8,
-                     2 * n_docs * dim, bw, flops)),
+            bound_ms(st_mod.scan_topk_work(docs, qemb[0], mask, 4), hw)),
         "scan_topk_batch": (
             lambda: st_mod.scan_topk_batch(docs, qemb, qmask, None, 4,
                                            metric),
             lambda: st_mod.scan_topk_batch_plain(docs, qemb, qmask, None, 4,
                                                  metric),
             lib_batch,
-            roofline(n_docs * dim * 4 + LM_BATCH * dim * 4
-                     + LM_BATCH * n_docs + LM_BATCH * splits * 4 * 8,
-                     2 * n_docs * dim * LM_BATCH, bw, flops))})
+            bound_ms(st_mod.scan_topk_batch_work(docs, qemb, qmask, None, 4),
+                     hw))})
     param_bytes = sum(v.numel() * v.element_size()
                       for v in tree_leaves(run.params))
     emit({"phase": "lm", "device": name, "nvidia_smi": smi,
@@ -3503,7 +3486,7 @@ def lm_phase(gates: dict, record, reset_counts, counts, launches, smi: str,
           "decode_ms_per_token": gen_t["decode_s"] * 1e3 / LM_GEN,
           "tokens_per_s": LM_BATCH * LM_GEN / gen_s,
           "param_bytes": param_bytes,
-          "decode_step_bound_ms": param_bytes / bw * 1e3,
+          "decode_step_bound_ms": param_bytes / hw.hbm_bw * 1e3,
           "peak_mb": peak,
           "worst_err": {"smoke_decode": max(v["decode_err"]
                                             for v in smoke.values()),
@@ -3854,8 +3837,45 @@ def _train_step_profile(run, cfg, seq: int, step: int) -> dict:
                 kernels.items(), key=lambda kv: -kv[1])[:8]}}
 
 
+def _counted_step(run, cfg, shape) -> dict:
+    """One more step of ``run``'s training from its final state, untimed,
+    under ``roofline.op_counter``: the dry-run's step of ``shape``
+    (``launch/dryrun.py``'s optimizer config and microbatch policy) on the
+    state the train phase holds and the pipeline's next batch.  Returns
+    the counter's FLOPs by dtype, bytes, the bytes the step must move,
+    argument and peak bytes, the state's and the batch's ``nbytes``, and
+    the card's own peak above its arguments (``max_memory_allocated``)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.dryrun import _opt_config, train_step_config
+    from repro_torch.models import tree_leaves
+    from repro_torch.roofline import analyze
+    from repro_torch.training import build_train_step
+
+    batch = SyntheticLM(DataConfig(seed=0, global_batch=shape.global_batch,
+                                   seq_len=shape.seq_len,
+                                   vocab_size=cfg.vocab_size)
+                        ).batch_at(int(run.state.step), device="cuda")
+    step = build_train_step(cfg, _opt_config(cfg),
+                            train_step_config(cfg, shape))
+    leaves = (tree_leaves(run.state.params) + tree_leaves(run.state.opt)
+              + [run.state.step, run.state.data_cursor, run.state.rng]
+              + list(batch.values()))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cost = analyze(step, run.state, batch)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - base
+    return {"flops_by_dtype": dict(cost.flops), "bytes": cost.bytes,
+            "moved_bytes": cost.moved_bytes,
+            "argument_bytes": cost.argument_bytes,
+            "peak_above_args": cost.peak_bytes - cost.argument_bytes,
+            "state_batch_nbytes": sum(t.nbytes for t in leaves),
+            "card_peak_above_args": card_peak}
+
+
 def train_phase(gates: dict, reset_counts, counts, launches, smi: str,
-                name: str) -> None:
+                name: str) -> dict:
     """The ``train`` phase: qwen2-1.5b as published (28 layers, d_model
     1,536, vocab 151,936, bf16 params and compute, remat "block") trained
     through ``launch/train.py``'s ``train`` (the CLI's loop) on the card:
@@ -3879,13 +3899,21 @@ def train_phase(gates: dict, reset_counts, counts, launches, smi: str,
     step and data seconds), the model FLOPs (6·N·T plus attention, PaLM's 12·L·H·hd·S a
     token) and their share of the card's dense bf16 peak, the peak memory
     above what was resident, the state's bytes, the data pipeline's host
-    ms a batch, the kernels' launches, and one more step profiled
-    (:func:`_train_step_profile`)."""
+    ms a batch, the kernels' launches, one more step profiled
+    (:func:`_train_step_profile`), and one more counted
+    (:func:`_counted_step`): its FLOPs by dtype and bytes, the step's
+    dtype-aware roofline bound (the larger of each dtype's FLOPs at its
+    peak and the bytes the step must move, ``OpCost.moved_bytes``, at the
+    HBM rate), the median step over it, and beside it the eager ops'
+    bytes at the HBM rate (``eager_bytes_ms``: they move with the
+    implementation, so they bound nothing).  Returns what the
+    ``roofline`` phase reads."""
     from repro_torch import configs
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train as train_mod
     from repro_torch.models import init_params, lm_loss, tree_leaves
+    from repro_torch.roofline import roofline_terms
     from repro_torch.training import AdamWConfig
 
     t_phase = time.perf_counter()
@@ -3936,6 +3964,8 @@ def train_phase(gates: dict, reset_counts, counts, launches, smi: str,
                 and rec["grad_norm"] > 0):
             raise AssertionError(f"train: step {rec['step']}: {rec}")
     breakdown = _train_step_profile(run, cfg, seq, steps)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+    counted = _counted_step(run, cfg, shape)
     del run
     torch.cuda.empty_cache()
 
@@ -3991,7 +4021,19 @@ def train_phase(gates: dict, reset_counts, counts, launches, smi: str,
     hd = cfg.hd()
     flops = tokens * (6 * n_params
                       + 12 * cfg.num_layers * cfg.num_heads * hd * seq)
-    peak_bf16 = BF16_PEAKS[_part(name)]
+    hw = spec_for(name)
+    peak_bf16 = hw.peak_flops_bf16
+    terms = roofline_terms(
+        {"flops": sum(counted["flops_by_dtype"].values()),
+         "bytes accessed": counted["moved_bytes"],
+         "flops_by_dtype": counted["flops_by_dtype"]}, {}, 1, flops, hw)
+    bound = {"bound_ms": terms.step_time_lower_bound_s * 1e3,
+             "dominant": terms.dominant,
+             "compute_ms": terms.compute_s * 1e3,
+             "memory_ms": terms.memory_s * 1e3,
+             "eager_bytes_ms": counted["bytes"] / hw.hbm_bw * 1e3,
+             "median_step_over_bound":
+                 step_ms / (terms.step_time_lower_bound_s * 1e3)}
     emit({"phase": "e2e_train", "device": name, "nvidia_smi": smi,
           "arch": TRAIN_ARCH, "param_dtype": cfg.param_dtype,
           "remat": cfg.remat, "layers": cfg.num_layers,
@@ -4005,6 +4047,8 @@ def train_phase(gates: dict, reset_counts, counts, launches, smi: str,
           "tokens_per_s": tokens_per_s,
           "model_flops_per_step": flops, "peak_bf16_flops": peak_bf16,
           "mfu": flops * tokens_per_s / tokens / peak_bf16,
+          "counted_step": counted, "dtype_aware_bound": bound,
+          "bound_share": 1 / bound["median_step_over_bound"],
           "peak_mb_above_resident": peak, "resident_mb": base / 2**20,
           "state_bytes": state_bytes,
           "data_host_ms": statistics.median(rec["data_s"] * 1e3
@@ -4014,6 +4058,162 @@ def train_phase(gates: dict, reset_counts, counts, launches, smi: str,
           "profiled_step": breakdown,
           "launches": launches["train"], "gates": gates,
           "phase_s": time.perf_counter() - t_phase})
+    return {"counted_step": counted, "bound": bound, "median_step_ms": step_ms,
+            "peak_above_resident": peak * 2**20, "state_bytes": state_bytes}
+
+
+def roofline_phase(trained: dict, cat, qv, p, r, reset_counts, counts,
+                   launches, smi: str, name: str) -> None:
+    """The ``roofline`` phase: the roofline tooling on the card, after the
+    ``train`` phase (``trained`` is what it returned), counters set to 0
+    before and read after (``lower`` and ``lower_batch`` run the plans,
+    so the Q1, Q2 and Q3 kernels launch).
+
+    Gate 1: ``launch/dryrun.py``'s ``run_cell`` of the train phase's cell
+    (qwen2-1.5b as published, ``train_4k`` with the global batch cut to
+    ``TRAIN_BATCH``, mesh ``one``) on ``meta`` counts, per dtype, exactly
+    the FLOPs the counter read off one real step on the card.  Gate 2: its
+    argument bytes equal the ``nbytes`` of the state and the batch the
+    card's step took; its peak above the arguments lies within
+    ``ROOFLINE_PEAK_TOL`` of the card's own peak above them in that step.
+    Its whole peak is printed beside ``e2e_train``'s peak above resident,
+    not gated: tensors of earlier phases, resident when ``train`` starts,
+    are freed while it runs, so that reading understates the step by as
+    much as they free.  The bytes the step must move are equal on both
+    sides too.  Gate 3: ``lower_batch`` of Q1 at a list of ``N_QUERIES`` counts
+    2·Q·N·D kernel operations (one ``scan_topk_batch`` launch) and no other
+    FLOP, so its compute term is that over the fp32 peak; the bound is
+    printed over the measured execute.  Gate 4: ``lower(...).as_text()``
+    names ``scan_topk`` for a single-dict Q1 and ``range_scan`` for a
+    single-dict perleft Q3; ``lower_batch`` of Q2 names
+    ``range_scan_batch``, and a single-dict Q2, which runs the plain scan
+    as the reference lowers it, names no kernel and counts its rowwise
+    distance's 2·N·D operations; every answer after the lowerings equals
+    the one before bit for bit."""
+    from repro_torch.api import connect
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.roofline import roofline_terms
+
+    t_phase = time.perf_counter()
+    hw = spec_for(name)
+    reset_counts()
+    # gates 1 and 2: the dry-run of the train phase's cell
+    rec = run_cell(TRAIN_ARCH, "train_4k", "one", global_batch=TRAIN_BATCH)
+    if rec["status"] != "ok":
+        raise AssertionError(f"roofline: the dry-run failed: {rec['error']}")
+    card = trained["counted_step"]
+    if rec["cost"]["flops_by_dtype"] != card["flops_by_dtype"]:
+        raise AssertionError(f"roofline gate 1: meta FLOPs "
+                             f"{rec['cost']['flops_by_dtype']} != the card's "
+                             f"{card['flops_by_dtype']}")
+    mem = rec["memory"]
+    if not (mem["argument_bytes"] == card["argument_bytes"]
+            == card["state_batch_nbytes"]
+            and rec["cost"]["moved_bytes_per_device"] == card["moved_bytes"]):
+        raise AssertionError(f"roofline gate 2: argument bytes "
+                             f"{mem['argument_bytes']} against the card's "
+                             f"{card['argument_bytes']} and nbytes "
+                             f"{card['state_batch_nbytes']}, moved bytes "
+                             f"{rec['cost']['moved_bytes_per_device']} "
+                             f"against {card['moved_bytes']}")
+    above_args = rec["peak_bytes"] - mem["argument_bytes"]
+    peaks = {"predicted_above_args": above_args,
+             "card_step_above_args": card["card_peak_above_args"],
+             "predicted_total": rec["peak_bytes"],
+             "e2e_train_above_resident": trained["peak_above_resident"],
+             "e2e_train_above_state": (trained["peak_above_resident"]
+                                       - trained["state_bytes"])}
+    peaks["predicted_over_card_step"] = (above_args
+                                         / card["card_peak_above_args"])
+    peaks["predicted_total_over_e2e_train"] = (
+        rec["peak_bytes"] / trained["peak_above_resident"])
+    if abs(peaks["predicted_over_card_step"] - 1) > ROOFLINE_PEAK_TOL:
+        raise AssertionError(f"roofline gate 2: predicted peak above the "
+                             f"arguments {above_args} against the card's "
+                             f"{card['card_peak_above_args']}")
+
+    # gates 3 and 4: lower / lower_batch over the 1M x 512 catalog
+    db = connect(cat, engine="brute", use_pallas=True)
+    perleft_db = connect(cat, engine="brute", use_pallas=True,
+                         join_lowering="perleft")
+    q1, q2 = db.prepare(Q1, K=K), db.prepare(Q2)
+    q3 = perleft_db.prepare(Q3)
+    binds = [{"qv": qv[i], "p": p} for i in range(N_QUERIES)]
+    q2_binds = [{"qv": qv[i], "r": r, "p": p} for i in range(N_QUERIES)]
+    runs = {"q1_single": (q1, binds[0]), "q1_list": (q1, binds),
+            "q2_single": (q2, q2_binds[0]), "q2_list": (q2, q2_binds),
+            "q3_perleft": (q3, {"r": r})}
+    before = {key: st.execute(b).data for key, (st, b) in runs.items()}
+    lowered = {"q1_single": q1.compiled.lower(**binds[0]),
+               "q1_list": q1.compiled.lower_batch(binds),
+               "q2_single": q2.compiled.lower(**q2_binds[0]),
+               "q2_list": q2.compiled.lower_batch(q2_binds),
+               "q3_perleft": q3.compiled.lower(r=r)}
+    after = {key: st.execute(b).data for key, (st, b) in runs.items()}
+    torch.cuda.synchronize()
+    launches["roofline"] = counts()
+    for key in runs:
+        bitwise(after[key], before[key], f"roofline: {key} after lower")
+    names = {key: sorted({line.split()[1] for line in lw.as_text().splitlines()
+                          if line.startswith("kernel ")})
+             for key, lw in lowered.items()}
+    want_names = {"q1_single": ["scan_topk"], "q1_list": ["scan_topk_batch"],
+                  "q2_single": [], "q2_list": ["range_scan_batch"],
+                  "q3_perleft": ["range_scan"]}
+    if names != want_names:
+        raise AssertionError(f"roofline gate 4: kernels named {names}")
+    if lowered["q2_single"].cost.flops_total != 2 * N_ROWS * DIM:
+        raise AssertionError(f"roofline gate 4: single Q2 counts "
+                             f"{lowered['q2_single'].cost.flops} FLOPs")
+    for kname in ("scan_topk", "scan_topk_batch", "range_scan",
+                  "range_scan_batch"):
+        if launches["roofline"][kname] < 1:
+            raise AssertionError(f"roofline: {kname} never launched")
+    cost = lowered["q1_list"].cost
+    ops = 2 * N_QUERIES * N_ROWS * DIM
+    k1 = cost.kernels["scan_topk_batch"]
+    if not (k1["launches"] == 1 and k1["ops"] == ops
+            and cost.flops_total == ops):
+        raise AssertionError(f"roofline gate 3: {cost.kernels}, flops "
+                             f"{cost.flops}")
+    terms = roofline_terms({"flops": cost.flops_total,
+                            "bytes accessed": cost.bytes,
+                            "flops_by_dtype": cost.flops},
+                           cost.collective_bytes, 1, 0.0, hw)
+    if terms.compute_s != ops / hw.peak_flops_fp32:
+        raise AssertionError(f"roofline gate 3: compute term "
+                             f"{terms.compute_s}")
+    q1_ms = latency_ms(lambda: q1.execute(binds))
+    emit({"phase": "roofline", "device": name, "nvidia_smi": smi,
+          "hw": dataclasses.asdict(hw),
+          "train_cell": {"arch": TRAIN_ARCH, "shape": "train_4k",
+                         "global_batch": TRAIN_BATCH,
+                         "flops_by_dtype": rec["cost"]["flops_by_dtype"],
+                         "card_flops_by_dtype": card["flops_by_dtype"],
+                         "bytes": rec["cost"]["bytes_per_device"],
+                         "card_bytes": card["bytes"],
+                         "moved_bytes":
+                             rec["cost"]["moved_bytes_per_device"],
+                         "card_moved_bytes": card["moved_bytes"],
+                         "memory": mem, "peaks": peaks,
+                         "roofline": rec["roofline"],
+                         "dry_run_s": rec["lower_s"],
+                         "median_step_ms": trained["median_step_ms"],
+                         "step_bound": trained["bound"]},
+          "q1_list": {"queries": N_QUERIES, "kernel_ops": cost.kernel_ops,
+                      "kernels": cost.kernels, "bytes": cost.bytes,
+                      "compute_ms": terms.compute_s * 1e3,
+                      "memory_ms": terms.memory_s * 1e3,
+                      "bound_ms": terms.step_time_lower_bound_s * 1e3,
+                      "execute_ms": q1_ms,
+                      "bound_over_execute":
+                          terms.step_time_lower_bound_s * 1e3 / q1_ms},
+          "lowered": {key: {**lw.cost_analysis(), "kernels": names[key],
+                            "ops": len(lw.cost.events)}
+                      for key, lw in lowered.items()},
+          "launches": launches["roofline"],
+          "phase_s": time.perf_counter() - t_phase,
+          "script_s": time.perf_counter() - T_START})
 
 
 def main() -> None:
@@ -5304,25 +5504,23 @@ def main() -> None:
     lm_phase(lm_gates, record, reset_counts, counts, launches, smi, name)
 
     # -- train: qwen2-1.5b trained at full width ------------------------------
-    train_phase(train_gates, reset_counts, counts, launches, smi, name)
+    trained = train_phase(train_gates, reset_counts, counts, launches, smi,
+                          name)
+
+    # -- roofline: the dry-run, the counter and lower on the card -------------
+    roofline_phase(trained, cat, qv, p, r, reset_counts, counts, launches,
+                   smi, name)
 
     # -- times ----------------------------------------------------------------
+    # every bound is its wrapper's work formula (``*_work``): live queries
+    # only, each input byte read once and each output written once
     nb, _rows = st_mod.single_plan(N_ROWS)
     qt, splits, _ = st_mod.batch_plan(N_ROWS, bucket, K)
     live_q = int(batch_qvalid.sum())
-    single_bytes = N_ROWS * DIM * 4 + DIM * 4 + N_ROWS + nb * K * 8
-    single_ops = 2 * N_ROWS * DIM
-    batch_bytes = (N_ROWS * DIM * 4 + live_q * DIM * 4 + live_q * N_ROWS
-                   + bucket + live_q * splits * K * 8)
-    batch_ops = 2 * N_ROWS * DIM * live_q
-    # range scans: corpus and query in; mask in, keys and hits out per
-    # (live) row; radius keys, qvalid and counts per query
-    range_single_bytes = N_ROWS * DIM * 4 + DIM * 4 + 4 + N_ROWS * 6 + 4
-    range_batch_bytes = (N_ROWS * DIM * 4 + live_q * DIM * 4
-                         + live_q * N_ROWS * 6 + bucket * 9)
 
-    def bound(nbytes, ops_):
-        return roofline(nbytes, ops_, bw, flops)
+    def bound(work):
+        """The kernel's bound: its wrapper's work formula on this card."""
+        return bound_ms(work, spec_for(name))
 
     def lib_single():
         keys = -(corpus @ single_q)
@@ -5358,19 +5556,9 @@ def main() -> None:
         return (qc.qvecs.numel() * qc.qvecs.element_size()
                 + (N_ROWS * 4 if qc.mode == "int8" else 0))
 
-    def quant_topk_bytes(qc):
-        return (twin_bytes(qc) + live_q * DIM * 4 + live_q * N_ROWS + bucket
-                + live_q * q_plan[1] * q_plan[3] * 8)
-
-    def quant_keys_bytes(qc):
-        return (twin_bytes(qc) + live_q * DIM * 4 + live_q * N_ROWS + bucket
-                + live_q * N_ROWS * 4)
-
     replay_rows = qt_mod.candidate_rows(*qt_mod.quant_scan_topk_batch(
         *qargs(twins["int8"]), 2 * K, metric), 2 * K)
     replay_pairs = int((replay_rows < N_ROWS).sum())
-    replay_bytes = (replay_pairs * DIM * 4 + live_q * DIM * 4
-                    + 2 * replay_rows.numel() * 4)
 
     def dequantized_keys(qc, qs=batch_q, mask=batch_mask,
                          valid=batch_qvalid):
@@ -5395,47 +5583,51 @@ def main() -> None:
                 lambda: qt_mod.quant_scan_topk_batch_plain(
                     *qargs(qc), 2 * K, metric),
                 lambda: lib_quant_topk(qc),
-                bound(quant_topk_bytes(qc), batch_ops)),
+                bound(qt_mod.quant_scan_topk_batch_work(*qargs(qc), 2 * K))),
             "quant_keys_batch": (
                 lambda: qt_mod.quant_keys_batch(*qargs(qc), metric),
                 lambda: qt_mod.quant_keys_batch_plain(*qargs(qc), metric),
                 lambda: dequantized_keys(qc),
-                bound(quant_keys_bytes(qc), batch_ops))}
+                bound(qt_mod.quant_keys_batch_work(*qargs(qc))))}
 
     calls = {
         "scan_topk": (lambda: st_mod.scan_topk(corpus, single_q, single_mask,
                                                K, metric),
                       lambda: st_mod.scan_topk_plain(
                           corpus, single_q, single_mask, K, metric),
-                      lib_single, bound(single_bytes, single_ops)),
+                      lib_single, bound(st_mod.scan_topk_work(
+                          corpus, single_q, single_mask, K))),
         "scan_topk_batch": (lambda: st_mod.scan_topk_batch(
             corpus, batch_q, batch_mask, batch_qvalid, K, metric),
             lambda: st_mod.scan_topk_batch_plain(
                 corpus, batch_q, batch_mask, batch_qvalid, K, metric),
-            lib_batch, bound(batch_bytes, batch_ops)),
+            lib_batch, bound(st_mod.scan_topk_batch_work(
+                corpus, batch_q, batch_mask, batch_qvalid, K))),
         "range_scan": (lambda: rs_mod.range_scan(
             corpus, left[0], rk.reshape(1), date_mask[0], metric),
             lambda: rs_mod.range_scan_plain(
                 corpus, left[0], rk.reshape(1), date_mask[0], metric),
-            lib_range_single, bound(range_single_bytes, single_ops)),
+            lib_range_single, bound(rs_mod.range_scan_work(
+                corpus, left[0], rk.reshape(1), date_mask[0]))),
         "range_scan_batch": (lambda: rs_mod.range_scan_batch(
             corpus, batch_q, q2_rk, batch_mask, batch_qvalid, metric),
             lambda: rs_mod.range_scan_batch_plain(
                 corpus, batch_q, q2_rk, batch_mask, batch_qvalid, metric),
-            lib_range_batch, bound(range_batch_bytes, batch_ops)),
+            lib_range_batch, bound(rs_mod.range_scan_batch_work(
+                corpus, batch_q, q2_rk, batch_mask, batch_qvalid))),
         **quant_calls(twins["int8"]),
         "replay_keys": (
             lambda: qt_mod.replay_keys(corpus, batch_q, replay_rows, metric),
             lambda: qt_mod.replay_keys_plain(corpus, batch_q, replay_rows,
                                              metric),
-            lib_replay, bound(replay_bytes, 2 * DIM * replay_pairs)),
+            lib_replay, bound(qt_mod.replay_keys_work(corpus, batch_q,
+                                                      replay_rows))),
         # the (100, 1M) key matrix: corpus and queries in, keys out
         "pairwise_keys": (
             lambda: dist_mod.pairwise_keys(left, corpus, metric),
             lambda: dist_mod.pairwise_keys_plain(left, corpus, metric),
             lambda: -torch.matmul(left, corpus.T),
-            bound(N_ROWS * DIM * 4 + N_QUERIES * DIM * 4
-                  + N_QUERIES * N_ROWS * 4, 2 * N_QUERIES * N_ROWS * DIM)),
+            bound(dist_mod.pairwise_keys_work(left, corpus))),
     }
 
     times = timed(calls)
@@ -5466,13 +5658,11 @@ def main() -> None:
     quant_by_q = {}
     for live, b in ((1, 1), (8, 8), (N_QUERIES, bucket)):
         qs_, m_, v_ = batch_q[:b], batch_mask[:b], batch_qvalid[:b]
-        _, splits_, _, s_ = qt_mod.quant_plan(N_ROWS, b, 2 * K)
         quant_by_q[live] = {"bucket": b, "plan": list(qt_mod.quant_plan(
             N_ROWS, b, 2 * K))}
         for mode, qc in twins.items():
-            b_ms, b_by = bound(
-                twin_bytes(qc) + live * DIM * 4 + live * N_ROWS + b
-                + live * splits_ * s_ * 8, 2 * N_ROWS * DIM * live)
+            b_ms, b_by = bound(qt_mod.quant_scan_topk_batch_work(
+                qc.qvecs, qc.scales, qs_, m_, v_, 2 * K))
             quant_by_q[live][mode] = with_runs(
                 lambda: qt_mod.quant_scan_topk_batch(
                     qc.qvecs, qc.scales, qs_, m_, v_, 2 * K, metric),
@@ -5485,10 +5675,8 @@ def main() -> None:
     for live, b in ((1, 1), (8, 8), (30, 32), (N_QUERIES, bucket)):
         qs_, m_ = batch_q[:b], batch_mask[:b]
         v_ = (torch.arange(b, device=dev) < live).to(torch.int8)
-        _, splits_, _ = st_mod.batch_plan(N_ROWS, b, K)
-        b_ms, b_by = bound(N_ROWS * DIM * 4 + live * DIM * 4 + live * N_ROWS
-                           + b + live * splits_ * K * 8,
-                           2 * N_ROWS * DIM * live)
+        b_ms, b_by = bound(st_mod.scan_topk_batch_work(corpus, qs_, m_, v_,
+                                                       K))
 
         def lib_b():
             keys = -(qs_ @ corpus.T)
@@ -5506,9 +5694,8 @@ def main() -> None:
     for live, b in ((1, 1), (8, 8), (30, 32), (N_QUERIES, bucket)):
         qs_, m_, rk_ = batch_q[:b], batch_mask[:b], q2_rk[:b]
         v_ = (torch.arange(b, device=dev) < live).to(torch.int8)
-        b_ms, b_by = bound(N_ROWS * DIM * 4 + live * DIM * 4
-                           + live * N_ROWS * 6 + b * 9,
-                           2 * N_ROWS * DIM * live)
+        b_ms, b_by = bound(rs_mod.range_scan_batch_work(corpus, qs_, rk_, m_,
+                                                        v_))
 
         def lib_r():
             keys = -(qs_ @ corpus.T)
@@ -5530,9 +5717,8 @@ def main() -> None:
         keys_by_q[live] = {"bucket": b,
                            "plan": list(rs_mod.batch_plan(N_ROWS, b))}
         for mode, qc in twins.items():
-            b_ms, b_by = bound(
-                twin_bytes(qc) + live * DIM * 4 + live * N_ROWS + b
-                + live * N_ROWS * 4, 2 * N_ROWS * DIM * live)
+            b_ms, b_by = bound(qt_mod.quant_keys_batch_work(
+                qc.qvecs, qc.scales, qs_, m_, v_))
             keys_by_q[live][mode] = with_runs(
                 lambda: qt_mod.quant_keys_batch(qc.qvecs, qc.scales, qs_, m_,
                                                 v_, metric),
@@ -5543,11 +5729,10 @@ def main() -> None:
     pairwise_by_q = {}
     for qn in (1, 8, N_QUERIES):
         qs_ = left[:qn]
-        t_bytes = (N_ROWS * DIM * 4 + qn * DIM * 4 + qn * N_ROWS * 4) / bw
         pairwise_by_q[qn] = with_runs(
             lambda: dist_mod.pairwise_keys(qs_, corpus, metric),
             lambda: torch.matmul(qs_, corpus.T),
-            bound_ms=max(t_bytes, 2 * qn * N_ROWS * DIM / flops) * 1e3,
+            bound_ms=bound(dist_mod.pairwise_keys_work(qs_, corpus))[0],
             plan=list(dist_mod.pairwise_plan(N_ROWS, qn)))
     emit({"phase": "times", "device": name, "nvidia_smi": smi,
           "shapes": {"n": N_ROWS, "d": DIM, "k": K, "bucket": bucket,

@@ -40,6 +40,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..roofline import op_counter
 from .expr import BoolOp, Bindings, Expr, Param
 from .physical import (BATCH_BUILDERS, BUILDERS, JOIN_LOWERING_FAMILIES,
                        EngineOptions, _stacked_qn)
@@ -502,6 +503,24 @@ class CompiledQuery:
                              f"{bad}")
         return {k: (np.broadcast_to(v, (qn,)) if v.ndim == 0 else v)
                 for k, v in binds.items()}
+
+    def lower(self, **binds):
+        """The single-query pipeline's ops and kernel launches for these
+        binds, for inspection: a ``roofline.op_counter.Lowered``
+        (``as_text()``, ``cost_analysis()``, ``compile()``).  Eager torch
+        has no trace without a run, so the plan runs once under the
+        counter and its answer is discarded; data-dependent paths (the
+        IVF rounds) count the rounds these binds run.  The plan cache, the
+        catalog and later answers are unchanged."""
+        self.ensure_fresh()
+        return op_counter.lower(self.plan.fn, self._arrays, dict(binds))
+
+    def lower_batch(self, binds_list: list[dict] | None = None, **stacked):
+        """:meth:`lower` of the exact-shape batched pipeline: what
+        ``execute_batch`` runs at this Q."""
+        self.ensure_fresh()
+        binds = self._stack_binds(binds_list, stacked)
+        return op_counter.lower(self.plan.batch_fn, self._arrays, binds)
 
     def export_batch(self, binds_list: list[dict] | None = None,
                      **stacked) -> bytes:

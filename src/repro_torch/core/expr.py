@@ -19,6 +19,7 @@ from typing import Any, Iterator, Sequence
 
 import torch
 
+from ..roofline.op_counter import Work, counted
 from .schema import Metric, Table
 
 
@@ -170,6 +171,18 @@ def as_tensor(value, device) -> torch.Tensor:
     return t.to(device)
 
 
+def distance_values_work(metric: Metric, x: torch.Tensor,
+                         q: torch.Tensor) -> Work:
+    """:func:`distance_values`' work by the kernels' formula: 2·D
+    operations a row of the broadcast; x and q read once, the fp32 values
+    written once."""
+    rows = torch.broadcast_shapes(x.shape[:-1], q.shape[:-1]).numel()
+    return Work(2 * rows * x.shape[-1],
+                x.numel() * x.element_size() + q.numel() * q.element_size()
+                + rows * 4)
+
+
+@counted(distance_values_work, kernel=False)
 def distance_values(metric: Metric, x: torch.Tensor,
                     q: torch.Tensor) -> torch.Tensor:
     """Rowwise distance/similarity between (..., d) x and q (broadcast

@@ -11,11 +11,11 @@ merges, and the plain merge level the live corpus's delta merge uses).
 from .. import core  # noqa: F401
 from . import collectives, sharding
 from .collectives import merge_topk_level
-from .sharding import (DeviceCountError, DistSpec, ShardedCorpus, constrain,
-                       current_mesh, current_rules, logical_axis_rules,
-                       logical_to_spec, resolve_mesh)
+from .sharding import (DeviceCountError, DistSpec, NamedSharding,
+                       ShardedCorpus, constrain, current_mesh, current_rules,
+                       logical_axis_rules, logical_to_spec, resolve_mesh)
 
 __all__ = ["collectives", "sharding", "merge_topk_level", "DistSpec",
            "ShardedCorpus", "resolve_mesh", "DeviceCountError",
            "logical_axis_rules", "current_rules", "current_mesh",
-           "logical_to_spec", "constrain"]
+           "logical_to_spec", "constrain", "NamedSharding"]

@@ -24,7 +24,10 @@ shard.
 
 Each factory returns a callable over per-shard sequences (shard order =
 the mesh's C order), as the reference's ``shard_map``'d callables take
-row-sharded arrays; outputs land on the device of the query batch.
+row-sharded arrays; outputs land on the device of the query batch.  A
+gather of more than one shard's candidates records its bytes as an
+all-gather into an active ``roofline.op_counter``; at one shard nothing
+moves.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 from ..core.expr import distance_values, full_fp32, in_range, order_key
 from ..core.schema import Metric
 from ..index.flat import masked_topk, stable_smallest_k
+from ..roofline.op_counter import collective
 
 
 def merge_topk_level(metric: Metric, keys_a: torch.Tensor,
@@ -88,6 +92,7 @@ def _merge_topk(metric: Metric, keys: list, gids: list, k: int,
             if g > 1:
                 ck = torch.cat([x.to(dev) for x in keys[i:i + g]], dim=1)
                 cg = torch.cat([x.to(dev) for x in gids[i:i + g]], dim=1)
+                collective("all-gather", ck.nbytes + cg.nbytes)
             vals, idx = stable_smallest_k(ck, min(k, ck.shape[1]))
             merged_k.append(vals)
             merged_g.append(torch.take_along_dim(cg, idx.long(), dim=1))
@@ -328,6 +333,8 @@ def distributed_range(mesh, metric: Metric, capacity: int,
             gids.append(gg.to(q.device))
             count = count + hit.sum(dtype=torch.int32).to(q.device)
         keys, gids = torch.cat(keys), torch.cat(gids)
+        if len(sh_corpus) > 1:
+            collective("all-gather", keys.nbytes + gids.nbytes)
         valid = torch.isfinite(keys)
         sims = torch.where(valid, _raw(metric, keys), 0.0)
         return torch.where(valid, gids, -1), sims, valid, count

@@ -7,7 +7,9 @@ mesh axes through a rules dict.  With no rules or no mesh active, or on a
 mesh of one device, `constrain` returns its input, so single-device
 serving pays no sharding tax.  Model meshes of more than one device (the
 reference's ``with_sharding_constraint``) belong to ROADMAP.md queue 1
-item 14 (c).
+item 14 (d).  :class:`NamedSharding` is the placement the sharding policy
+(``launch/shardspec.py``) gives a leaf: a mesh and one mesh-axis entry per
+dimension.
 
 **Corpus sharding for distributed hybrid queries:**
 
@@ -91,7 +93,7 @@ def constrain(x, logical_axes: Sequence):
     """The reference's sharding constraint by logical names: ``x`` itself
     when no rules or mesh are active, or when the mesh holds one device
     (every axis of size 1 leaves a dimension whole).  A model mesh of more
-    than one device is ROADMAP.md queue 1 item 14 (c)."""
+    than one device is ROADMAP.md queue 1 item 14 (d)."""
     s = _stack()
     if not s:
         return x
@@ -99,7 +101,7 @@ def constrain(x, logical_axes: Sequence):
     if rules is None or mesh is None or mesh.devices.size <= 1:
         return x
     raise not_ported("constrain under a mesh of more than one device",
-                     "14 (c)")
+                     "14 (d)")
 
 
 class DeviceCountError(RuntimeError):
@@ -161,6 +163,23 @@ class Mesh:
     def flat(self) -> list:
         """The devices in shard order."""
         return list(self.devices.reshape(-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's placement on a mesh (``jax.sharding.NamedSharding``):
+    ``spec[i]`` is the mesh axis (a name, a tuple of names, or None for
+    whole) that dimension ``i`` is split over."""
+    mesh: Any
+    spec: tuple
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple:
+        """One device's block of an array of ``shape`` placed so."""
+        def parts(entry) -> int:
+            names = entry if isinstance(entry, (tuple, list)) else (entry,)
+            return math.prod(self.mesh.shape[a] for a in names
+                             if a is not None)
+        return tuple(d // parts(e) for d, e in zip(shape, self.spec))
 
 
 @functools.lru_cache(maxsize=None)

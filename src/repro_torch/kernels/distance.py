@@ -19,6 +19,7 @@ import torch
 
 from ..core.expr import full_fp32
 from ..core.schema import Metric
+from ..roofline.op_counter import Work, counted
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 
@@ -65,7 +66,16 @@ def pairwise_plan(n: int, qn: int) -> tuple[int, int, int, int]:
     return qt, rt, row_blocks, query_blocks
 
 
+def pairwise_keys_work(queries, corpus, metric=None) -> Work:
+    """A :func:`pairwise_keys` launch's work: 2·Q·N·D operations; the
+    corpus and the queries in, the (Q, N) keys out."""
+    n, d = corpus.shape
+    qn = queries.shape[0]
+    return Work(2 * qn * n * d, n * d * 4 + qn * d * 4 + qn * n * 4)
+
+
 # replaces pairwise_keys_pallas (src/repro/kernels/distance.py)
+@counted(pairwise_keys_work)
 def pairwise_keys(queries: torch.Tensor, corpus: torch.Tensor,
                   metric: Metric) -> torch.Tensor:
     """(Q, N) fp32 order keys of queries (Q, D) fp32 against corpus (N, D)

@@ -28,7 +28,8 @@ re-ranking a small candidate set with the fp32 kernels' own keys:
 
 Each kernel wrapper launches a hand-written CUDA kernel on a CUDA tensor
 and runs its plain PyTorch version beside it on a CPU tensor, and only then;
-it counts its launches in a plain integer attribute (``.launches``).
+it counts its launches in a plain integer attribute (``.launches``), and
+its ``*_work`` function is a launch's roofline work (as ``scan_topk.py``'s).
 Stage 2 is plain torch, and every top-k in it is ``stable_smallest_k``.
 """
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 from ..core.expr import pairwise_order_keys
 from ..core.schema import Metric
 from ..index.flat import stable_smallest_k
+from ..roofline.op_counter import Work, counted
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 from .distance import MAX_GRID_Y
@@ -47,7 +49,7 @@ from .ops import _mask_i8, _radius_keys, fused_range_topk_batch
 from .range_scan import batch_plan
 from .scan_topk import (BLOCK_RESERVED, BLOCK_SMEM, MAX_K, SM_SMEM, _cdiv,
                         _check_k, _masked, _next_pow2, _split_topk,
-                        pick_shape, wave_splits)
+                        live_queries, mask_bytes, pick_shape, wave_splits)
 
 INF = float("inf")
 I32_MAX = 2 ** 31 - 1
@@ -104,6 +106,55 @@ def quant_plan(n: int, qn: int, count: int) -> tuple[int, int, int, int]:
         raise ValueError(f"quant_scan_topk_batch takes at most "
                          f"{MAX_GRID_Y * MAX_SPLIT_ROWS} rows, got {n}")
     return qt, splits, rows, max(1, min(count, rows // SEG))
+
+
+def _twin_bytes(qvecs: torch.Tensor) -> int:
+    """The quantized rows and, for int8, their fp32 scales (a bf16 twin's
+    kernel reads no scale)."""
+    return (qvecs.numel() * qvecs.element_size()
+            + (qvecs.shape[0] * 4 if qvecs.dtype == torch.int8 else 0))
+
+
+def quant_scan_topk_batch_work(qvecs, scales, queries, mask_i8, qvalid_i8,
+                               count: int, metric=None) -> Work:
+    """A :func:`quant_scan_topk_batch` launch's work for its live queries
+    L: 2·N·D·L operations; the twin, L queries, the mask and the valid
+    lanes in, each live query's splits·s (key, segment) pairs out."""
+    n, d = qvecs.shape
+    qn = queries.shape[0]
+    live = live_queries(qvalid_i8, qn)
+    _, splits, _, s_count = quant_plan(n, qn, count)
+    return Work(2 * n * d * live,
+                _twin_bytes(qvecs) + live * d * 4
+                + mask_bytes(mask_i8, live, n)
+                + (0 if qvalid_i8 is None else qn)
+                + live * splits * s_count * 8)
+
+
+def quant_keys_batch_work(qvecs, scales, queries, mask_i8, qvalid_i8,
+                          metric=None) -> Work:
+    """A :func:`quant_keys_batch` launch's work for its live queries L:
+    2·N·D·L operations; the twin, L queries, the mask and the valid lanes
+    in, L rows of keys out."""
+    n, d = qvecs.shape
+    qn = queries.shape[0]
+    live = live_queries(qvalid_i8, qn)
+    return Work(2 * n * d * live,
+                _twin_bytes(qvecs) + live * d * 4
+                + mask_bytes(mask_i8, live, n)
+                + (0 if qvalid_i8 is None else qn) + live * n * 4)
+
+
+def replay_keys_work(corpus, queries, rows, metric=None) -> Work:
+    """A :func:`replay_keys` launch's work: 2·D operations per (query, row)
+    pair with a row in [0, N); those rows and the queries that have one
+    in, the rows read and the keys written out."""
+    n, d = corpus.shape
+    ok = (rows >= 0) & (rows < n)
+    pairs = int(ok.sum())
+    live = int(ok.any(1).sum())
+    return Work(2 * d * pairs,
+                pairs * d * 4 + live * d * 4 + 2 * rows.numel() * 4)
 
 
 def _check_quant(qvecs: torch.Tensor, scales: torch.Tensor,
@@ -181,6 +232,7 @@ def quant_scan_topk_batch_replayed(qvecs, scales, queries, mask_i8,
     return segment_topk(_masked(keys, mask_i8, qvalid_i8), count)
 
 
+@counted(quant_scan_topk_batch_work)
 def quant_scan_topk_batch(qvecs: torch.Tensor, scales: torch.Tensor,
                           queries: torch.Tensor, mask_i8: torch.Tensor | None,
                           qvalid_i8: torch.Tensor | None, count: int,
@@ -250,6 +302,7 @@ def quant_keys_batch_replayed(qvecs, scales, queries, mask_i8, qvalid_i8,
     return _masked(keys, mask_i8, qvalid_i8)
 
 
+@counted(quant_keys_batch_work)
 def quant_keys_batch(qvecs: torch.Tensor, scales: torch.Tensor,
                      queries: torch.Tensor, mask_i8: torch.Tensor | None,
                      qvalid_i8: torch.Tensor | None, metric: Metric):
@@ -306,6 +359,7 @@ def replay_keys_plain(corpus: torch.Tensor, queries: torch.Tensor,
     return torch.where(ok, got, INF)
 
 
+@counted(replay_keys_work)
 def replay_keys(corpus: torch.Tensor, queries: torch.Tensor,
                 rows: torch.Tensor, metric: Metric) -> torch.Tensor:
     """Exact fp32 order keys of the pairs (query q, row ``rows[q, j]``):

@@ -13,7 +13,8 @@ A wrapper counts its kernel launches in a plain integer attribute
 (``range_scan.launches``, ``range_scan_batch.launches``), so a run can show
 that a path went through the kernels.  ``batch_plan`` is the batched
 kernel's launch plan, and ``range_scan_batch_replayed`` its bitwise
-reference on the card.
+reference on the card.  ``range_scan_work`` and ``range_scan_batch_work``
+are a launch's roofline work (as ``scan_topk.py``'s).
 """
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ import torch
 
 from ..core.expr import pairwise_order_keys
 from ..core.schema import Metric
+from ..roofline.op_counter import Work, counted
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 from .scan_topk import (BLOCK_RESERVED, NARROW_QUERIES, SM_SMEM,
-                        wave_splits)
+                        live_queries, mask_bytes, wave_splits)
 
 # Block shapes of the batched kernel and of the quantized key kernel on the
 # same tile (csrc/range_tile.cuh `Wide`, `Mid`, `Narrow`), by queries per
@@ -59,6 +61,29 @@ def batch_plan(n: int, qn: int) -> tuple[int, int, int]:
     tile, _, minb = BATCH_SHAPES[qt]
     per_sm = max(1, min(minb, SM_SMEM // (batch_smem(qt) + BLOCK_RESERVED)))
     return (qt,) + wave_splits(n, qn, qt, tile, per_sm)
+
+
+def range_scan_work(corpus, query, radius_key, mask_i8, metric=None) -> Work:
+    """A :func:`range_scan` launch's work: 2·N·D operations; the corpus,
+    the query, the radius key and the mask in, the keys, hits and count
+    out."""
+    n, d = corpus.shape
+    return Work(2 * n * d, n * d * 4 + d * 4 + 4 + mask_bytes(mask_i8, 1, n)
+                + n * 5 + 4)
+
+
+def range_scan_batch_work(corpus, queries, radius_keys, mask_i8, qvalid_i8,
+                          metric=None) -> Work:
+    """A :func:`range_scan_batch` launch's work for its live queries L:
+    2·N·D·L operations; the corpus, L queries, the mask, the radius keys
+    and valid lanes in, L rows of keys and hits and every query's count
+    out."""
+    n, d = corpus.shape
+    qn = queries.shape[0]
+    live = live_queries(qvalid_i8, qn)
+    return Work(2 * n * d * live,
+                n * d * 4 + live * d * 4 + mask_bytes(mask_i8, live, n)
+                + live * n * 5 + qn * 8 + (0 if qvalid_i8 is None else qn))
 
 
 def _hits(keys: torch.Tensor, radius_keys: torch.Tensor,
@@ -97,6 +122,7 @@ def range_scan_plain(corpus: torch.Tensor, query: torch.Tensor,
     return _hits(keys, radius_key.reshape(()), live)
 
 
+@counted(range_scan_work)
 def range_scan(corpus: torch.Tensor, query: torch.Tensor,
                radius_key: torch.Tensor, mask_i8: torch.Tensor | None,
                metric: Metric):
@@ -167,6 +193,7 @@ def range_scan_batch_replayed(corpus: torch.Tensor, queries: torch.Tensor,
     return _hits(keys, radius_keys[:, None], _live(mask_i8, qvalid_i8))
 
 
+@counted(range_scan_batch_work)
 def range_scan_batch(corpus: torch.Tensor, queries: torch.Tensor,
                      radius_keys: torch.Tensor, mask_i8: torch.Tensor | None,
                      qvalid_i8: torch.Tensor | None, metric: Metric):

@@ -9,7 +9,11 @@ by id, with (+inf, -1) in empty slots.  The stage-2 merge is in ``ops.py``.
 
 A wrapper counts its kernel launches in a plain integer attribute
 (``scan_topk.launches``, ``scan_topk_batch.launches``), so a run can show
-that the main path went through the kernels.  ``single_plan`` and
+that the main path went through the kernels.  ``scan_topk_work`` and
+``scan_topk_batch_work`` are a launch's roofline work (the operations, and
+the bytes each input read once and each output written once, live queries
+only): an active ``roofline.op_counter`` records them per launch, and
+``chip_smoke.py``'s bounds read them.  ``single_plan`` and
 ``batch_plan`` are their launch plans; the batched plan's shape choice and
 wave sizing (``pick_shape``, ``wave_splits``) serve the quantized top-k's
 plan (``quant.quant_plan``) too.
@@ -21,6 +25,7 @@ import torch
 from ..core.expr import pairwise_order_keys
 from ..core.schema import Metric
 from ..index.flat import stable_smallest_k
+from ..roofline.op_counter import Work, counted
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 
@@ -112,6 +117,43 @@ def batch_plan(n: int, qn: int, k: int) -> tuple[int, int, int]:
     return (qt,) + wave_splits(n, qn, qt, tile, per_sm)
 
 
+def live_queries(qvalid_i8: torch.Tensor | None, qn: int) -> int:
+    """The queries a launch serves: its valid lanes (a host read), or all
+    ``qn``."""
+    return qn if qvalid_i8 is None else int((qvalid_i8 != 0).sum())
+
+
+def mask_bytes(mask_i8: torch.Tensor | None, live: int, n: int) -> int:
+    """The row-mask bytes a launch reads: a shared (N,) mask once, a
+    query-major one for the ``live`` queries."""
+    if mask_i8 is None:
+        return 0
+    return n if mask_i8.ndim == 1 else live * n
+
+
+def scan_topk_work(corpus, query, mask_i8, k: int, metric=None) -> Work:
+    """A :func:`scan_topk` launch's work: 2·N·D operations; the corpus,
+    the query and the mask in, each block's k (key, id) pairs out."""
+    n, d = corpus.shape
+    blocks, _ = single_plan(n)
+    return Work(2 * n * d, n * d * 4 + d * 4 + mask_bytes(mask_i8, 1, n)
+                + blocks * k * 8)
+
+
+def scan_topk_batch_work(corpus, queries, mask_i8, qvalid_i8, k: int,
+                         metric=None) -> Work:
+    """A :func:`scan_topk_batch` launch's work for its live queries L:
+    2·N·D·L operations; the corpus, L queries, the mask and the valid lanes
+    in, each live query's splits·k (key, id) pairs out."""
+    n, d = corpus.shape
+    qn = queries.shape[0]
+    live = live_queries(qvalid_i8, qn)
+    _, splits, _ = batch_plan(n, qn, k)
+    return Work(2 * n * d * live,
+                n * d * 4 + live * d * 4 + mask_bytes(mask_i8, live, n)
+                + (0 if qvalid_i8 is None else qn) + live * splits * k * 8)
+
+
 def _check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}] for the fused scan "
@@ -160,6 +202,7 @@ def scan_topk_plain(corpus: torch.Tensor, query: torch.Tensor,
     return vals.reshape(blocks, k), ids.reshape(blocks, k)
 
 
+@counted(scan_topk_work)
 def scan_topk(corpus: torch.Tensor, query: torch.Tensor,
               mask_i8: torch.Tensor | None, k: int, metric: Metric):
     """Stage 1 of the single-query fused scan: corpus (N, D) fp32, query
@@ -235,6 +278,7 @@ def scan_topk_batch_replayed(corpus: torch.Tensor, queries: torch.Tensor,
     return _batch_select(keys, mask_i8, qvalid_i8, k)
 
 
+@counted(scan_topk_batch_work)
 def scan_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
                     mask_i8: torch.Tensor | None,
                     qvalid_i8: torch.Tensor | None, k: int, metric: Metric):

@@ -15,7 +15,7 @@ flags after a crash follows the same lr schedule from the step it resumes.
 per-step history (loss, grad norm, lr, step and data seconds, each read
 after the device finished); ``main`` prints the reference's log lines from
 it.  ``--mesh single | multi | tiny`` need the model shardings of ROADMAP.md
-queue 1 item 14 (c) and raise before any work; ``none`` (the default) runs
+queue 1 item 14 (d) and raise before any work; ``none`` (the default) runs
 on the one device.
 """
 from __future__ import annotations
@@ -136,7 +136,7 @@ def main(argv=None) -> int:
     if args.mesh != "none":
         raise not_ported(f"train --mesh {args.mesh} (the model shardings "
                          f"of launch/shardspec.py over more than one "
-                         f"device)", "14 (c)")
+                         f"device)", "14 (d)")
 
     run = train(args.arch, smoke=args.smoke, steps=args.steps,
                 global_batch=args.global_batch, seq_len=args.seq_len,

@@ -55,7 +55,10 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
 
 def normal(generator: torch.Generator, shape, device=None) -> torch.Tensor:
     """Standard normal fp32 draws from ``generator`` on its device, moved to
-    ``device``."""
+    ``device``; on ``meta`` (the dry-run) an fp32 tensor of the shape and
+    no draw."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device="meta")
     out = torch.randn(tuple(shape), generator=generator,
                       device=generator.device, dtype=torch.float32)
     return out if device is None else out.to(device)

@@ -2,12 +2,15 @@
 of ``src/repro/models/moe.py``).
 
 The local path: token->expert assignments ranked per expert (a stable sort,
-bincount and exclusive offsets), scattered into a dense (E, cap, d) buffer,
+a count per expert and exclusive offsets), scattered into a dense (E, cap, d) buffer,
 grouped GEMMs, gathered back and summed per token with ``index_add_``.
 Tokens overflowing an expert's capacity are dropped (GShard semantics).
 The router's top-k breaks ties by the lowest expert id, as ``lax.top_k``
 does.  The reference's ``shard_map`` path runs under a mesh with a
-``"model"`` axis; in the port that is ROADMAP.md queue 1 item 14 (c).
+``"model"`` axis.  At one device it computes what the local path computes
+(expert offset 0; ``psum`` and ``pmean`` over axes of size 1), so the port
+takes the local path there; a mesh of more than one device is ROADMAP.md
+queue 1 item 14 (d).
 """
 from __future__ import annotations
 
@@ -50,6 +53,15 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig, lead: tuple = (),
 # Local capacity dispatch
 # ---------------------------------------------------------------------------
 
+def _count(ids: torch.Tensor, length: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=length)`` for ids in [0, length):
+    a count of fixed length that also runs on ``meta`` tensors (the
+    dry-run), where ``bincount``'s data-dependent length cannot."""
+    return torch.zeros(length, dtype=torch.int64,
+                       device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def _dispatch_compute(x_flat, top_w, top_idx, wi, wg, wo, num_experts: int,
                       expert_offset: int, cap: int, compute_dtype):
     """Capacity-dispatch x_flat (T, d) for experts [offset, offset+E_local).
@@ -70,7 +82,7 @@ def _dispatch_compute(x_flat, top_w, top_idx, wi, wg, wo, num_experts: int,
 
     order = torch.sort(expert_key, stable=True).indices
     sorted_e = expert_key[order]
-    counts = torch.bincount(expert_key, minlength=e_local + 1)
+    counts = _count(expert_key, e_local + 1)
     offsets = torch.cumsum(counts, 0) - counts           # exclusive
     rank_sorted = torch.arange(T * K, device=dev) - offsets[sorted_e]
 
@@ -122,8 +134,8 @@ def _route(x_flat, router, K: int):
 def _aux_loss(e, probs, top_idx):
     """Switch aux loss."""
     T = probs.shape[0]
-    density = torch.bincount(top_idx.reshape(-1), minlength=e.num_experts
-                             ).to(torch.float32) / (T * e.top_k)
+    density = _count(top_idx.reshape(-1), e.num_experts
+                     ).to(torch.float32) / (T * e.top_k)
     mean_prob = torch.mean(probs, dim=0)
     return e.num_experts * torch.sum(density * mean_prob) \
         * e.router_aux_coef
@@ -151,9 +163,10 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """x: (B, S, d) -> (out, aux_loss)."""
     mesh = current_mesh()
     rules = current_rules()
-    if mesh is not None and rules is not None and "model" in mesh.axis_names:
-        raise not_ported("moe_apply's shard_map path under a model mesh",
-                         "14 (c)")
+    if (mesh is not None and rules is not None and "model" in mesh.axis_names
+            and mesh.devices.size > 1):
+        raise not_ported("moe_apply's shard_map path under a model mesh of "
+                         "more than one device", "14 (d)")
     return _moe_local(p, cfg, x, capacity_factor)
 
 

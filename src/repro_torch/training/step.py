@@ -31,6 +31,7 @@ from ..core.expr import full_fp32
 from ..models import lm_loss
 from ..models.config import ModelConfig
 from ..models.transformer import tree_leaves, tree_map, tree_unflatten
+from ..roofline.op_counter import collective
 from .optimizer import AdamWConfig, _grad_leaves, adamw_update
 from .train_state import TrainState
 
@@ -133,9 +134,11 @@ def compressed_psum(grads: Sequence[Any], errors: Sequence[Any]):
     replica's device; a None gradient counts as zeros).  Each replica adds
     its residual error, quantizes per tensor to int8 and keeps the new
     quantization error; the dequantized payloads are summed in replica
-    order on the first replica's device and divided by the replica count.
-    Returns (the mean tree on the first replica's device, the new error
-    trees, one per replica on its device)."""
+    order on the first replica's device and divided by the replica count;
+    with more than one replica each summed leaf's bytes are recorded as an
+    all-reduce into an active ``roofline.op_counter``.  Returns (the mean
+    tree on the first replica's device, the new error trees, one per
+    replica on its device)."""
     n = len(grads)
     like = errors[0]
     dev0 = tree_leaves(like)[0].device
@@ -152,6 +155,8 @@ def compressed_psum(grads: Sequence[Any], errors: Sequence[Any]):
             new_err[r].append(g32 - dequantize_int8(q, scale))
             part = (q.to(F32) * scale).to(dev0)
             summed = part if summed is None else summed + part
+        if n > 1:
+            collective("all-reduce", summed.nbytes)
         means.append(summed / n)
     return (tree_unflatten(like, means),
             [tree_unflatten(like, e) for e in new_err])

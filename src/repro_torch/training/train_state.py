@@ -34,9 +34,12 @@ class TrainState:
 
     @classmethod
     def create(cls, params, opt, rng):
-        """A state at step 0 (counters on ``rng``'s device)."""
-        zero = torch.zeros((), dtype=torch.int32, device=rng.device)
-        return cls(params=params, opt=opt, step=zero, data_cursor=zero,
+        """A state at step 0 (counters on ``rng``'s device, a tensor each,
+        as every later state holds them)."""
+        def zero():
+            return torch.zeros((), dtype=torch.int32, device=rng.device)
+
+        return cls(params=params, opt=opt, step=zero(), data_cursor=zero(),
                    rng=rng)
 
     def to(self, device) -> "TrainState":

@@ -257,7 +257,7 @@ def test_rules_stack_and_constrain():
             assert sharding.current_mesh() is one
             assert sharding.constrain(x, ("batch", None)) is x
             with sharding.logical_axis_rules(RULES, two):
-                with pytest.raises(NotImplementedError, match=r"14 \(c\)"):
+                with pytest.raises(NotImplementedError, match=r"14 \(d\)"):
                     sharding.constrain(x, ("batch", "heads"))
             assert sharding.current_mesh() is one
         assert sharding.current_rules() == RULES

@@ -118,7 +118,7 @@ def test_shard_map_path_is_deferred_to_14c():
     _rcfg, cfg, _rp, p, x = _setup()
     mesh = resolve_mesh(DistSpec((1, 2), ("data", "model")), "cpu")
     with logical_axis_rules({"batch": "data", "experts": "model"}, mesh):
-        with pytest.raises(NotImplementedError, match=r"14 \(c\)"):
+        with pytest.raises(NotImplementedError, match=r"14 \(d\)"):
             moe.moe_apply(p, cfg, torch.from_numpy(x))
     # a mesh without a model axis keeps the local path
     one = resolve_mesh(DistSpec((1,), ("data",)), "cpu")

@@ -107,7 +107,7 @@ def test_train_function_history_and_hook():
 @pytest.mark.parametrize("mesh", ["tiny", "single", "multi"])
 def test_meshes_of_more_than_one_device_are_not_ported(mesh, tmp_path):
     ck = str(tmp_path / "ck")
-    with pytest.raises(NotImplementedError, match="14 \\(c\\)"):
+    with pytest.raises(NotImplementedError, match="14 \\(d\\)"):
         launch.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
                      "--mesh", mesh, "--ckpt-dir", ck])
     assert not os.path.exists(ck)       # before any work
