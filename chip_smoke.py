@@ -332,6 +332,20 @@ one JSON line each:
            median step ms, tokens/s end to end (data time included), model
            FLOPs and their share of the dense bf16 peak, peak memory, the
            pipeline's host ms a batch
+  mesh     (last) meshes of more than one device.  On the card: a 2 x 2
+           mesh, ``launch.train --mesh tiny`` and ``--mesh single`` on
+           ``cuda`` raise ``DeviceCountError`` naming the card count before
+           any work, and ``restore(..., shardings)`` under a mesh of the
+           one card puts every leaf of a saved smoke ``TrainState`` on
+           ``cuda:0`` bit for bit.  On the host (child processes started
+           after ``roofline``, counting on ``meta`` while the card times
+           its kernels): the dry-run of qwen2-1.5b ``train_4k`` at the
+           published 256 x 4,096 under ``tiny`` and ``single`` and of
+           moonshot-v1-16b-a3b ``train_4k`` under ``single``, each beside
+           its mesh-``one`` record: per-device FLOPs x chips at least the
+           mesh-``one`` count, argument bytes = ``device_bytes``, the peak
+           below the mesh-``one`` peak, a nonzero collective term.  Line
+           ``mesh``
 then the ``script`` line (seconds since the script's imports), the
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.  Any failure raises and exits non-zero without the last line.
 
@@ -477,6 +491,12 @@ ROOFLINE_PEAK_TOL = 0.01
 # a bf16 gradient's distance from the fp32 one on the card, as a multiple
 # of the CPU's (tests/test_torch_bf16.py's rule)
 BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.25, 2.5
+# the mesh phase: the dry-run's per-device cells at full width on meta,
+# each beside its mesh-``one`` record (train_4k at the published 256 x
+# 4,096); moonshot under ``single`` is 64 experts over 16 model shards
+MESH_CELLS = (("qwen2-1.5b", "train_4k", "tiny"),
+              ("qwen2-1.5b", "train_4k", "single"),
+              ("moonshot-v1-16b-a3b", "train_4k", "single"))
 
 
 def emit(obj) -> None:
@@ -4216,6 +4236,211 @@ def roofline_phase(trained: dict, cat, qv, p, r, reset_counts, counts,
           "script_s": time.perf_counter() - T_START})
 
 
+def mesh_cell(arch: str, shape: str, mesh: str, out: str) -> None:
+    """A ``mesh`` phase child: the dry-run's record of one cell (full
+    width, ``meta``, the host only), written to ``out`` as JSON."""
+    from repro_torch.launch.dryrun import run_cell
+    rec = run_cell(arch, shape, mesh)
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+class MeshCells:
+    """The ``mesh`` phase's dry-run children (:func:`mesh_cell`): every
+    cell of ``MESH_CELLS`` and the mesh-``one`` record of each of its
+    (arch, shape), one process each, all started together (they count on
+    ``meta`` on the host's cores and touch no card).  ``close`` (also at
+    exit) stops any still running and removes their directory."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        atexit.register(self.close)
+        ones = [(a, sh, "one") for a, sh in dict.fromkeys(
+            (a, sh) for a, sh, _m in MESH_CELLS)]
+        self.started = time.perf_counter()
+        self.procs = {}
+        for cell in (*MESH_CELLS, *ones):
+            out = os.path.join(self.work, "-".join(cell) + ".json")
+            log = open(out + ".log", "w+")
+            self.procs[cell] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-cell",
+                 *cell, out], stdout=log, stderr=subprocess.STDOUT,
+                text=True), log, out)
+
+    def join(self) -> dict:
+        """Each cell's record, once every child has ended."""
+        recs = {}
+        for cell, (proc, log, out) in self.procs.items():
+            if proc.wait() != 0:
+                log.seek(0)
+                raise AssertionError(f"mesh: the dry-run child {cell} "
+                                     f"failed:\n{log.read()[-4000:]}")
+            with open(out) as f:
+                recs[cell] = json.load(f)
+        self.wall_s = time.perf_counter() - self.started
+        return recs
+
+    def close(self) -> None:
+        import shutil
+        for proc, log, _out in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().cpu().reshape(-1).view(torch.uint8),
+        b.detach().cpu().reshape(-1).view(torch.uint8))
+
+
+def mesh_phase(cells: MeshCells, reset_counts, counts, launches, smi: str,
+               name: str) -> None:
+    """The ``mesh`` phase: meshes of more than one device, counters set to
+    0 before and read after (it launches no kernel).
+
+    Gate 2, on the card, while gate 1's children count: ``make_mesh((2,
+    2))`` on ``cuda``, and ``launch.train --mesh tiny`` and ``--mesh
+    single`` with ``--device cuda``, raise ``DeviceCountError`` naming the
+    card count before any work (no checkpoint directory, no memory taken
+    on the card); ``restore(..., shardings)`` under a mesh of the one card
+    puts every leaf of a saved smoke ``TrainState`` on ``cuda:0``, bit for
+    bit what was saved.  Gate 1, on the host: each ``MESH_CELLS`` record
+    (one device's of its mesh, ``launch/dryrun.py`` on DTensors of
+    ``meta`` blocks) beside its mesh-``one`` record: per-device FLOPs
+    times the chips at least the mesh-``one`` count (no work lost; the
+    ratio printed), per-device argument bytes equal to
+    ``shardspec.device_bytes`` of the arguments, the per-device peak below
+    the mesh-``one`` peak, and a nonzero collective term."""
+    import tempfile
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.dist.sharding import DeviceCountError
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardspec import (param_logical_axes, rules_for,
+                                              tree_flatten_with_path,
+                                              tree_shardings)
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamWConfig, TrainState, adamw_init
+    from repro_torch.training.train_state import prng_key
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    cards = torch.cuda.device_count()
+    gate2 = {}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    try:
+        make_mesh((2, 2), ("data", "model"))
+        raise AssertionError("mesh gate 2: a 2 x 2 mesh on the card built")
+    except DeviceCountError as e:
+        if f"have {cards}" not in str(e):
+            raise AssertionError(f"mesh gate 2: {e}") from e
+        gate2["make_mesh_2x2"] = str(e)
+    with tempfile.TemporaryDirectory() as tmp:
+        for mesh in ("tiny", "single"):
+            ck = os.path.join(tmp, f"ck_{mesh}")
+            try:
+                launch_train.main(["--arch", "qwen2-1.5b", "--smoke",
+                                   "--mesh", mesh, "--device", "cuda",
+                                   "--ckpt-dir", ck])
+                raise AssertionError(f"mesh gate 2: train --mesh {mesh} "
+                                     f"ran on {cards} card(s)")
+            except DeviceCountError as e:
+                if f"have {cards}" not in str(e) or os.path.exists(ck):
+                    raise AssertionError(f"mesh gate 2: {e}") from e
+                gate2[f"train_{mesh}"] = str(e)
+        torch.cuda.synchronize()
+        if torch.cuda.memory_allocated() != held:
+            raise AssertionError("mesh gate 2: the refused runs took "
+                                 "memory on the card")
+        # the reshard onto a mesh of the one card
+        cfg = get_config("qwen2-1.5b", smoke=True)
+        opt_cfg = AdamWConfig()
+        params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        state = TrainState.create(params, adamw_init(opt_cfg, params),
+                                  prng_key(0))
+        save(tmp, 1, state)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = rules_for(cfg, get_shape("train_4k", smoke=True), mesh)
+        meta = init_params(torch.Generator(), cfg, "meta")
+        target = TrainState.create(meta, adamw_init(opt_cfg, meta),
+                                   prng_key(0, "meta"))
+        got = restore(tmp, 1, target, tree_shardings(
+            target, mesh, rules, param_logical_axes))
+        pairs = list(zip(tree_flatten_with_path(got),
+                         tree_flatten_with_path(state), strict=True))
+        for (path, leaf), (_p, want) in pairs:
+            if not (isinstance(leaf, torch.Tensor)
+                    and leaf.device == torch.device("cuda", 0)
+                    and _bits_equal(leaf, want)):
+                raise AssertionError(f"mesh gate 2: restored leaf {path} "
+                                     f"is not the saved one on cuda:0")
+        gate2["restore_leaves_on_cuda0"] = len(pairs)
+    gate2_s = time.perf_counter() - t_phase
+
+    # gate 1: the children's records
+    recs = cells.join()
+    cells_out = []
+    for arch, shape, mesh in MESH_CELLS:
+        rec, one = recs[(arch, shape, mesh)], recs[(arch, shape, "one")]
+        for r in (rec, one):
+            if r["status"] != "ok":
+                raise AssertionError(f"mesh gate 1: {r['arch']} "
+                                     f"{r['shape']} {r['mesh']}: "
+                                     f"{r.get('error')}")
+        chips = rec["chips"]
+        ratio = (rec["cost"]["flops_per_device"] * chips
+                 / one["cost"]["flops_per_device"])
+        row = {"arch": arch, "shape": shape, "mesh": mesh, "chips": chips,
+               "global_batch": rec["global_batch"],
+               "flops_by_dtype": rec["cost"]["flops_by_dtype"],
+               "one_flops_by_dtype": one["cost"]["flops_by_dtype"],
+               "flops_times_chips_over_one": ratio,
+               "moved_bytes": rec["cost"]["moved_bytes_per_device"],
+               "one_moved_bytes": one["cost"]["moved_bytes_per_device"],
+               "argument_bytes": rec["memory"]["argument_bytes"],
+               "device_bytes": rec["argument_bytes_per_device"],
+               "peak_bytes": rec["peak_bytes"],
+               "one_peak_bytes": one["peak_bytes"],
+               "fits_hbm": rec["fits_hbm"],
+               "collective_bytes": rec["collective_bytes"],
+               "roofline": rec["roofline"], "one_roofline": one["roofline"],
+               "dry_run_s": rec["lower_s"], "one_dry_run_s": one["lower_s"]}
+        cells_out.append(row)
+        if ratio < 1:
+            raise AssertionError(f"mesh gate 1: {arch} {mesh} lost work: "
+                                 f"{ratio} of the mesh-one FLOPs")
+        if rec["memory"]["argument_bytes"] != \
+                rec["argument_bytes_per_device"]:
+            raise AssertionError(f"mesh gate 1: {arch} {mesh} argument "
+                                 f"bytes {rec['memory']['argument_bytes']} "
+                                 f"!= device_bytes "
+                                 f"{rec['argument_bytes_per_device']}")
+        if not rec["peak_bytes"] < one["peak_bytes"]:
+            raise AssertionError(f"mesh gate 1: {arch} {mesh} peak "
+                                 f"{rec['peak_bytes']} not below one's "
+                                 f"{one['peak_bytes']}")
+        if not rec["roofline"]["collective_s"] > 0:
+            raise AssertionError(f"mesh gate 1: {arch} {mesh} has no "
+                                 f"collective term")
+    launches["mesh"] = counts()
+    if any(launches["mesh"].values()):
+        raise AssertionError(f"mesh: kernels launched {launches['mesh']}")
+    emit({"phase": "mesh", "device": name, "nvidia_smi": smi,
+          "card_count": cards, "gate2": gate2, "gate2_s": gate2_s,
+          "cells": cells_out, "children_wall_s": cells.wall_s,
+          "launches": launches["mesh"],
+          "phase_s": time.perf_counter() - t_phase,
+          "script_s": time.perf_counter() - T_START})
+    cells.close()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -5511,6 +5736,10 @@ def main() -> None:
     roofline_phase(trained, cat, qv, p, r, reset_counts, counts, launches,
                    smi, name)
 
+    # the mesh phase's dry-run children count on the host's cores while the
+    # card times its kernels below
+    mesh_cells = MeshCells()
+
     # -- times ----------------------------------------------------------------
     # every bound is its wrapper's work formula (``*_work``): live queries
     # only, each input byte read once and each output written once
@@ -6065,6 +6294,9 @@ def main() -> None:
         emit({"phase": "e2e", "path": f"q5_q6_{mode}", "device": name,
               "nvidia_smi": smi, "q5": q5_runs, "q6": q6_runs})
 
+    # -- mesh: meshes of more than one device ---------------------------------
+    mesh_phase(mesh_cells, reset_counts, counts, launches, smi, name)
+
     emit({"phase": "script", "seconds": time.perf_counter() - T_START})
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": SOURCES[kname],
@@ -6079,5 +6311,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--aot-child"]:
         aot_child(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--mesh-cell"]:
+        mesh_cell(*sys.argv[2:])
     else:
         main()

@@ -21,7 +21,11 @@
 * ``restore`` takes a *target tree* and returns a tree of its structure
   (lists and dataclasses included) whose leaves have their target's shape
   (checked) and dtype: a CPU tensor where the target leaf is a tensor (any
-  device, ``meta`` included), a numpy array elsewhere.
+  device, ``meta`` included), a numpy array elsewhere.  With a matching
+  tree of ``NamedSharding`` s it is the reference's elastic reshard: a
+  step was saved host-complete, so any mesh can take it, each leaf placed
+  as its sharding says (a tensor on the device of a one-device mesh, a
+  ``dist.sharding.ShardedLeaf`` of per-device blocks on a larger one).
 * ``keep_last_k`` garbage collection after every commit.
 """
 from __future__ import annotations
@@ -37,10 +41,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..dist.sharding import NamedSharding, ShardedLeaf
+
 
 def _children(node: Any):
     """The (key-path segment, child) pairs of a dict (keys sorted), list,
-    tuple or dataclass node, or None for a leaf."""
+    tuple or dataclass node, or None for a leaf (a :class:`NamedSharding`
+    and a :class:`ShardedLeaf` are leaves)."""
+    if isinstance(node, (NamedSharding, ShardedLeaf)):
+        return None
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
     if isinstance(node, (list, tuple)):
@@ -71,7 +80,11 @@ def _rebuild(target: Any, leaf_fn, path: tuple = ()) -> Any:
 
 def _to_host(leaf, copy: bool = True) -> np.ndarray:
     """A leaf as a host numpy array (bf16 as ``|V2`` bit patterns); a
-    tensor is always copied, a numpy leaf where ``copy``."""
+    tensor is always copied, a numpy leaf where ``copy``; a
+    :class:`ShardedLeaf` is saved whole (host-complete, so any mesh can
+    restore it)."""
+    if isinstance(leaf, ShardedLeaf):
+        leaf = leaf.full()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -149,20 +162,39 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, target_tree: Any) -> Any:
+def restore(ckpt_dir: str, step: int, target_tree: Any,
+            shardings: Any = None) -> Any:
     """Restore step ``step`` into the structure of ``target_tree``: each
     leaf of its target leaf's shape and dtype, a CPU tensor for a tensor
-    target and a numpy array otherwise."""
+    target and a numpy array otherwise.  ``shardings``, a tree of
+    ``NamedSharding`` s of the target's structure (``launch.shardspec.
+    tree_shardings``), places every leaf on its mesh instead: on a mesh of
+    one device a tensor on that device, on a larger one a
+    :class:`~repro_torch.dist.sharding.ShardedLeaf` holding each device's
+    block on that device."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         json.load(f)
+    placed = {}
+    if shardings is not None:
+        _rebuild(shardings, placed.__setitem__)
     with np.load(os.path.join(path, "host_0.npz")) as data:
         def read(key, leaf):
             if key not in data:
                 raise KeyError(f"checkpoint missing {key}")
-            return _from_host(data[key], leaf, key)
+            value = _from_host(data[key], leaf, key)
+            if shardings is None:
+                return value
+            return _place(torch.as_tensor(value), placed[key])
 
         return _rebuild(target_tree, read)
+
+
+def _place(t: torch.Tensor, sharding: NamedSharding):
+    """``t`` placed as ``sharding`` says (``jax.device_put``)."""
+    if sharding.mesh.devices.size == 1:
+        return t.to(sharding.mesh.flat[0])
+    return ShardedLeaf.place(t, sharding)
 
 
 class Checkpointer:

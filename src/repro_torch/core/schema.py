@@ -179,13 +179,6 @@ class Table:
         return out
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a surface of a later slice of the port raises, naming its
-    ROADMAP.md queue-1 item."""
-    return NotImplementedError(
-        f"{what} is not yet ported, see ROADMAP.md queue 1 item {item}")
-
-
 class Catalog:
     """Name -> Table registry with the reference's versioned registration
     clock.

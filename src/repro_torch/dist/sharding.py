@@ -5,11 +5,18 @@
 names axes ("batch", "heads", ...) and a launcher binds those names to
 mesh axes through a rules dict.  With no rules or no mesh active, or on a
 mesh of one device, `constrain` returns its input, so single-device
-serving pays no sharding tax.  Model meshes of more than one device (the
-reference's ``with_sharding_constraint``) belong to ROADMAP.md queue 1
-item 14 (d).  :class:`NamedSharding` is the placement the sharding policy
+serving pays no sharding tax.  On a mesh of more than one device it
+computes the reference's guarded spec (:func:`guarded_spec`): a plain
+tensor comes back as it is (one process holds the whole value, as
+``with_sharding_constraint`` leaves values alone), and a DTensor (the
+dry-run's per-device count, ``launch/dryrun.py``) is redistributed to that
+placement.  :class:`NamedSharding` is the placement the sharding policy
 (``launch/shardspec.py``) gives a leaf: a mesh and one mesh-axis entry per
-dimension.
+dimension; :func:`placements` maps it onto DTensor placements, and
+:class:`ShardedLeaf` holds one device's block of a leaf per mesh device
+(``checkpoint.restore(..., shardings)``).
+
+``torch.distributed`` is imported only where a DTensor is handled.
 
 **Corpus sharding for distributed hybrid queries:**
 
@@ -38,13 +45,13 @@ import contextlib
 import dataclasses
 import functools
 import math
+import sys
 import threading
 from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from ..core.schema import not_ported
 
 _STATE = threading.local()
 
@@ -89,19 +96,90 @@ def logical_to_spec(logical_axes: Sequence, rules: Mapping[str, Any]) -> tuple:
     return tuple(out)
 
 
+def entry_axes(entry) -> tuple:
+    """The mesh axes a spec entry (a mesh axis, a tuple of them, or None)
+    names, major to minor."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def entry_size(mesh, entry) -> int:
+    """The device count a spec entry splits a dimension over."""
+    return math.prod(mesh.shape[a] for a in entry_axes(entry))
+
+
+def guarded_spec(shape: Sequence[int], logical_axes: Sequence, rules,
+                 mesh) -> tuple:
+    """The reference's ``constrain`` spec: the rules' entry per dimension,
+    or None where its axes hold one device or do not divide the
+    dimension.  An entry naming a mesh axis that an earlier dimension
+    already splits over is None too (FSDP's ``embed`` on the batch's
+    ``data`` axis), where the reference raises ``DuplicateSpecError``."""
+    spec = list(logical_to_spec(logical_axes, rules))
+    spec += [None] * (len(shape) - len(spec))
+    out, used = [], set()
+    for dim, entry in zip(shape, spec):
+        size = entry_size(mesh, entry)
+        names = set(entry_axes(entry))
+        keep = size > 1 and dim % size == 0 and not names & used
+        out.append(entry if keep else None)
+        used |= names if keep else set()
+    return tuple(out)
+
+
+def dtensor_type():
+    """``DTensor`` if ``torch.distributed.tensor`` was imported (no DTensor
+    can exist before), else None; imports nothing."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return getattr(mod, "DTensor", None)
+
+
+def is_dtensor(x) -> bool:
+    dt = dtensor_type()
+    return dt is not None and isinstance(x, dt)
+
+
 def constrain(x, logical_axes: Sequence):
-    """The reference's sharding constraint by logical names: ``x`` itself
-    when no rules or mesh are active, or when the mesh holds one device
-    (every axis of size 1 leaves a dimension whole).  A model mesh of more
-    than one device is ROADMAP.md queue 1 item 14 (d)."""
+    """The reference's sharding constraint by logical names.  ``x`` itself
+    when no rules or mesh are active, when the mesh holds one device, or
+    when ``x`` is a plain tensor (one process holds the whole value); a
+    DTensor is redistributed to :func:`guarded_spec`'s placement."""
     s = _stack()
     if not s:
         return x
     rules, mesh = s[-1]
-    if rules is None or mesh is None or mesh.devices.size <= 1:
+    if rules is None or mesh is None or mesh.devices.size <= 1 \
+            or not is_dtensor(x):
         return x
-    raise not_ported("constrain under a mesh of more than one device",
-                     "14 (d)")
+    want = placements(NamedSharding(
+        mesh, guarded_spec(x.shape, logical_axes, rules, mesh)))
+    if tuple(x.placements) == tuple(want):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def placements(sharding: "NamedSharding") -> list:
+    """The DTensor placements of a :class:`NamedSharding`, one per mesh
+    axis: ``Shard(d)`` on each axis that dimension ``d``'s entry names,
+    ``Replicate()`` elsewhere.  A dimension split over a tuple of axes is
+    split major to minor in the tuple's order, as a ``PartitionSpec``
+    does; DTensor splits in mesh-axis order, so a tuple out of that order
+    (or an axis named twice) raises ``ValueError``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(sharding.mesh.axis_names)
+    out: list = [Replicate()] * len(names)
+    used: set = set()
+    for dim, entry in enumerate(sharding.spec):
+        idx = [names.index(a) for a in entry_axes(entry)]
+        if idx != sorted(idx) or used & set(idx) or len(set(idx)) < len(idx):
+            raise ValueError(
+                f"spec {sharding.spec}: entry {entry} must name mesh axes "
+                f"once each in the mesh's order {names}")
+        used |= set(idx)
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
 
 
 class DeviceCountError(RuntimeError):
@@ -175,11 +253,59 @@ class NamedSharding:
 
     def shard_shape(self, shape: Sequence[int]) -> tuple:
         """One device's block of an array of ``shape`` placed so."""
-        def parts(entry) -> int:
-            names = entry if isinstance(entry, (tuple, list)) else (entry,)
-            return math.prod(self.mesh.shape[a] for a in names
-                             if a is not None)
-        return tuple(d // parts(e) for d, e in zip(shape, self.spec))
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        return tuple(d // entry_size(self.mesh, e)
+                     for d, e in zip(shape, spec))
+
+    def block_slices(self, shape: Sequence[int], device: int) -> tuple:
+        """The slices of an array of ``shape`` that device ``device`` (its
+        index in ``mesh.flat``) holds: a dimension split over a tuple of
+        axes is cut major to minor in the tuple's order."""
+        coords = dict(zip(self.mesh.axis_names, np.unravel_index(
+            device, self.mesh.devices.shape)))
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        out = []
+        for entry, block in zip(spec, self.shard_shape(shape)):
+            k = 0
+            for a in entry_axes(entry):
+                k = k * self.mesh.shape[a] + int(coords[a])
+            out.append(slice(k * block, (k + 1) * block))
+        return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedLeaf:
+    """A leaf placed on a mesh of more than one device, as
+    ``jax.device_put(x, sharding)`` places it: ``blocks[i]`` is device
+    ``i``'s block (``sharding.shard_shape``) on ``mesh.flat[i]``; a
+    replicated dimension is whole in every block."""
+    sharding: NamedSharding
+    shape: tuple
+    blocks: tuple
+
+    @classmethod
+    def place(cls, x: torch.Tensor, sharding: NamedSharding
+              ) -> "ShardedLeaf":
+        """Each device's block of ``x``, copied onto that device."""
+        flat = sharding.mesh.flat
+        return cls(sharding, tuple(x.shape), tuple(
+            x[sharding.block_slices(x.shape, i)].to(
+                device=dev, copy=True) for i, dev in enumerate(flat)))
+
+    @property
+    def device_count(self) -> int:
+        """The devices holding a block (``len(sharding.device_set)``)."""
+        return len(self.blocks)
+
+    def full(self) -> torch.Tensor:
+        """The whole value, reassembled from the blocks on the first
+        device."""
+        first = self.blocks[0]
+        out = torch.empty(self.shape, dtype=first.dtype, device=first.device)
+        for i, block in enumerate(self.blocks):
+            out[self.sharding.block_slices(self.shape, i)] = block.to(
+                first.device)
+        return out
 
 
 @functools.lru_cache(maxsize=None)

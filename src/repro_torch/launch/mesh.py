@@ -4,7 +4,9 @@ Functions, so importing this module touches no device state.  A mesh is
 ``dist.sharding.Mesh``: ``torch.device`` s on named axes.  On ``cuda`` it
 takes the first n devices, or raises ``DeviceCountError`` naming the
 count; on ``cpu`` every entry is the CPU (the analogue of the reference's
-fake CPU devices), so a multi-replica step runs in one process here.
+fake CPU devices).  One process drives every device of a mesh: the
+compressed DP step, ``launch.train --mesh`` and MoE's shard_map path run
+each shard in turn; the dry-run counts one device's share on DTensors.
 """
 from __future__ import annotations
 

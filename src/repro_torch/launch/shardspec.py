@@ -18,9 +18,11 @@ The port walks its trees as the reference's ``tree_flatten_with_path``
 does: dict keys in sorted order (:class:`DictKey`), list and tuple entries
 (:class:`SequenceKey`, the ``tail`` list) and dataclass fields
 (:class:`GetAttrKey`, ``TrainState``); a leaf that is not a tensor (a
-decode cache's host ``pos``) has no dimension.  A mesh of more than one
-device only names a placement here: running under one is ROADMAP.md queue
-1 item 14 (d).
+decode cache's host ``pos``) has no dimension.  The placements are
+those the launchers run under: ``launch/train.py --mesh`` binds the rules,
+``launch/dryrun.py`` places each argument's DTensor blocks by
+``tree_shardings``, and ``checkpoint.restore(..., shardings)`` places each
+restored leaf.
 """
 from __future__ import annotations
 

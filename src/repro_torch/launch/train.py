@@ -14,13 +14,20 @@ flags after a crash follows the same lr schedule from the step it resumes.
 ``train`` is the loop as a function: it returns the final state and a
 per-step history (loss, grad norm, lr, step and data seconds, each read
 after the device finished); ``main`` prints the reference's log lines from
-it.  ``--mesh single | multi | tiny`` need the model shardings of ROADMAP.md
-queue 1 item 14 (d) and raise before any work; ``none`` (the default) runs
-on the one device.
+it.  ``--mesh single | multi | tiny`` builds the reference's mesh (16 x 16,
+2 x 16 x 16 or 2 x 2) on ``--device`` and runs the loop under its
+logical-axis rules (``shardspec.rules_for`` of a ``train`` shape of the
+run's sequence length and batch, patched for MoE): one process drives every
+shard, so the state stays whole on ``--device`` and MoE layers take the
+shard_map path, each shard's blocks on its mesh device.  On ``cuda`` a
+mesh needs that many cards and raises ``DeviceCountError`` naming the
+count before any work; on ``cpu`` every mesh device is the CPU.  ``none``
+(the default) runs with no mesh.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -29,13 +36,32 @@ import torch
 
 from ..checkpoint import Checkpointer, latest_step, restore
 from ..configs import get_config
-from ..core.schema import not_ported
+from ..configs.shapes import ShapeConfig
 from ..data.pipeline import DataConfig, SyntheticLM
+from ..dist.sharding import logical_axis_rules
 from ..models import init_params
 from ..models.config import ModelConfig
 from ..training import (AdamWConfig, TrainState, TrainStepConfig, adamw_init,
                         build_train_step)
 from ..training.train_state import prng_key
+from .mesh import make_mesh, make_production_mesh
+from .shardspec import moe_rules_patch, rules_for
+
+MESHES = ("none", "single", "multi", "tiny")
+
+
+def build_mesh(kind: str, device="cuda"):
+    """The reference's ``--mesh`` on ``device``'s type, or None for
+    ``none``."""
+    if kind == "none":
+        return None
+    if kind == "single":
+        return make_production_mesh(device=device)
+    if kind == "multi":
+        return make_production_mesh(multi_pod=True, device=device)
+    if kind == "tiny":
+        return make_mesh((2, 2), ("data", "model"), device=device)
+    raise ValueError(f"--mesh {kind}: one of {MESHES}")
 
 
 @dataclasses.dataclass
@@ -59,14 +85,30 @@ def _synchronize(device: torch.device) -> None:
 def train(arch: str, *, smoke: bool = False, steps: int = 100,
           global_batch: int = 8, seq_len: int = 128, lr: float = 3e-4, microbatches: int = 1,
           ckpt_dir: str | None = None, ckpt_every: int = 25, seed: int = 0,
-          device="cuda",
+          device="cuda", mesh: str = "none",
           on_step: Callable[[int, TrainState, dict], Any] | None = None
           ) -> TrainRun:
     """Train ``arch`` (random init from ``seed``) on the synthetic bigram
     stream up to step ``steps`` on ``device``, resuming from ``ckpt_dir``'s
-    newest step; ``on_step(step, state, metrics)`` sees each step's new
-    state."""
+    newest step, under ``mesh`` (see the module doc); ``on_step(step,
+    state, metrics)`` sees each step's new state."""
     cfg = get_config(arch, smoke=smoke)
+    mesh_obj = build_mesh(mesh, device)         # raises before any work
+    scope = contextlib.nullcontext()
+    if mesh_obj is not None:
+        shape = ShapeConfig("cli", "train", seq_len, global_batch)
+        scope = logical_axis_rules(
+            moe_rules_patch(cfg, rules_for(cfg, shape, mesh_obj)), mesh_obj)
+    with scope:
+        return _train_loop(cfg, steps=steps, global_batch=global_batch,
+                           seq_len=seq_len, lr=lr, microbatches=microbatches,
+                           ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                           seed=seed, device=device, on_step=on_step)
+
+
+def _train_loop(cfg: ModelConfig, *, steps, global_batch, seq_len, lr,
+                microbatches, ckpt_dir, ckpt_every, seed, device,
+                on_step) -> TrainRun:
     opt_cfg = AdamWConfig(lr_peak=lr, warmup_steps=max(steps // 10, 1),
                           total_steps=steps)
     data = SyntheticLM(DataConfig(seed=seed, global_batch=global_batch,
@@ -125,24 +167,18 @@ def main(argv=None) -> int:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
-    ap.add_argument("--mesh", default="none",
-                    choices=["none", "single", "multi", "tiny"])
+    ap.add_argument("--mesh", default="none", choices=list(MESHES))
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the parameters and the state live and the "
                     "step runs")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise not_ported(f"train --mesh {args.mesh} (the model shardings "
-                         f"of launch/shardspec.py over more than one "
-                         f"device)", "14 (d)")
-
     run = train(args.arch, smoke=args.smoke, steps=args.steps,
                 global_batch=args.global_batch, seq_len=args.seq_len,
                 lr=args.lr, microbatches=args.microbatches,
                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                seed=args.seed, device=args.device)
+                seed=args.seed, device=args.device, mesh=args.mesh)
     if run.resumed_from is not None:
         print(f"[train] resumed from step {run.resumed_from}")
     elapsed = 0.0

@@ -6,20 +6,31 @@ a count per expert and exclusive offsets), scattered into a dense (E, cap, d) bu
 grouped GEMMs, gathered back and summed per token with ``index_add_``.
 Tokens overflowing an expert's capacity are dropped (GShard semantics).
 The router's top-k breaks ties by the lowest expert id, as ``lax.top_k``
-does.  The reference's ``shard_map`` path runs under a mesh with a
-``"model"`` axis.  At one device it computes what the local path computes
-(expert offset 0; ``psum`` and ``pmean`` over axes of size 1), so the port
-takes the local path there; a mesh of more than one device is ROADMAP.md
-queue 1 item 14 (d).
+does.
+
+The shard_map path runs under a mesh of more than one device with a
+``"model"`` axis, as the reference's does: every model shard holds all of
+its data shard's tokens and dispatches only to the experts it owns
+('expert' mode: E / model experts; 'ff' mode: the d_ff / model slice of
+every expert); one ``psum`` over ``model`` combines the partial outputs,
+FSDP-split expert weights are all-gathered over ``mlp_embed`` first, and
+the aux loss ``pmean`` s its per-expert density and router probability over
+the data axes before their product.  One body (``_moe_body``) runs under
+``dist/shard_map.py``'s two drivers: every shard in lock step on plain
+tensors, or this rank's shard under ``local_map`` on DTensors (the
+dry-run).  At one device the reference's path computes what the local
+path computes (expert offset 0; ``psum`` and ``pmean`` over axes of size
+1), so the port takes the local path there.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from ..core.schema import not_ported
+from ..dist import shard_map as sm
 from ..dist.sharding import current_mesh, current_rules
 from .config import ModelConfig
 from .layers import dense_init, normal
@@ -131,12 +142,18 @@ def _route(x_flat, router, K: int):
     return probs, top_w, top_idx
 
 
-def _aux_loss(e, probs, top_idx):
-    """Switch aux loss."""
+def _aux_terms(e, probs, top_idx):
+    """The Switch aux loss's per-expert density and mean router
+    probability."""
     T = probs.shape[0]
     density = _count(top_idx.reshape(-1), e.num_experts
                      ).to(torch.float32) / (T * e.top_k)
-    mean_prob = torch.mean(probs, dim=0)
+    return density, torch.mean(probs, dim=0)
+
+
+def _aux_loss(e, probs, top_idx):
+    """Switch aux loss."""
+    density, mean_prob = _aux_terms(e, probs, top_idx)
     return e.num_experts * torch.sum(density * mean_prob) \
         * e.router_aux_coef
 
@@ -158,6 +175,96 @@ def _moe_local(p, cfg: ModelConfig, x, capacity_factor: float):
     return out.to(x.dtype), _aux_loss(e, probs, top_idx)
 
 
+# ---------------------------------------------------------------------------
+# shard_map path (meshes of more than one device)
+# ---------------------------------------------------------------------------
+
+def _weight_specs(e, rules):
+    """Spec tuples of the expert weights under the active rules."""
+    ax = rules.get
+    if e.shard_mode == "expert" and ax("experts"):
+        wi = (ax("experts"), ax("expert_ff_in"), ax("moe_ff"))
+        wo = (ax("experts"), ax("moe_ff"), ax("expert_ff_in"))
+    else:
+        wi = (None, ax("expert_ff_in"), ax("moe_ff"))
+        wo = (None, ax("moe_ff"), ax("expert_ff_in"))
+    return wi, wo
+
+
+def _moe_body(cfg: ModelConfig, capacity_factor: float, e_local: int,
+              expert_mode: bool, fsdp_axes: tuple, dp_axes: tuple,
+              x_l, router, wi, wg, wo, *shared):
+    """One shard's MoE (the reference's ``shard_map`` body), as a
+    ``dist.shard_map`` generator: yields its collectives, returns (out,
+    aux)."""
+    e = cfg.moe
+    bl, sl, d = x_l.shape
+    T = bl * sl
+    cap = max(8, int(capacity_factor * T * e.top_k / max(e.num_experts, 1)))
+    # ZeRO-3: reassemble the weight blocks held on the DP axes
+    for a in fsdp_axes:
+        router = yield sm.all_gather(router, a, 0)
+        wi = yield sm.all_gather(wi, a, 1)
+        wg = yield sm.all_gather(wg, a, 1)
+        wo = yield sm.all_gather(wo, a, 2)
+    x_flat = x_l.reshape(T, d)
+    probs, top_w, top_idx = _route(x_flat, router, e.top_k)
+    offset = (yield sm.axis_index("model")) * e_local if expert_mode else 0
+    out_flat = _dispatch_compute(x_flat, top_w, top_idx, wi, wg, wo,
+                                 e.num_experts, offset, cap, cfg.cdtype())
+    # expert mode sums the shards' disjoint expert sets, ff mode the
+    # d_ff slices: one psum either way
+    out_flat = yield sm.psum(out_flat, "model")
+    out = out_flat.reshape(bl, sl, d).to(x_l.dtype)
+    if e.num_shared_experts:
+        swi, swg, swo = shared
+        for a in fsdp_axes:
+            swi = yield sm.all_gather(swi, a, 0)
+            swg = yield sm.all_gather(swg, a, 0)
+            swo = yield sm.all_gather(swo, a, 1)
+        xe = x_flat.to(cfg.cdtype())
+        hs = (F.silu(xe @ swg) * (xe @ swi)) @ swo
+        if swo.shape[0] != e.d_ff_expert * e.num_shared_experts:
+            hs = yield sm.psum(hs, "model")     # d_ff split over model
+        out = out + hs.reshape(bl, sl, d).to(out.dtype)
+    density, mean_prob = _aux_terms(e, probs, top_idx)
+    if dp_axes:
+        # pmean BEFORE the (nonlinear) product: the mean of the shards'
+        # aux losses is not the global one
+        density = yield sm.pmean(density, dp_axes)
+        mean_prob = yield sm.pmean(mean_prob, dp_axes)
+    aux = e.num_experts * torch.sum(density * mean_prob) * e.router_aux_coef
+    return out, aux
+
+
+def _moe_shard_map(p, cfg: ModelConfig, x, capacity_factor: float):
+    e = cfg.moe
+    mesh = current_mesh()
+    rules = current_rules()
+    dp = rules.get("batch")
+    dp_axes = tuple(dp) if isinstance(dp, (tuple, list)) else (
+        (dp,) if dp else ())
+    fsdp = rules.get("mlp_embed")
+    fsdp_axes = () if fsdp is None else (
+        (fsdp,) if isinstance(fsdp, str) else tuple(fsdp))
+    expert_mode = bool(e.shard_mode == "expert" and rules.get("experts"))
+    e_local = e.num_experts // mesh.shape["model"] if expert_mode \
+        else e.num_experts
+    wi_spec, wo_spec = _weight_specs(e, rules)
+    x_spec = (dp if dp else None, None, None)
+    in_specs = [x_spec, (rules.get("embed"), None), wi_spec, wi_spec,
+                wo_spec]
+    args = [x, p["router"], p["wi"], p["wg"], p["wo"]]
+    if e.num_shared_experts:
+        mlp = (rules.get("mlp_embed"), rules.get("ff"))
+        in_specs += [mlp, mlp, mlp[::-1]]
+        args += [p["shared_wi"], p["shared_wg"], p["shared_wo"]]
+    body = functools.partial(_moe_body, cfg, capacity_factor, e_local,
+                             expert_mode, fsdp_axes, dp_axes)
+    out, aux = sm.shard_map(body, mesh, in_specs, (x_spec, ()), args)
+    return out.to(x.device), aux.to(x.device)
+
+
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
               capacity_factor: float = 1.25):
     """x: (B, S, d) -> (out, aux_loss)."""
@@ -165,8 +272,7 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     rules = current_rules()
     if (mesh is not None and rules is not None and "model" in mesh.axis_names
             and mesh.devices.size > 1):
-        raise not_ported("moe_apply's shard_map path under a model mesh of "
-                         "more than one device", "14 (d)")
+        return _moe_shard_map(p, cfg, x, capacity_factor)
     return _moe_local(p, cfg, x, capacity_factor)
 
 

@@ -36,17 +36,27 @@ so every loop iteration is counted as it runs and no trip count is needed.
   ``memory_analysis()`` reports argument, temporary, output and aliased
   bytes.  On ``meta`` tensors nothing is allocated, so a full-size step
   costs only Python time.
+* **One device of a mesh** (the dry-run under a mesh of more than one
+  device): on DTensors the counter lets DTensor run each op and counts the
+  local ops it issues on this rank's blocks, so FLOPs, bytes and live
+  memory are one device's, as XLA's per-device HLO gives them (a plain
+  tensor beside them is replicated and counts whole).  The ``torch.
+  distributed`` functional collectives that redistribution and the MoE's
+  ``local_map`` issue count their input bytes under the reference's kinds.
+  The FakeTensor runs of DTensor's sharding propagation count nothing.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import sys
 import threading
 import weakref
 from typing import Callable, NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -60,6 +70,23 @@ DTYPES = ("bf16", "fp32", "fp64")
 _NO_BYTES = frozenset({"empty", "empty_strided", "empty_like", "new_empty",
                        "new_empty_strided", "lift_fresh", "_unsafe_view",
                        "_reshape_alias"})
+
+# the functional collectives' ops (``torch.distributed``'s
+# ``_c10d_functional`` namespaces) by the reference's kinds
+_COLLECTIVE_OPS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+_FUNCOL_NAMESPACES = frozenset({"_c10d_functional",
+                                "_c10d_functional_autograd",
+                                "c10d_functional"})
 
 _STATE = threading.local()
 
@@ -82,10 +109,19 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _dtensor_type():
+    """``DTensor`` once ``torch.distributed.tensor`` is imported (no DTensor
+    exists before), else None."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return getattr(mod, "DTensor", None)
+
+
 def _tensors(tree) -> list:
     """The tensor leaves of a tree of dicts, lists, tuples and
-    dataclasses."""
+    dataclasses; a DTensor's leaf is this rank's block."""
     if isinstance(tree, torch.Tensor):
+        while hasattr(tree, "_local_tensor"):
+            tree = tree._local_tensor
         return [tree]
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -224,10 +260,19 @@ class OpCounter(TorchDispatchMode):
     # -- dispatch -----------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        dtensor = _dtensor_type()
+        if dtensor is not None and any(issubclass(t, dtensor)
+                                       for t in types):
+            return NotImplemented       # DTensor runs it: count its ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
+        ins = [t for t in tree_flatten((args, kwargs))[0]
+               if isinstance(t, torch.Tensor)]
+        if dtensor is not None and any(isinstance(t, FakeTensor)
+                                       for t in outs or ins):
+            return out                  # sharding propagation's shape run
         alias = any(r.alias_info is not None for r in func._schema.returns)
         if not alias:
             for t in outs:
@@ -235,18 +280,23 @@ class OpCounter(TorchDispatchMode):
                 if id(s) not in self._live:
                     self._hold(id(s), s, s.nbytes())
         if not self._quiet:
-            self._count(func, args, kwargs, out, outs, alias)
+            self._count(func, args, kwargs, out, ins, outs, alias)
         return out
 
-    def _count(self, func, args, kwargs, out, outs, alias) -> None:
+    def _count(self, func, args, kwargs, out, ins, outs, alias) -> None:
         packet = func._overloadpacket
+        if func.namespace in _FUNCOL_NAMESPACES:
+            kind = _COLLECTIVE_OPS.get(packet.__name__)
+            if kind is not None:
+                self.cost.collective_bytes[kind] += float(
+                    sum(map(_nbytes, ins)))
+                self._op(str(func), ins, 0.0, 0)
+            return
         flops = 0.0
         if packet in flop_registry and outs:
             flops = float(flop_registry[packet](*args, **kwargs,
                                                 out_val=out))
             self.cost.flops[dtype_class(outs[0].dtype)] += flops
-        ins = [t for t in tree_flatten((args, kwargs))[0]
-               if isinstance(t, torch.Tensor)]
         view = alias and not any(r.alias_info.is_write
                                  for r in func._schema.returns
                                  if r.alias_info is not None)

@@ -1,6 +1,10 @@
 """Roofline report: dry-run JSONs -> markdown dry-run and roofline tables
 (the port of ``src/repro/roofline/report.py``; the HBM column reads one
-H100's 80 GB, and the mesh defaults to the dry-run's ``one``)."""
+H100's 80 GB per device, and the mesh defaults to the dry-run's ``one``).
+``main`` prints both tables for each mesh in the records (``one``,
+``single``, ``multi``, ``tiny``, ``tiny_multi``: every figure per device)
+and the hill-climb picks of each of ``single`` and ``multi`` (or of the
+mesh it is given)."""
 from __future__ import annotations
 
 import glob
@@ -121,14 +125,20 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--dryrun-dir", default="experiments/dryrun")
-    ap.add_argument("--mesh", default="one")
+    ap.add_argument("--mesh", default=None,
+                    help="one mesh's tables (default: every mesh found)")
     args = ap.parse_args(argv)
     recs = load_records(args.dryrun_dir)
-    print("## Dry-run table (%s)\n" % args.mesh)
-    print(dryrun_table(recs, args.mesh))
-    print("\n## Roofline table (%s)\n" % args.mesh)
-    print(roofline_table(recs, args.mesh))
-    print("\nhillclimb picks:", pick_hillclimb(recs, args.mesh))
+    meshes = [args.mesh] if args.mesh else list(dict.fromkeys(
+        r["mesh"] for r in recs))
+    for mesh in meshes:
+        print("## Dry-run table (%s)\n" % mesh)
+        print(dryrun_table(recs, mesh))
+        print("\n## Roofline table (%s)\n" % mesh)
+        print(roofline_table(recs, mesh))
+        print()
+    for mesh in [m for m in meshes if m in ("single", "multi")] or meshes:
+        print("hillclimb picks (%s):" % mesh, pick_hillclimb(recs, mesh))
     return 0
 
 

@@ -85,7 +85,9 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             return value_and_grad(params, cfg, batch)
         adt = getattr(torch, step_cfg.accum_dtype)
         leaves = tree_leaves(params)
-        acc = [torch.zeros(p.shape, dtype=adt, device=p.device)
+        # like each leaf (a DTensor's accumulator is one, as its gradient)
+        acc = [torch.zeros_like(p, dtype=adt,
+                                memory_format=torch.contiguous_format)
                for p in leaves]
         loss_acc = torch.zeros((), dtype=F32, device=leaves[0].device)
         slices = {k: _split(v, n) for k, v in batch.items()}

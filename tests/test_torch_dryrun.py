@@ -6,12 +6,16 @@ against the reference's where both compute the same thing, on the CPU.
   x train_4k and decode_32k exits 0 with 4 ``ok`` lines (the reference's
   ``tests/test_distributed.py`` dry-run smoke), and a meta cell counts
   what the same step counts on CPU tensors.
-* Meshes of more than one device raise ``not_ported`` naming 14 (d), and
-  ``long_500k`` is skipped for full-attention archs, as in the reference.
+* The CLI under each mesh of more than one device (``single``, ``multi``,
+  ``tiny``, ``tiny_multi``, ``both``) exits 0 with one ``ok`` line per
+  cell, its records per device (``tests/test_torch_dryrun_mesh.py`` holds
+  them against the reference's), and ``long_500k`` is skipped for
+  full-attention archs, as in the reference.
 * The MoE cells run on ``meta`` (the fixed-length count that replaced
   ``bincount``), and ``moe_apply`` under a 1 x 1 ``("data", "model")``
   mesh equals the reference's ``shard_map`` path under its 1 x 1 mesh.
 """
+import json
 import os
 import subprocess
 import sys
@@ -137,10 +141,31 @@ def test_global_batch_cut_and_records():
 
 @pytest.mark.parametrize("mesh", ["single", "multi", "tiny", "tiny_multi",
                                   "both"])
-def test_meshes_of_more_than_one_device_are_not_ported(mesh):
-    with pytest.raises(NotImplementedError, match=r"14 \(d\)"):
-        dryrun.main(["--arch", "qwen2-1.5b", "--shape", "train_4k",
-                     "--mesh", mesh, "--smoke-config"])
+def test_meshes_of_more_than_one_device_are_not_ported(mesh, tmp_path,
+                                                       capsys):
+    """Once not ported; now each mesh runs: the CLI exits 0 with an ``ok``
+    line per cell, and each record is one device's of a mesh of that
+    many devices (its arguments' blocks under the policy)."""
+    import torch.distributed as dist
+    out = tmp_path / "recs.json"
+    assert dryrun.main(["--arch", "qwen2-1.5b", "--shape", "prefill_32k",
+                        "--mesh", mesh, "--smoke-config", "--out",
+                        str(out)]) == 0
+    assert not dist.is_initialized()
+    recs = json.loads(out.read_text())
+    chips = {"single": [256], "multi": [512], "tiny": [4],
+             "tiny_multi": [8], "both": [256, 512]}[mesh]
+    assert [r["chips"] for r in recs] == chips
+    assert capsys.readouterr().out.count(" ok ") == len(chips)
+    one = dryrun.run_cell("qwen2-1.5b", "prefill_32k", "one",
+                          smoke_config=True)
+    for r in recs:
+        assert r["status"] == "ok" and r["fits_hbm"]
+        assert r["memory"]["argument_bytes"] == \
+            r["argument_bytes_per_device"] < one["argument_bytes_per_device"]
+        assert r["cost"]["flops_per_device"] * r["chips"] >= \
+            one["cost"]["flops_per_device"]
+        assert sum(r["collective_bytes"].values()) > 0
 
 
 def test_long_500k_is_skipped_for_full_attention():

@@ -257,8 +257,9 @@ def test_rules_stack_and_constrain():
             assert sharding.current_mesh() is one
             assert sharding.constrain(x, ("batch", None)) is x
             with sharding.logical_axis_rules(RULES, two):
-                with pytest.raises(NotImplementedError, match=r"14 \(d\)"):
-                    sharding.constrain(x, ("batch", "heads"))
+                # a plain tensor under a mesh of two devices: one process
+                # holds the whole value, so the constraint changes nothing
+                assert sharding.constrain(x, ("batch", "heads")) is x
             assert sharding.current_mesh() is one
         assert sharding.current_rules() == RULES
     assert sharding.current_rules() is None

@@ -115,11 +115,18 @@ def test_moe_init_layout_matches_reference():
 
 
 def test_shard_map_path_is_deferred_to_14c():
-    _rcfg, cfg, _rp, p, x = _setup()
+    """Once deferred; now a (1, 2) model mesh takes the shard_map path (each
+    model shard dispatches to its 4 experts, one psum), which equals the
+    reference's local path at the same capacity: one data shard holds all
+    the tokens, so the drops are the same."""
+    rcfg, cfg, rp, p, x = _setup()
     mesh = resolve_mesh(DistSpec((1, 2), ("data", "model")), "cpu")
     with logical_axis_rules({"batch": "data", "experts": "model"}, mesh):
-        with pytest.raises(NotImplementedError, match=r"14 \(d\)"):
-            moe.moe_apply(p, cfg, torch.from_numpy(x))
+        got, aux = moe.moe_apply(p, cfg, torch.from_numpy(x))
+    want, want_aux = ref_moe._moe_local(rp, rcfg, jnp.asarray(x), 1.25)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL)
+    assert abs(float(aux) - float(want_aux)) <= TOL
     # a mesh without a model axis keeps the local path
     one = resolve_mesh(DistSpec((1,), ("data",)), "cpu")
     with logical_axis_rules({"batch": "data"}, one):

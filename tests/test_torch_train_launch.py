@@ -18,6 +18,7 @@ from repro_torch import configs
 from repro_torch.checkpoint import checkpointer
 from repro_torch.configs.shapes import SHAPES, SMOKE_SHAPES
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.dist.sharding import DeviceCountError
 from repro_torch.launch import inputs
 from repro_torch.launch import train as launch
 from repro_torch.models import init_params, tree_leaves
@@ -106,9 +107,19 @@ def test_train_function_history_and_hook():
 
 @pytest.mark.parametrize("mesh", ["tiny", "single", "multi"])
 def test_meshes_of_more_than_one_device_are_not_ported(mesh, tmp_path):
+    """Once not ported; now each mesh trains on the CPU (the dense smoke
+    qwen2 has no MoE layer, so its losses are the ``--mesh none`` run's bit
+    for bit), and on ``cuda`` with too few cards it raises
+    ``DeviceCountError`` naming the count before any work."""
+    kw = dict(smoke=True, steps=2, global_batch=4, seq_len=16, device="cpu")
+    run = launch.train("qwen2-1.5b", mesh=mesh, **kw)
+    plain = launch.train("qwen2-1.5b", **kw)
+    assert [r["loss"] for r in run.history] == \
+        [r["loss"] for r in plain.history]
     ck = str(tmp_path / "ck")
-    with pytest.raises(NotImplementedError, match="14 \\(d\\)"):
-        launch.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
+    with pytest.raises(DeviceCountError,
+                       match=f"have {torch.cuda.device_count()}"):
+        launch.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cuda",
                      "--mesh", mesh, "--ckpt-dir", ck])
     assert not os.path.exists(ck)       # before any work
 
