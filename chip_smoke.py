@@ -343,9 +343,13 @@ one JSON line each:
            published 256 x 4,096 under ``tiny`` and ``single`` and of
            moonshot-v1-16b-a3b ``train_4k`` under ``single``, each beside
            its mesh-``one`` record: per-device FLOPs x chips at least the
-           mesh-``one`` count, argument bytes = ``device_bytes``, the peak
-           below the mesh-``one`` peak, a nonzero collective term.  Line
-           ``mesh``
+           mesh-``one`` count (qwen2 ``tiny``: exactly that count),
+           argument bytes = ``device_bytes``, the peak below the
+           mesh-``one`` peak, a nonzero collective term; and every arch x
+           shape at --smoke-config under ``tiny`` (one more child) counts
+           the reference's FLOPs per device and argument bytes, pinned in
+           ``MESH_TINY_REF`` (the SSM training steps less the SSD's
+           documented backward reductions).  Line ``mesh``
 then the ``script`` line (seconds since the script's imports), the
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.  Any failure raises and exits non-zero without the last line.
 
@@ -497,6 +501,65 @@ BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.25, 2.5
 MESH_CELLS = (("qwen2-1.5b", "train_4k", "tiny"),
               ("qwen2-1.5b", "train_4k", "single"),
               ("moonshot-v1-16b-a3b", "train_4k", "single"))
+# the mesh phase's smoke grid: every arch x shape at --smoke-config under
+# ``tiny`` (2 x 2), each held to the reference's per-device count
+# (``cost.flops_per_device``, ``memory.argument_bytes``; None where the
+# reference skips the cell), copied from the reference's records that
+# tests/dryrun_mesh_grid.py reads in its subprocess
+# (``repro.launch.dryrun.run_cell(arch, shape, "tiny", smoke_config=True)``
+# on 8 fake CPU devices, jax 0.9.0); the script imports nothing of the
+# reference
+MESH_TINY_REF = {
+    ("gemma3-12b", "train_4k"): (58195968, 1534228),
+    ("gemma3-12b", "prefill_32k"): (27918336, 511616),
+    ("gemma3-12b", "decode_32k"): (272384, 530248),
+    ("gemma3-12b", "long_500k"): (267264, 524968),
+    ("h2o-danube-3-4b", "train_4k"): (40894464, 1285396),
+    ("h2o-danube-3-4b", "prefill_32k"): (19660800, 428672),
+    ("h2o-danube-3-4b", "decode_32k"): (188416, 436744),
+    ("h2o-danube-3-4b", "long_500k"): (184320, 432520),
+    ("gemma2-27b", "train_4k"): (40894464, 1088788),
+    ("gemma2-27b", "prefill_32k"): (19660800, 363136),
+    ("gemma2-27b", "decode_32k"): (200704, 383880),
+    ("gemma2-27b", "long_500k"): (198656, 381768),
+    ("qwen2-1.5b", "train_4k"): (40894464, 1091860),
+    ("qwen2-1.5b", "prefill_32k"): (19660800, 364160),
+    ("qwen2-1.5b", "decode_32k"): (212992, 397576),
+    ("qwen2-1.5b", "long_500k"): None,
+    ("mamba2-370m", "train_4k"): (32178176, 933268),
+    ("mamba2-370m", "prefill_32k"): (14450688, 311296),
+    ("mamba2-370m", "decode_32k"): (159744, 330376),
+    ("mamba2-370m", "long_500k"): (159744, 330376),
+    ("zamba2-1.2b", "train_4k"): (67502080, 1915924),
+    ("zamba2-1.2b", "prefill_32k"): (30277632, 638848),
+    ("zamba2-1.2b", "decode_32k"): (335872, 694024),
+    ("zamba2-1.2b", "long_500k"): (335872, 694024),
+    ("grok-1-314b", "train_4k"): (97910784, 1101076),
+    ("grok-1-314b", "prefill_32k"): (49741824, 367232),
+    ("grok-1-314b", "decode_32k"): (903168, 400648),
+    ("grok-1-314b", "long_500k"): None,
+    ("moonshot-v1-16b-a3b", "train_4k"): (106168320, 1948948),
+    ("moonshot-v1-16b-a3b", "prefill_32k"): (53870592, 649856),
+    ("moonshot-v1-16b-a3b", "decode_32k"): (1732608, 716040),
+    ("moonshot-v1-16b-a3b", "long_500k"): None,
+    ("musicgen-medium", "train_4k"): (34603008, 1006612),
+    ("musicgen-medium", "prefill_32k"): (16515072, 321792),
+    ("musicgen-medium", "decode_32k"): (180224, 364036),
+    ("musicgen-medium", "long_500k"): None,
+    ("chameleon-34b", "train_4k"): (40894464, 1286932),
+    ("chameleon-34b", "prefill_32k"): (19660800, 429184),
+    ("chameleon-34b", "decode_32k"): (212992, 462600),
+    ("chameleon-34b", "long_500k"): None,
+}
+# what a MESH_CELLS record's per-device FLOPs x chips over its mesh-``one``
+# count must read: every product of qwen2-1.5b under ``tiny`` splits four
+# ways; the ``single`` ratios are this phase's own first readings on an
+# H100's host (torch 2.11.0+cu128), where its 12 heads do not divide the
+# 16-way ``model`` axis and moonshot's 64 experts do
+MESH_FULL_RATIO = {("qwen2-1.5b", "train_4k", "tiny"): 1.0,
+                   ("qwen2-1.5b", "train_4k", "single"): 4.03514467184192,
+                   ("moonshot-v1-16b-a3b", "train_4k", "single"):
+                       1.0162337662337662}
 
 
 def emit(obj) -> None:
@@ -4245,12 +4308,26 @@ def mesh_cell(arch: str, shape: str, mesh: str, out: str) -> None:
         json.dump(rec, f)
 
 
+def mesh_grid(out: str) -> None:
+    """The ``mesh`` phase's grid child: the dry-run's record of every
+    ``MESH_TINY_REF`` cell at --smoke-config under ``tiny`` (``meta``, the
+    host only), and the host's torch version, written to ``out`` as
+    JSON."""
+    from repro_torch.launch.dryrun import run_cell
+    recs = []
+    for arch, shape in MESH_TINY_REF:
+        recs.append(run_cell(arch, shape, "tiny", smoke_config=True))
+    with open(out, "w") as f:
+        json.dump({"torch": torch.__version__, "records": recs}, f)
+
+
 class MeshCells:
-    """The ``mesh`` phase's dry-run children (:func:`mesh_cell`): every
-    cell of ``MESH_CELLS`` and the mesh-``one`` record of each of its
-    (arch, shape), one process each, all started together (they count on
-    ``meta`` on the host's cores and touch no card).  ``close`` (also at
-    exit) stops any still running and removes their directory."""
+    """The ``mesh`` phase's dry-run children (:func:`mesh_cell`,
+    :func:`mesh_grid`): every cell of ``MESH_CELLS``, the mesh-``one``
+    record of each of its (arch, shape), and the smoke grid, one process
+    each, all started together (they count on ``meta`` on the host's
+    cores and touch no card).  ``close`` (also at exit) stops any still
+    running and removes their directory."""
 
     def __init__(self):
         import atexit
@@ -4261,13 +4338,14 @@ class MeshCells:
             (a, sh) for a, sh, _m in MESH_CELLS)]
         self.started = time.perf_counter()
         self.procs = {}
-        for cell in (*MESH_CELLS, *ones):
+        for cell in (*MESH_CELLS, *ones, "grid"):
             out = os.path.join(self.work, "-".join(cell) + ".json")
             log = open(out + ".log", "w+")
+            args = ["--mesh-grid"] if cell == "grid" else ["--mesh-cell",
+                                                            *cell]
             self.procs[cell] = (subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--mesh-cell",
-                 *cell, out], stdout=log, stderr=subprocess.STDOUT,
-                text=True), log, out)
+                [sys.executable, os.path.abspath(__file__), *args, out],
+                stdout=log, stderr=subprocess.STDOUT, text=True), log, out)
 
     def join(self) -> dict:
         """Each cell's record, once every child has ended."""
@@ -4315,7 +4393,14 @@ def mesh_phase(cells: MeshCells, reset_counts, counts, launches, smi: str,
     times the chips at least the mesh-``one`` count (no work lost; the
     ratio printed), per-device argument bytes equal to
     ``shardspec.device_bytes`` of the arguments, the per-device peak below
-    the mesh-``one`` peak, and a nonzero collective term."""
+    the mesh-``one`` peak, and a nonzero collective term; where
+    ``MESH_FULL_RATIO`` names the cell, that ratio exactly.  Gate 3, on
+    the host: every cell of the smoke grid under ``tiny`` counts the
+    reference's pinned ``MESH_TINY_REF`` FLOPs per device exactly (the SSM
+    training steps less ``testing.ssd_backward_gap``) and its argument
+    bytes (less the decode cache's 4 bytes of ``pos``, a host int in the
+    port), with a nonzero collective term; a cell the reference skips is
+    skipped."""
     import tempfile
     from repro_torch.checkpoint import restore, save
     from repro_torch.configs import get_config, get_shape
@@ -4328,6 +4413,8 @@ def mesh_phase(cells: MeshCells, reset_counts, counts, launches, smi: str,
     from repro_torch.models import init_params
     from repro_torch.training import AdamWConfig, TrainState, adamw_init
     from repro_torch.training.train_state import prng_key
+
+    from repro_torch.testing import ssd_backward_gap
 
     t_phase = time.perf_counter()
     reset_counts()
@@ -4416,6 +4503,10 @@ def mesh_phase(cells: MeshCells, reset_counts, counts, launches, smi: str,
         if ratio < 1:
             raise AssertionError(f"mesh gate 1: {arch} {mesh} lost work: "
                                  f"{ratio} of the mesh-one FLOPs")
+        want = MESH_FULL_RATIO.get((arch, shape, mesh))
+        if want is not None and ratio != want:
+            raise AssertionError(f"mesh gate 1: {arch} {mesh} FLOPs x "
+                                 f"chips over one {ratio}, not {want}")
         if rec["memory"]["argument_bytes"] != \
                 rec["argument_bytes_per_device"]:
             raise AssertionError(f"mesh gate 1: {arch} {mesh} argument "
@@ -4429,12 +4520,46 @@ def mesh_phase(cells: MeshCells, reset_counts, counts, launches, smi: str,
         if not rec["roofline"]["collective_s"] > 0:
             raise AssertionError(f"mesh gate 1: {arch} {mesh} has no "
                                  f"collective term")
+    # gate 3: the smoke grid against the reference's pinned counts
+    grid = recs["grid"]
+    grid_out, failed = [], []
+    for rec in grid["records"]:
+        cell = (rec["arch"], rec["shape"])
+        ref = MESH_TINY_REF[cell]
+        if ref is None:
+            if rec["status"] != "skipped":
+                failed.append(f"{cell} ran where the reference skips it")
+            grid_out.append({"cell": cell, "status": rec["status"]})
+            continue
+        if rec["status"] != "ok":
+            failed.append(f"{cell}: {rec.get('traceback')}")
+            continue
+        pos = 4 if rec["kind"] == "decode" else 0
+        row = {"cell": cell, "status": "ok",
+               "flops": rec["cost"]["flops_per_device"],
+               "ref_flops": ref[0], "ssd_gap": ssd_backward_gap(*cell),
+               "argument_bytes": rec["argument_bytes_per_device"],
+               "ref_argument_bytes": ref[1] - pos,
+               "collective_bytes": sum(rec["collective_bytes"].values()),
+               "dry_run_s": rec["lower_s"]}
+        grid_out.append(row)
+        if row["flops"] + row["ssd_gap"] != ref[0] \
+                or rec["memory"]["argument_bytes"] != row["argument_bytes"] \
+                or row["argument_bytes"] != row["ref_argument_bytes"] \
+                or not rec["roofline"]["collective_s"] > 0:
+            failed.append(f"{cell} counts {row}, not the reference's")
+    if failed:
+        raise AssertionError(f"mesh gate 3 (torch {grid['torch']}): "
+                             + "\n".join(failed))
     launches["mesh"] = counts()
     if any(launches["mesh"].values()):
         raise AssertionError(f"mesh: kernels launched {launches['mesh']}")
     emit({"phase": "mesh", "device": name, "nvidia_smi": smi,
           "card_count": cards, "gate2": gate2, "gate2_s": gate2_s,
-          "cells": cells_out, "children_wall_s": cells.wall_s,
+          "cells": cells_out, "host_torch": grid["torch"],
+          "grid": grid_out, "grid_dry_run_s": sum(
+              r.get("dry_run_s", 0) for r in grid_out),
+          "children_wall_s": cells.wall_s,
           "launches": launches["mesh"],
           "phase_s": time.perf_counter() - t_phase,
           "script_s": time.perf_counter() - T_START})
@@ -6313,5 +6438,7 @@ if __name__ == "__main__":
         aot_child(*sys.argv[2:])
     elif sys.argv[1:2] == ["--mesh-cell"]:
         mesh_cell(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--mesh-grid"]:
+        mesh_grid(*sys.argv[2:])
     else:
         main()

@@ -9,7 +9,7 @@ For each cell this produces, with zero device allocation:
     in place of the HLO analyzer), collective bytes,
   * the arguments' bytes on one device under the sharding policy
     (``shardspec.tree_shardings``, the reference's ``in_shardings``;
-    all of them at mesh ``one``),
+    every one read at mesh ``one``),
   * the three roofline terms against one H100 SXM, the dominant one and
     the MODEL_FLOPS ratio.  The memory term reads the bytes the step must
     move (``OpCost.moved_bytes``: arguments read, new outputs written),
@@ -29,17 +29,20 @@ Under them a record is one device's: where the reference reads XLA's
 SPMD-partitioned HLO, the port runs the step on DTensors (``per_device``):
 this process is rank 0 of a fake process group as large as the mesh, each
 argument is a DTensor of ``meta`` blocks placed as
-``shardspec.tree_shardings`` says, and DTensor propagates the placements
-through the step (under ``implicit_replication``: a tensor the model makes,
-such as positions, is replicated) while the counter counts device 0's
-local ops and the collectives that redistribution issues.  Where DTensor
-cannot, or would not, split as GSPMD does, ``_Reshard`` reshards first
-and the counter counts it: a view over an unevenly split dimension (such
-as qwen2's 12 heads over a 16-way ``model`` axis) gathers its input over
-the offending mesh axes; masked partials and a matrix product's partial
-operands are reduced; a failed propagation runs on whole inputs.  The
-counts follow the installed torch's DTensor (PERF.md §6).  The group is
-set up and torn down around each cell.
+``shardspec.tree_shardings`` says, and the counter counts device 0's local
+ops and the collectives that redistribution issues.  Where the counts
+depend on it, the split is the port's own rule, GSPMD's, not the installed
+DTensor's strategy, so every torch version counts the same: einsums and
+matrix products run as ``dot_general`` s (:class:`_Products`); views,
+embedding lookups, pads, flips and elementwise ops whose operands split
+different dimensions over one axis are placed below autograd
+(:class:`_Reshard`); a product whose output a later op splits over an
+axis the product left idle is split there in a second pass
+(:class:`_Consumers`).  DTensor propagates the rest (under
+``implicit_replication``: a tensor the model makes, such as positions, is
+replicated).  An argument no op reads is left out of the argument bytes,
+as ``jax.jit`` drops it.  The group is set up and torn down around each
+cell.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch all --shape all \
@@ -61,6 +64,7 @@ import time
 import traceback
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_map
 from torch.utils.flop_counter import flop_registry
@@ -144,85 +148,459 @@ def as_dtensors(tree, shardings, dmesh):
     return _map_with_path(leaf, tree)
 
 
-def _kept_dims(in_shape, out_shape) -> set:
-    """The input dimensions a view leaves whole: same size at the same
-    offset in both shapes."""
-    starts = {math.prod(out_shape[:j]): out_shape[j]
-              for j in range(len(out_shape))}
-    return {d for d, n in enumerate(in_shape)
-            if starts.get(math.prod(in_shape[:d])) == n}
+def _as_dtensor(x, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(x):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _wrap(local, mesh, placements):
+    """The DTensor of this device's ``local`` block (its global shape and
+    strides follow the block's, every split even)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh, placements, run_check=False)
+
+
+class _Consumers:
+    """GSPMD's backward propagation, in the one case the counts see: a
+    product that leaves a mesh axis idle (no operand splits anything over
+    it) could split a free index over it for free (slicing the replicated
+    operand that has it), and GSPMD does where a later op splits that
+    value there.  Eager ops cannot look ahead, so the step runs again:
+    each pass follows every such free index (``origins``: a tensor's
+    dimension -> (product, index, idle axes)) through elementwise ops,
+    views and later products, and an op that slices that dimension over
+    one of those axes asks for it (``asked``); the next pass splits those
+    products so (``split``).  Products are numbered in call order, which
+    the placements do not change."""
+
+    def __init__(self, split=frozenset()):
+        from torch.utils.weak import WeakIdKeyDictionary
+        self.split = split
+        self.asked: set = set()
+        self.origins = WeakIdKeyDictionary()
+        self.products = 0
+
+    def of(self, x) -> dict:
+        return self.origins.get(x, {}) if is_dtensor(x) else {}
+
+    def sliced(self, x, d: int, m: int) -> None:
+        """``x``'s dimension ``d``, whole on axis ``m``, is split there."""
+        origin = self.of(x).get(d)
+        if origin is not None and m in origin[2]:
+            self.asked.add((origin[0], origin[1], m))
+
+    def follow(self, x, out, dims: dict) -> None:
+        """``out`` takes ``x``'s origins through ``dims`` (its dimension
+        -> ``out``'s); a dimension ``x`` held whole on an axis that
+        ``out`` splits asks for that split."""
+        from torch.distributed.tensor import Replicate, Shard
+        if not self.of(x) or not is_dtensor(out):
+            return
+        got = self.origins.setdefault(out, {})
+        for d, origin in self.of(x).items():
+            if dims.get(d) is None:
+                continue
+            got.setdefault(dims[d], origin)
+            for m, (p, q) in enumerate(zip(x.placements, out.placements)):
+                if isinstance(p, Replicate) and q == Shard(dims[d]):
+                    self.sliced(x, d, m)
+
+
+def _dot(spec: str, a, b, consumers):
+    """``torch.einsum(spec, a, b)`` for two operands, split over the mesh
+    as GSPMD splits a ``dot_general`` (the port's rule, whatever the
+    installed DTensor's product strategies are):
+
+    * a partial operand is reduced first;
+    * each mesh axis keeps the index that an operand splits over it (an
+      index of both operands is split in both; an operand without it is
+      sliced, which moves nothing); where the two operands split different
+      indices over one axis, the larger operand keeps its split (on a tie
+      the second, the newer intermediate of a contraction path) and the
+      other is resharded;
+    * an axis that splits a contracted index leaves the product partial,
+      and it is reduced at once, as GSPMD reduces at the dot; a mesh axis
+      that splits nothing then splits the first operand's rows (its first
+      free index it divides), which its replicated operands allow for
+      free, and the rows go back to that axis whole after the product;
+    * a mesh axis that a later op splits a free index over (``consumers``,
+      :class:`_Consumers`) splits it here;
+    * the local einsum runs on this device's blocks, so the counter counts
+      one device's FLOPs."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    index = consumers.products
+    consumers.products += 1
+    mesh = (a if is_dtensor(a) else b).device_mesh
+    given = (a, b)
+    a, b = (_reduced(_as_dtensor(x, mesh)) for x in (a, b))
+    ins, out = spec.split("->")
+    la, lb = ins.split(",")
+    size = dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
+
+    def split(x, letters, m):
+        p = x.placements[m]
+        return letters[p.dim] if isinstance(p, Shard) else None
+
+    plan, ways = [], dict.fromkeys(size, 1)
+
+    def take(m, letters):
+        n = mesh.size(m)
+        c = next((c for c in letters
+                  if c and size[c] % (ways[c] * n) == 0), None)
+        if c:
+            ways[c] *= n
+        return c
+
+    free = [c for c in out if (c in la) != (c in lb)]
+    for m in range(mesh.ndim):
+        sa, sb = split(a, la, m), split(b, lb, m)
+        order = (sa, sb) if a.numel() > b.numel() else (sb, sa)
+        plan.append(take(m, order) or take(m, [
+            c for c in free if (index, c, m) in consumers.split]))
+    idle = []
+    if any(c and c not in out for c in plan):
+        rows = [c for c in out if c in la and c not in lb]
+        idle = [m for m, c in enumerate(plan) if c is None]
+        plan = [c or take(m, rows) for m, c in enumerate(plan)]
+
+    def target(letters):
+        return [Shard(letters.index(c)) if c and c in letters
+                else Replicate() for c in plan]
+
+    def grads(letters):
+        # a replicated operand's gradient is partial where the product's
+        # other operand splits a free index
+        return [Partial() if c and c in out and c not in letters else p
+                for c, p in zip(plan, target(letters))]
+
+    xa = a.redistribute(mesh, target(la)).to_local(grad_placements=grads(la))
+    xb = b.redistribute(mesh, target(lb)).to_local(grad_placements=grads(lb))
+    y = torch.einsum(spec, xa, xb)
+    placements = [Shard(out.index(c)) if c and c in out
+                  else Partial() if c else Replicate() for c in plan]
+    y = _wrap(y, mesh, placements)
+    if any(isinstance(placements[m], Shard) for m in idle):
+        # the rows go back where the product's operands left them
+        y = y.redistribute(mesh, [Replicate() if m in idle else p
+                                  for m, p in enumerate(placements)])
+    y = _reduced(y)
+    for x, letters in zip(given, (la, lb)):
+        for m, p in enumerate(target(letters) if is_dtensor(x) else ()):
+            if isinstance(p, Shard) and m not in idle \
+                    and not isinstance(x.placements[m], Shard):
+                consumers.sliced(x, p.dim, m)
+        consumers.follow(x, y, {d: out.index(c) for d, c in enumerate(letters)
+                                if c in out})
+    unsplit = frozenset(m for m, c in enumerate(plan) if c is None)
+    if unsplit:
+        got = consumers.origins.setdefault(y, {})
+        for c in free:
+            got.setdefault(out.index(c), (index, c, unsplit))
+    return y
+
+
+def _path(spec: str, shapes: list) -> list:
+    """The pairwise contraction order of an einsum: ``opt_einsum``'s
+    ``auto`` path, as ``torch.einsum`` and ``jnp.einsum`` take it (each
+    step removes a pair and appends its result)."""
+    if len(shapes) == 2:
+        return [(0, 1)]
+    import opt_einsum
+    return opt_einsum.contract_path(spec, *shapes, shapes=True,
+                                    optimize="auto")[0]
+
+
+def _einsum(spec: str, ops, consumers):
+    """``torch.einsum`` of DTensors as pairwise :func:`_dot` s, or None
+    where the port's rule does not apply (an ellipsis, one operand)."""
+    spec = spec.replace(" ", "")
+    if "..." in spec or "->" not in spec or len(ops) < 2:
+        return None
+    ins, out = spec.split("->")
+    items = list(zip(ins.split(","), ops))
+    for i, j in _path(spec, [tuple(x.shape) for x in ops]):
+        (si, xi), (sj, xj) = items[i], items[j]
+        items = [it for k, it in enumerate(items) if k not in (i, j)]
+        keep = set(out).union(*(s for s, _ in items))
+        so = out if not items else "".join(
+            dict.fromkeys(c for c in si + sj if c in keep))
+        items.append((so, _dot(f"{si},{sj}->{so}", xi, xj, consumers)))
+    return items[0][1]
+
+
+def _matmul(a, b, consumers):
+    """``a @ b`` (or ``bmm``) of DTensors as a :func:`_dot` (the
+    reference's ``@`` is a ``dot_general`` over the free dimensions;
+    torch's folds them first): a matrix on the right, or equal batch
+    dimensions; None for another broadcast (DTensor takes it)."""
+    if b.ndim == 2 and a.ndim >= 1:
+        rows = "abcdefghij"[:a.ndim - 1]
+        return _dot(f"{rows}k,kn->{rows}n", a, b, consumers)
+    if a.ndim == b.ndim >= 3 and a.shape[:-2] == b.shape[:-2]:
+        batch = "abcdefghij"[:a.ndim - 2]
+        return _dot(f"{batch}mk,{batch}kn->{batch}mn", a, b, consumers)
+    return None
+
+
+def _view_groups(in_shape, out_shape) -> list:
+    """The view's dimension groups: (input dims, output dims) of equal
+    products, size-1 dimensions left out (they are never split)."""
+    ins = [d for d, n in enumerate(in_shape) if n != 1]
+    outs = [d for d, n in enumerate(out_shape) if n != 1]
+    groups, i, j = [], 0, 0
+    while i < len(ins):
+        gi, gj = [ins[i]], [outs[j]]
+        pi, pj = in_shape[ins[i]], out_shape[outs[j]]
+        i, j = i + 1, j + 1
+        while pi != pj:
+            if pi < pj:
+                gi.append(ins[i])
+                pi, i = pi * in_shape[ins[i]], i + 1
+            else:
+                gj.append(outs[j])
+                pj, j = pj * out_shape[outs[j]], j + 1
+        groups.append((gi, gj))
+    return groups
+
+
+def _view_placements(in_shape, placements, out_shape, sizes) -> tuple:
+    """The port's rule for a view of a split tensor (GSPMD's reshape
+    sharding, whatever the installed DTensor's view strategy is): within
+    each group of dimensions the view merges or splits, the mesh axes
+    that split it (major dimension first, each dimension's axes in mesh
+    order) cut its flat range into contiguous chunks, and the view keeps
+    each cut that lands on an output dimension it divides.  A cut that
+    would be strided (a more major dimension of the group still has more
+    than one element on a device, an axis out of mesh order, an output
+    dimension it does not divide) is gathered, and so is every later cut
+    of that group.  Returns (the input's placements with those axes
+    gathered, the output's placements)."""
+    from torch.distributed.tensor import Replicate, Shard
+    kept, out = list(placements), list(placements)
+    for gi, gj in _view_groups(in_shape, out_shape):
+        cuts, major, last, clean = [], 1, -1, True
+        for d in gi:
+            axes = [m for m, p in enumerate(placements)
+                    if isinstance(p, Shard) and p.dim == d]
+            for m in axes:
+                clean = clean and major == 1 and m > last
+                if clean:
+                    cuts.append(m)
+                    last = m
+                else:
+                    kept[m] = out[m] = Replicate()
+            ways = math.prod(sizes[m] for m in axes if m in cuts)
+            major *= in_shape[d] // ways
+        local = {d: out_shape[d] for d in gj}
+        k, clean = 0, True
+        for m in cuts:
+            while k < len(gj) and local[gj[k]] == 1:
+                k += 1
+            clean = clean and k < len(gj) and local[gj[k]] % sizes[m] == 0
+            if clean:
+                local[gj[k]] //= sizes[m]
+                out[m] = Shard(gj[k])
+            else:
+                kept[m] = out[m] = Replicate()
+    return kept, out
 
 
 class _Reshard(TorchDispatchMode):
-    """GSPMD's resharding where DTensor's propagation cannot go on:
+    """The port's partitioner below autograd, where the reference's
+    GSPMD and the installed DTensor could split differently:
 
-    * a view of a DTensor that raises (a dimension unevenly sharded for
-      the split it asks for) is retried after gathering its input over
-      the mesh axes that split a dimension the view does not keep whole,
-      then over all;
-    * a masked partial output (a gather or an embedding lookup over a
-      split vocabulary) is reduced at once: DTensor loses its mask through
-      a later view (``gather(...)[..., 0]``) and fails where it reduces;
+    * a view of a DTensor is placed by :func:`_view_placements`, never by
+      DTensor's view strategy (torch 2.11's gathers a merge of two split
+      dimensions where 2.13's keeps a strided shard);
+    * a constant pad or a flip runs on this device's block, the padded
+      or flipped dimensions gathered first (torch 2.11's pad strategy
+      fails on the SSM's causal conv, and it has none for the flip in
+      ``cumsum``'s backward);
+    * an embedding lookup (``index`` on dimension 0) of a table split over
+      its rows is a masked local gather reduced over those axes, as
+      GSPMD's gather (DTensor would move the table);
+    * a masked partial output (a gather over a split vocabulary) is
+      reduced at once: DTensor loses its mask through a later view
+      (``gather(...)[..., 0]``) and fails where it reduces;
     * any other op whose sharding DTensor cannot propagate (torch 2.11's
       ``index_put`` strategy, an embedding's backward, fails on its own
       negative dimension) runs on its inputs gathered whole;
-    * a matrix product takes no partial operand: it is reduced first.
-      DTensor keeps a residual partial through ``rms_norm``'s (linear)
-      scaling and then multiplies it by the whole gathered weight, where
-      GSPMD reduces it and splits the product.
+    * a matrix product that reaches this level (the products the
+      function-level rule, :func:`_einsum` / :func:`_matmul`, did not
+      take) takes no partial operand: it is reduced first.
 
     All are redistributions, so the counter below counts their
     collectives."""
 
+    def __init__(self, consumers):
+        super().__init__()
+        self.consumers = consumers
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func in _view_ops() and is_dtensor(args[0]):
+            out = self._view(func, *args, **kwargs)
+            if out is not None:
+                groups = _view_groups(tuple(args[0].shape), tuple(out.shape))
+                self.consumers.follow(args[0], out, {
+                    gi[0]: gj[0] for gi, gj in groups
+                    if len(gi) == len(gj) == 1})
+                return out
+        if func is torch.ops.aten.index.Tensor and is_dtensor(args[0]):
+            out = self._lookup(func, *args)
+            if out is not None:
+                return out
+        if func is torch.ops.aten.constant_pad_nd.default \
+                and is_dtensor(args[0]):
+            return self._pad(func, *args, **kwargs)
+        if func is torch.ops.aten.flip.default and is_dtensor(args[0]):
+            return self._flip(func, *args)
         if func._overloadpacket in flop_registry:
-            args = tuple(_reduced(a) for a in args)
+            args = tuple(_reduced(_below(a)) for a in args)
+        elif torch.Tag.pointwise in func.tags:
+            given = args
+            args = _first_split_wins(args)
         try:
             out = func(*args, **kwargs)
         except RuntimeError as e:
-            if func in _view_ops() and is_dtensor(args[0]):
-                out = self._gathered_view(func, args, kwargs)
-            elif ("Sharding propagation failed" in str(e)
-                  and not func._schema.is_mutable):
-                out = func(*tree_map(_replicated, args),
-                           **tree_map(_replicated, kwargs))
+            if ("Sharding propagation failed" in str(e)
+                    and not func._schema.is_mutable):
+                out = func(*tree_map(_whole, args),
+                           **tree_map(_whole, kwargs))
             else:
                 raise
         if is_dtensor(out) and any(type(p).__name__.endswith("MaskPartial")
                                    for p in out.placements):
             from torch.distributed.tensor import Replicate
-            out = out.redistribute(out.device_mesh, [
+            out = _below(out).redistribute(out.device_mesh, [
                 Replicate() if type(p).__name__.endswith("MaskPartial")
                 else p for p in out.placements])
+        if torch.Tag.pointwise in func.tags and is_dtensor(out):
+            for x in given:
+                if is_dtensor(x):
+                    lead = out.ndim - x.ndim
+                    self.consumers.follow(x, out, {
+                        d: d + lead for d in range(x.ndim)
+                        if x.shape[d] == out.shape[d + lead]})
         return out
 
     @staticmethod
-    def _gathered_view(func, args, kwargs):
+    def _view(func, x, shape):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        if any(type(p) not in (Shard, Replicate, Partial)
+               for p in x.placements):
+            return None
+        mesh = x.device_mesh
+        shape = list(shape)
+        if -1 in shape:
+            shape[shape.index(-1)] = x.numel() // -math.prod(shape)
+        sizes = [mesh.size(m) for m in range(mesh.ndim)]
+        kept, out = _view_placements(tuple(x.shape), x.placements, shape,
+                                     sizes)
+        if kept != list(x.placements):
+            x = _below(x).redistribute(mesh, kept)
+        local = list(shape)
+        for m, p in enumerate(out):
+            if isinstance(p, Shard):
+                local[p.dim] //= sizes[m]
+        return _wrap(func(x._local_tensor, local), mesh, out)
+
+    @staticmethod
+    def _pad(func, x, pad, value=0):
         from torch.distributed.tensor import Replicate, Shard
-        x = args[0]
-        out = list(args[1])
-        if -1 in out:
-            out[out.index(-1)] = x.numel() // -math.prod(out)
-        kept = _kept_dims(tuple(x.shape), tuple(out))
-        for keep in (kept, set()):
-            want = [Replicate() if isinstance(p, Shard) and p.dim not in keep
-                    else p for p in x.placements]
-            x = x.redistribute(x.device_mesh, want)
-            try:
-                return func(x, *args[1:], **kwargs)
-            except RuntimeError:
-                if not keep:
-                    raise
-        raise AssertionError("unreachable")
+        padded = {x.ndim - 1 - i // 2 for i, n in enumerate(pad) if n}
+        want = [Replicate() if p.is_partial() or (
+            isinstance(p, Shard) and p.dim in padded) else p
+            for p in x.placements]
+        if want != list(x.placements):
+            x = _below(x).redistribute(x.device_mesh, want)
+        return _wrap(func(x._local_tensor, pad, value), x.device_mesh, want)
+
+    @staticmethod
+    def _flip(func, x, dims):
+        from torch.distributed.tensor import Replicate, Shard
+        flipped = {d % x.ndim for d in dims}
+        want = [Replicate() if isinstance(p, Shard) and p.dim in flipped
+                else p for p in x.placements]
+        if want != list(x.placements):
+            x = _below(x).redistribute(x.device_mesh, want)
+        return _wrap(func(x._local_tensor, dims), x.device_mesh, want)
+
+    @staticmethod
+    def _lookup(func, table, indices):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        if len(indices) != 1 or indices[0] is None:
+            return None
+        mesh = table.device_mesh
+        idx = _as_dtensor(indices[0], mesh)
+        placements, masked = [], False
+        for pt, pi in zip(table.placements, idx.placements):
+            if type(pt) not in (Shard, Replicate) \
+                    or type(pi) not in (Shard, Replicate) \
+                    or (isinstance(pt, Shard) and isinstance(pi, Shard)):
+                return None
+            if isinstance(pt, Shard):
+                masked |= pt.dim == 0
+                placements.append(Partial() if pt.dim == 0
+                                  else Shard(idx.ndim + pt.dim - 1))
+            else:
+                placements.append(pi)
+        if not masked:
+            return None
+        local = func(table._local_tensor, [idx._local_tensor])
+        return _reduced(_wrap(local, mesh, placements))
 
 
-def _replicated(x):
-    """``x`` whole on every device, if it is a DTensor."""
+def _first_split_wins(args) -> tuple:
+    """The operands of an elementwise op, each split over a mesh axis where
+    the first operand that splits that axis splits it (its dimensions
+    aligned from the right, as broadcasting aligns them): GSPMD's operand
+    order where two operands split different dimensions over one axis
+    (DTensor's strategy could keep either)."""
+    from torch.distributed.tensor import Replicate, Shard
+    ts = [a for a in args if is_dtensor(a)]
+    if len(ts) < 2:
+        return args
+    n = max(t.ndim for t in ts)
+    want = {}
+    for t in ts:
+        for m, p in enumerate(t.placements):
+            if isinstance(p, Shard):
+                want.setdefault(m, p.dim + n - t.ndim)
+
+    def moved(t):
+        pl = list(t.placements)
+        for m, d in want.items():
+            if isinstance(pl[m], Shard) and pl[m].dim + n - t.ndim != d:
+                k = d - (n - t.ndim)
+                pl[m] = Shard(k) if 0 <= k and t.shape[k] > 1 \
+                    and t.shape[k] % t.device_mesh.size(m) == 0 \
+                    else Replicate()
+        return t if pl == list(t.placements) else \
+            _below(t).redistribute(t.device_mesh, pl)
+
+    return tuple(moved(a) if is_dtensor(a) else a for a in args)
+
+
+def _below(x):
+    """``x`` for a redistribution below autograd (in a dispatch mode): a
+    DTensor that requires grad is detached first.  With grad mode off (a
+    backward) autograd would detach the redistribution's output in place,
+    and torch 2.11's DTensor has no strategy for ``detach_``; autograd
+    above the mode records the op whatever its inputs say."""
+    return x.detach() if is_dtensor(x) and x.requires_grad else x
+
+
+def _whole(x):
+    """``x`` whole on every device, if it is a DTensor (below autograd)."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
-    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    return _below(x).redistribute(x.device_mesh,
+                                  [Replicate()] * x.device_mesh.ndim)
 
 
 def _reduced(x):
@@ -236,18 +614,80 @@ def _reduced(x):
 
 def _view_ops() -> frozenset:
     aten = torch.ops.aten
-    return frozenset({aten.view.default, aten._unsafe_view.default,
-                      aten.reshape.default})
+    return frozenset({aten.view.default, aten._unsafe_view.default})
 
 
-def _on_dtensors(fn):
-    """``fn`` under ``implicit_replication`` and :class:`_Reshard`."""
+class _Products(TorchFunctionMode):
+    """The function-level half of the port's partitioner: ``torch.einsum``
+    and ``@`` / ``matmul`` / ``bmm`` of DTensors run as :func:`_einsum` /
+    :func:`_matmul` (GSPMD's ``dot_general`` over the free and batch
+    dimensions), before torch folds them into ``bmm`` s through views."""
+
+    def __init__(self, consumers):
+        super().__init__()
+        self.consumers = consumers
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = None
+        if not kwargs:
+            if func is torch.einsum:
+                ops = args[1:]
+                if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
+                    ops = tuple(ops[0])
+                if any(is_dtensor(x) for x in ops):
+                    out = _einsum(args[0], ops, self.consumers)
+            elif func in _MATMULS and len(args) == 2 \
+                    and any(is_dtensor(x) for x in args):
+                out = _matmul(*args, self.consumers)
+        return func(*args, **kwargs) if out is None else out
+
+
+_MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
+            torch.bmm, torch.Tensor.bmm)
+
+
+def _on_dtensors(fn, consumers=None):
+    """``fn`` under ``implicit_replication`` and the port's partitioner
+    (:class:`_Products`, :class:`_Reshard`, sharing ``consumers``)."""
+    consumers = consumers or _Consumers()
+
     def run(*args):
         from torch.distributed.tensor.experimental import \
             implicit_replication
-        with implicit_replication(), _Reshard():
+        with implicit_replication(), _Products(consumers), \
+                _Reshard(consumers):
             return fn(*args)
     return run
+
+
+def _per_device_cost(fn, args, shardings, dmesh):
+    """One device's count of ``fn(*args)`` on DTensors placed as
+    ``shardings`` say, and those DTensors: the step runs again while a
+    pass finds products that their consumers split (:class:`_Consumers`),
+    at most three times."""
+    split: set = set()
+    for _ in range(3):
+        consumers = _Consumers(frozenset(split))
+        dargs = as_dtensors(args, shardings, dmesh)
+        cost = analyze(_on_dtensors(fn, consumers), *dargs)
+        if consumers.asked <= split:
+            break
+        split |= consumers.asked
+    return cost, dargs
+
+
+def _unread_paths(leaves, cost) -> frozenset:
+    """The ``keystr`` paths of the arguments no op read (``jax.jit`` drops
+    them, and its argument bytes leave them out)."""
+    def storage(t):
+        while hasattr(t, "_local_tensor"):
+            t = t._local_tensor
+        return id(t.untyped_storage())
+
+    return frozenset(keystr(p) for p, t in tree_flatten_with_path(leaves)
+                     if isinstance(t, torch.Tensor)
+                     and storage(t) in cost.unread_arguments)
 
 
 def _opt_config(cfg: ModelConfig) -> AdamWConfig:
@@ -351,15 +791,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "one",
         rules = moe_rules_patch(cfg, rules_for(cfg, shape, mesh))
         with logical_axis_rules(rules, mesh):
             fn, args, shardings, chips = lower_cell(cfg, shape, mesh, rules)
-            arg_bytes = device_bytes(args, shardings)
             if chips == 1:
-                cost = analyze(fn, *args)
+                cost, leaves = analyze(fn, *args), args
             else:
                 with per_device(mesh) as dmesh:
-                    cost = analyze(_on_dtensors(fn), *as_dtensors(
-                        args, shardings, dmesh))
+                    cost, leaves = _per_device_cost(fn, args, shardings,
+                                                    dmesh)
+            arg_bytes = device_bytes(args, shardings,
+                                     _unread_paths(leaves, cost))
         t_lower = time.time() - t0
-        del fn, args
+        del fn, args, leaves
         mf = model_flops_for(cfg, shape)
         terms = roofline_terms({"flops": cost.flops_total,
                                 "bytes accessed": cost.moved_bytes,

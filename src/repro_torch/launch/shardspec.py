@@ -323,11 +323,13 @@ def tree_shardings(tree, mesh: Mesh, rules: Mapping, axes_fn):
     return _map_with_path(leaf_sharding, tree)
 
 
-def device_bytes(tree, shardings) -> int:
+def device_bytes(tree, shardings, skip=frozenset()) -> int:
     """The bytes of ``tree``'s tensors that one device holds when each leaf
-    is placed as ``shardings`` (:func:`tree_shardings` of the tree) says."""
+    is placed as ``shardings`` (:func:`tree_shardings` of the tree) says;
+    leaves whose ``keystr`` path is in ``skip`` are left out."""
     pairs = zip(tree_flatten_with_path(tree),
                 tree_flatten_with_path(shardings), strict=True)
     return sum(math.prod(sh.shard_shape(leaf.shape)) * leaf.element_size()
-               for (_, leaf), (_, sh) in pairs
-               if isinstance(leaf, torch.Tensor))
+               for (path, leaf), (_, sh) in pairs
+               if isinstance(leaf, torch.Tensor)
+               and keystr(path) not in skip)

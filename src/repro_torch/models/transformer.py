@@ -19,10 +19,12 @@ that cache with ``pos`` advanced (the reference returns a new tree).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
 import torch
+from torch.overrides import _get_current_function_mode_stack
 from torch.utils.checkpoint import checkpoint
 
 from ..core.expr import full_fp32
@@ -150,6 +152,23 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 # Forward (training / prefill)
 # ---------------------------------------------------------------------------
 
+def _remat_contexts():
+    """``checkpoint``'s ``context_fn``: the recompute in the backward runs
+    under the torch function modes the forward ran under (the dry-run's
+    per-device partitioner is one); ``checkpoint`` itself carries only a
+    device context over.  With no mode active both are empty."""
+    modes = _get_current_function_mode_stack()
+
+    @contextlib.contextmanager
+    def recompute():
+        with contextlib.ExitStack() as stack:
+            for mode in modes:
+                stack.enter_context(mode)
+            yield
+
+    return contextlib.nullcontext(), recompute()
+
+
 def _embed(params: dict, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
     if cfg.input_mode == "tokens":
         x = params["embed"][tokens.long()].to(cfg.cdtype())
@@ -226,13 +245,20 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None):
         pat = cfg.layer_pattern
         nper, ntail = _num_periods(cfg)
 
+        def carry(x):
+            # the period-boundary residual; the reference scans the
+            # periods, so its carry has this one sharding from the first
+            # period on
+            return constrain(x, ("batch", "seq_act", "embed"))
+
         def period(x, aux, pp):
+            x = carry(x)
             for j, kind in enumerate(pat):
                 x, a = _apply_block(pp[f"s{j}"], cfg, kind, x, positions)
                 aux = aux + a
             if cfg.shared_attn_every:
                 x = _apply_shared(params, cfg, x, positions)
-            return constrain(x, ("batch", "seq_act", "embed")), aux
+            return carry(x), aux
 
         remat = cfg.remat == "block" and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -240,7 +266,8 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None):
             if remat:
                 # the blocks draw no random numbers: no RNG state to keep
                 x, aux = checkpoint(period, x, aux, pp, use_reentrant=False,
-                                    preserve_rng_state=False)
+                                    preserve_rng_state=False,
+                                    context_fn=_remat_contexts)
             else:
                 x, aux = period(x, aux, pp)
         for i in range(ntail):

@@ -150,7 +150,8 @@ class OpCost:
     kind, ``kernels[name] = {"launches", "ops", "bytes"}``, ``per_op[name]
     = {"calls", "flops", "bytes"}``, ``events`` the ops and launches in call
     order as (name, operand shapes and dtypes, flops, bytes); memory in
-    bytes: the arguments, the outputs (``alias_bytes`` of them on argument
+    bytes: the arguments read (``unread_arguments``: the storages of those
+    never read), the outputs (``alias_bytes`` of them on argument
     storages) and the peak of everything live at once."""
     flops: dict = dataclasses.field(
         default_factory=lambda: dict.fromkeys(DTYPES, 0.0))
@@ -161,6 +162,7 @@ class OpCost:
     per_op: dict = dataclasses.field(default_factory=dict)
     events: list = dataclasses.field(default_factory=list)
     argument_bytes: int = 0
+    unread_arguments: frozenset = frozenset()
     output_bytes: int = 0
     alias_bytes: int = 0
     peak_bytes: int = 0
@@ -213,7 +215,8 @@ class OpCounter(TorchDispatchMode):
         self._quiet = 0
         self._live: dict[int, int] = {}
         self._live_bytes = 0
-        self._args: set = set()
+        self._args: dict = {}
+        self._read: set = set()
         self._finalizers: list = []
 
     def __enter__(self):
@@ -245,7 +248,7 @@ class OpCounter(TorchDispatchMode):
         argument bytes."""
         for key, (s, n) in _storages(tree).items():
             if key not in self._live:
-                self._args.add(key)
+                self._args[key] = n
                 self.cost.argument_bytes += n
                 self._hold(key, s, n)
 
@@ -254,6 +257,7 @@ class OpCounter(TorchDispatchMode):
         on argument storages (updated in place) as aliased."""
         for key, (_s, n) in _storages(tree).items():
             self.cost.output_bytes += n
+            self._read.add(key)         # an argument passed through is used
             if key in self._args:
                 self.cost.alias_bytes += n
 
@@ -270,6 +274,7 @@ class OpCounter(TorchDispatchMode):
                 if isinstance(t, torch.Tensor)]
         ins = [t for t in tree_flatten((args, kwargs))[0]
                if isinstance(t, torch.Tensor)]
+        self._read.update(id(t.untyped_storage()) for t in ins)
         if dtensor is not None and any(isinstance(t, FakeTensor)
                                        for t in outs or ins):
             return out                  # sharding propagation's shape run
@@ -390,13 +395,22 @@ def collective(kind: str, nbytes: float) -> None:
 
 def analyze(fn: Callable, *args, **kw) -> OpCost:
     """Run ``fn(*args, **kw)`` once under a counter and return what it
-    did; the result is discarded."""
+    did; the result is discarded.  An argument no op reads (and ``fn``
+    does not return) leaves the argument bytes and the peak, as
+    ``jax.jit`` drops unused arguments; ``unread_arguments`` holds their
+    storages."""
     with OpCounter() as counter:
         counter.arguments((args, kw))
         out = fn(*args, **kw)
         counter.outputs(out)
         del out
-    return counter.cost
+    cost = counter.cost
+    unread = {k: n for k, n in counter._args.items()
+              if k not in counter._read}
+    cost.unread_arguments = frozenset(unread)
+    cost.argument_bytes -= sum(unread.values())
+    cost.peak_bytes -= sum(unread.values())
+    return cost
 
 
 def _fmt_operands(operands: tuple) -> str:

@@ -1,4 +1,4 @@
-"""Parity helpers shared by the tests and ``chip_smoke.py`` (numpy only).
+"""Parity helpers shared by the tests and ``chip_smoke.py``.
 
 Two implementations of a scan never add up a dot product in the same
 order, so results are compared under a tie rule instead of bit for bit.
@@ -13,6 +13,9 @@ order, so results are compared under a tie rule instead of bit for bit.
 :func:`assert_range_close` holds range results (a best-first buffer of hits
 and the count before truncation), with one more rule: a row whose sim lies
 within ``tie_tol`` of the radius may be a hit on one side only.
+
+:func:`ssd_backward_gap` is the one count the per-device dry-run may differ
+from the reference's by.
 """
 from __future__ import annotations
 
@@ -184,3 +187,32 @@ def assert_range_close(actual: dict, expected: dict, *, radius, atol: float,
                 f"{int(cnt_b[r])} differ by more than the {allowed} rows at "
                 f"the radius")
     return err
+
+
+def ssd_backward_gap(arch: str, shape: str, mesh: str = "tiny") -> int:
+    """One device's share of the FLOPs the reference's SSM training step
+    counts and the port's does not, at --smoke-config: per SSM layer four
+    reductions of 2·B·S·H·16 FLOPs (the SSD's pairwise contractions with
+    no contracted index, whose transposes the reference's backward
+    contracts as dots and torch's autograd sums; ROADMAP queue 3, "Facts
+    about the reference"), split as the step's batch and SSM heads are
+    split over ``mesh``; 0 for any other cell."""
+    from .configs import get_config, get_shape
+    from .dist.sharding import entry_size
+    from .launch.dryrun import _mesh_for
+    from .launch.shardspec import rules_for
+    cfg = get_config(arch, smoke=True)
+    sh = get_shape(shape, smoke=True)
+    if cfg.ssm is None or sh.kind != "train":
+        return 0
+    s = cfg.ssm
+    assert s.d_state == s.head_dim == s.chunk == 16
+    heads = s.expand * cfg.d_model // s.head_dim
+    layers = sum(k == "ssm" for k in map(cfg.pattern_for_layer,
+                                         range(cfg.num_layers)))
+    m = _mesh_for(mesh)
+    rules = rules_for(cfg, sh, m)
+    ways = entry_size(m, rules["batch"]) * entry_size(m, rules["ff_heads"])
+    whole = layers * 4 * 2 * sh.global_batch * sh.seq_len * heads * 16
+    assert whole % ways == 0
+    return whole // ways

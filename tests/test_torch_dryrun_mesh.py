@@ -3,82 +3,50 @@
 the reference's on 8 fake CPU devices (its SPMD-partitioned HLO), on the
 CPU.
 
-For qwen2-1.5b and moonshot-v1-16b-a3b x ``train_4k`` and ``decode_32k``
-at ``--smoke-config`` under ``tiny`` (2 x 2), read in one reference
-subprocess:
+Every arch at ``train_4k`` and ``decode_32k`` at ``--smoke-config`` under
+``tiny`` (2 x 2), read in one reference subprocess, holds the rules of
+``tests/dryrun_mesh_grid.py`` (``prefill_32k`` and ``long_500k`` are in
+``test_torch_dryrun_mesh_prefill.py`` and ``_long.py``): FLOPs per
+device exactly the reference's (the SSM steps but for the SSD's backward
+reductions), argument bytes per device the reference's, collectives
+nonzero.
 
-* ``flops_per_device`` is the reference's exactly (40,894,464; 212,992;
-  106,168,320; 1,732,608): every product is split as GSPMD splits it;
-* the argument bytes per device are the reference's ``memory.
-  argument_bytes``, less 4 bytes in the decode cells: the cache's ``pos``
-  is a host int in the port and an int32 array in the reference;
-* the collective bytes are nonzero (printed beside the reference's, not
-  held equal: DTensor's redistributions are not XLA's).
-
-``tiny_multi`` (2 x 2 x 2) exits 0, and no process group outlives a
-cell.
+The port's partitioner holds on its own (:func:`test_merged_split_view_
+is_placed_by_the_port`): a view that merges two split dimensions keeps
+both splits when the blocks stay contiguous and gathers the minor one
+when they would be strided, whatever the installed DTensor's view
+strategy does.  ``tiny_multi`` (2 x 2 x 2) exits 0, and no process group
+outlives a cell.
 """
-import json
-import os
-import subprocess
-import sys
-
 import pytest
 
+import dryrun_mesh_grid as grid
 from repro_torch.launch import dryrun
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = [(a, s) for a in ("qwen2-1.5b", "moonshot-v1-16b-a3b")
-         for s in ("train_4k", "decode_32k")]
-# bytes a port record holds fewer of: the decode cache's int32 ``pos``
-POS_BYTES = {"train_4k": 0, "decode_32k": 4}
-
-REF_CODE = r"""
-import json, sys
-from repro.launch.dryrun import run_cell
-cells = json.loads(sys.argv[1])
-print(json.dumps([run_cell(a, s, "tiny", smoke_config=True)
-                  for a, s in cells]))
-"""
+CELLS = grid.cells("train_4k", "decode_32k")
 
 
 @pytest.fixture(scope="module")
 def records():
-    """(reference record, port record) per cell; the reference runs in a
-    subprocess while the port counts its cells here."""
-    env = dict(os.environ)
-    env["REPRO_DRYRUN_XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    env["PYTHONPATH"] = os.path.join(ROOT, "src")
-    proc = subprocess.Popen([sys.executable, "-c", REF_CODE,
-                             json.dumps(CELLS)], stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, env=env)
-    try:
-        port = [dryrun.run_cell(a, s, "tiny", smoke_config=True)
-                for a, s in CELLS]
-        out, err = proc.communicate(timeout=600)
-    finally:
-        proc.kill()
-    assert proc.returncode == 0, err[-4000:]
-    ref = json.loads(out.strip().splitlines()[-1])
-    return dict(zip(CELLS, zip(ref, port)))
+    return grid.records(CELLS)
 
 
-@pytest.mark.parametrize("cell", CELLS, ids=["-".join(c) for c in CELLS])
+@pytest.mark.parametrize("cell", CELLS, ids=grid.ids(CELLS))
 def test_tiny_mesh_per_device_costs_match_reference(records, cell):
-    ref, rec = records[cell]
-    assert ref["status"] == "ok"
-    assert rec["status"] == "ok", rec.get("traceback")
-    assert rec["chips"] == ref["chips"] == 4
-    assert rec["cost"]["flops_per_device"] == \
-        ref["cost"]["flops_per_device"]
-    assert rec["memory"]["argument_bytes"] == \
-        rec["argument_bytes_per_device"] == \
-        ref["memory"]["argument_bytes"] - POS_BYTES[cell[1]]
-    coll = sum(rec["collective_bytes"].values())
-    print(cell, "collective bytes: port", rec["collective_bytes"],
-          "reference", ref["collective_bytes"])
-    assert coll > 0 and rec["roofline"]["collective_s"] > 0
-    assert rec["peak_bytes"] <= 80e9 and rec["fits_hbm"]
+    grid.check(*records[cell], cell)
+
+
+def test_ssd_gap_is_the_one_device_gap_split_four_ways():
+    """The SSM training cells' allowance is the documented one-device gap
+    (524,288 FLOPs of the smoke mamba2 step, the same rule at mesh
+    ``one``) over the batch's 2-way and the SSM heads' 2-way split; every
+    other cell has none."""
+    from repro_torch.testing import ssd_backward_gap as gap
+    assert gap("mamba2-370m", "train_4k", "one") == 524_288
+    assert gap("mamba2-370m", "train_4k") == 524_288 // 4
+    assert gap("zamba2-1.2b", "train_4k") == 2 * 524_288 // 4
+    assert gap("mamba2-370m", "decode_32k") == 0
+    assert gap("qwen2-1.5b", "train_4k") == 0
 
 
 def test_tiny_multi_exits_zero(capsys):
@@ -125,3 +93,43 @@ def test_counter_counts_one_device_of_dtensors():
     assert cost.flops["fp32"] == 2 * 4 * 8 * 4 + 2 * 8 * 4 * 2
     assert cost.collective_bytes["all-reduce"] == 4 * 4 * 4
     assert cost.collective_bytes["all-gather"] == 4 * 4 * 4
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_merged_split_view_is_placed_by_the_port(batch):
+    """A (B, H, S, E) DTensor split over ``data`` on B and over ``model``
+    on H, flattened to (B·H, S, E) and through a ``bmm``: with one row of
+    B on a device (B = 2) the merged dimension keeps both splits (a
+    contiguous quarter of B·H on each device, no collective); with two (B
+    = 4) the ``model`` split would be strided, so the view gathers H over
+    ``model`` first (one all-gather of the block) and keeps ``data``'s.
+    The placements are the port's rule (``launch/dryrun.py``
+    ``_view_placements``), not the installed DTensor's view strategy:
+    torch 2.13's keeps a strided shard there, torch 2.11's gathers."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.dist.sharding import DistSpec, resolve_mesh
+    from repro_torch.roofline import analyze
+    heads, seq, emb = 4, 8, 16
+    mesh = resolve_mesh(DistSpec((2, 2), ("data", "model")), "cpu")
+    seen = {}
+
+    def step(x):
+        flat = x.reshape(batch * heads, seq, emb)
+        seen["placements"] = tuple(flat.placements)
+        seen["block"] = tuple(flat.to_local().shape)
+        return torch.bmm(flat, flat.transpose(1, 2))
+
+    with dryrun.per_device(mesh) as dmesh:
+        block = torch.empty(batch // 2, heads // 2, seq, emb, device="meta")
+        x = DTensor.from_local(block, dmesh, [Shard(0), Shard(1)],
+                               run_check=False)
+        cost = analyze(dryrun._on_dtensors(step), x)
+    rows = batch * heads // 4 if batch == 2 else batch * heads // 2
+    assert seen["block"] == (rows, seq, emb)
+    assert seen["placements"] == ((Shard(0), Shard(0)) if batch == 2
+                                  else (Shard(0), Replicate()))
+    assert cost.flops["fp32"] == 2 * rows * seq * emb * seq
+    gathered = 0 if batch == 2 else block.numel() * 4
+    assert cost.collective_bytes["all-gather"] == gathered
+    assert sum(cost.collective_bytes.values()) == gathered
