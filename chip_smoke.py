@@ -255,7 +255,28 @@ one JSON line each:
            bit).  Line ``e2e_sharded``: latency beside the flat path (Q1,
            Q2, Q5 at each list length, in turns), the merge's time and
            share at a list of 100, peak memory
-  adaptive (after sharded) ``connect(cat, adaptive=True)`` (the card's
+  large_k  (after sharded) LIMIT and rank above the top-k kernels'
+           1,024-entry lists, routed by the ops wrappers to the range
+           kernels at an infinite radius (fp32) or the quantized key kernel
+           (int8 / bf16) and a stable smallest-k: Q1 ``price < p`` at K in
+           {1,025, 2,000, 10,000} (and 1,024), single dicts, lists of 1, 8,
+           100, stacked, exact_shape, a no-predicate single dict and the
+           exact-shape Q = 1 fast path; Q4 at ``rank <= 2000`` in both
+           lowerings; Q1 at one shard.  Gates: fp32 against
+           use_pallas=False (1e-4, the tie rule), the predicate and the
+           order; int8 and bf16 equal to fp32 with ``torch.equal`` (each
+           K's smallest covering rescore factor); the first 1,024 entries
+           of K = 2,000 equal K = 1,024 bit for bit (sims as int32); a
+           list's rows = the lists of 1 and 8 bit for bit; a single dict =
+           its row bit for bit under int8 / bf16 (the batched kernels at
+           Q = 1) and under the tie rule in fp32 (the single-query kernels
+           add a dot product in another order, at K = 1,024 too; the bits
+           that differ are counted), Q4 batch against perleft likewise; one
+           shard = flat; above 1,024 only range_scan(_batch),
+           quant_keys_batch and replay_keys launch.  Line ``e2e_large_k``: Q1 at K = 2,000 and
+           10,000, single dict and list of 100: ms, QPS, peak memory, the
+           range kernel's and the sort's share
+  adaptive (after large_k) ``connect(cat, adaptive=True)`` (the card's
            CostModel) over the ivf phase's index under chase: Q1 at a list
            of 100 with the serve phase's selectivity mix, Q3 over 100 left
            rows, and brute Q1 (which must decide lock-step, ``flat``).
@@ -437,6 +458,8 @@ REPLACES = {"scan_topk": "src/repro/kernels/scan_topk.py:241",
             "replay_keys": "src/repro/kernels/quant.py:208",
             "pairwise_keys": "src/repro/kernels/distance.py:48"}
 MODES = ("int8", "bf16")
+# the large_k phase: LIMITs above the top-k kernels' 1,024-entry lists
+LARGE_K, LARGE_K_LISTS = (1025, 2000, 10_000), (1, 8, 100)
 # the IVF index of this workload (configs/chase_laion.py)
 NLIST, KMEANS_ITERS = bench_config().nlist, bench_config().kmeans_iters
 IVF_PROBE = {name: getattr(bench_config().probe, name)
@@ -2068,6 +2091,307 @@ def sharded_phase(cat, qv, p, r, drive, launches, smi: str,
                   "sharded_ms"]},
           "peak_mb_list100": peak,
           "resident_mb": torch.cuda.memory_allocated() / 2**20,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def _same_bits(a: dict, b: dict, what: str, width: int | None = None) -> None:
+    """ids, valid and sims (as an int32 view) equal bit for bit, over the
+    first ``width`` entries of the last axis when it is given."""
+    for key in ("ids", "valid", "sim"):
+        x, y = a[key], b[key]
+        if width is not None:
+            x, y = x[..., :width], y[..., :width]
+        if key == "sim":
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def large_k_phase(cat, qv, p, twins: dict, drive, launches, smi: str,
+                  name: str) -> None:
+    """The ``large_k`` phase: LIMIT and rank above the top-k kernels' lists
+    (``scan_topk.MAX_K`` = 1,024), which the ops-level wrappers route to the
+    range kernels at an infinite radius (fp32) or the quantized key kernel
+    (int8 / bf16) and a stable smallest-k.  Q1 ``price < p`` at K in
+    ``LARGE_K``: single dicts, lists of 1, 8 and 100, stacked and
+    exact_shape, a no-predicate single dict and the exact-shape Q = 1 fast
+    path; Q4 at ``rank <= 2000`` in both lowerings; Q1 at one shard.
+    Gates: fp32 against ``use_pallas=False`` on the card (1e-4, the tie
+    rule), the predicate and the order; int8 and bf16 equal to fp32 with
+    ``torch.equal`` (at each K the smallest rescore factor whose candidates
+    hold every fp32 row; a single dict against the fp32 batched answer of
+    one, as the slice_quant phase holds it); the first 1,024 entries of K = 2,000 equal the
+    K = 1,024 answer bit for bit (single and list, fp32 and quantized); a
+    list's rows equal the lists of 1 and 8 bit for bit, and a single dict
+    its row (bit for bit where it runs the batched kernels, quantized;
+    under the tie rule where it runs a single-query kernel, fp32, whose
+    dot product adds in another order); Q4 batch against perleft likewise;
+    one shard = flat; the counters: above 1,024 only the routed kernels
+    launch.  Line
+    ``e2e_large_k``: e2e ms and peak memory of Q1 at K = 2,000 (and
+    10,000) for a single dict and a list of 100, the range kernel's and the
+    stage-2 sort's share."""
+    from repro_torch.api import ExecutionHints, connect
+    from repro_torch.core.expr import evaluate_batch
+    from repro_torch.dist import DistSpec
+    from repro_torch.index.flat import compact_range
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant as qt_mod
+    from repro_torch.kernels import range_scan as rs_mod
+    from repro_torch.kernels.scan_topk import MAX_K
+    from repro_torch.testing import assert_topk_close
+
+    t_phase = time.perf_counter()
+    table = cat.table("products")
+    corpus = table["embedding"]
+    metric = table.schema["embedding"].metric
+    price = table["price"].cpu().numpy()
+    exact = ExecutionHints(exact_shape=True)
+    flat = connect(cat, engine="brute", use_pallas=True)
+    plain = connect(cat, engine="brute", use_pallas=False)
+    binds = [{"qv": qv[i], "p": p} for i in range(N_QUERIES)]
+    stacked = {"qv": qv, "p": np.full(N_QUERIES, p, np.float32)}
+    singles = 3
+
+    def runs_of(st, nst) -> list:
+        runs = [(f"single{i}", st, binds[i], None) for i in range(singles)]
+        runs += [(f"list{qn}", st, binds[:qn], None) for qn in LARGE_K_LISTS]
+        runs += [("stacked", st, stacked, None),
+                 ("exact_shape", st, stacked, exact),
+                 ("nofilter_single", nst, {"qv": qv[0]}, None),
+                 ("fast_path", nst, {"qv": qv[:1]}, exact)]
+        return runs
+
+    def answers(db_, k: int, path: str) -> dict:
+        st, nst = db_.prepare(Q1, K=k), db_.prepare(Q1_NOFILTER, K=k)
+        return {label: res for label, _s, _b, _h, res in
+                drive(path, runs_of(st, nst))}
+
+    # -- gate 1: fp32 against use_pallas=False; the K = 1,024 answers --------
+    fp32, held = {}, {}
+    for k in (MAX_K,) + LARGE_K:
+        fp32[k] = answers(flat, k, f"large_k{k}")
+        if k == MAX_K:
+            continue
+        st, nst = plain.prepare(Q1, K=k), plain.prepare(Q1_NOFILTER, K=k)
+        for label, s, b, h in runs_of(st, nst):
+            res = fp32[k][label]
+            want = s.execute(b, hints=h)
+            torch.cuda.synchronize()
+            err = assert_topk_close(res.data, want.data, atol=1e-4,
+                                    tie_tol=1e-4,
+                                    what=f"large_k K={k} {label}")
+            ids = res["ids"].cpu().numpy().reshape(-1, k)
+            sims_k = res["sim"].cpu().numpy().reshape(-1, k)
+            # 300,000 rows pass the predicate: every list is full
+            if not bool(res["valid"].all()) or not np.isfinite(sims_k).all():
+                raise AssertionError(f"large_k K={k} {label}: short result")
+            if s is st and not (price[ids] < p).all():
+                raise AssertionError(f"large_k K={k} {label}: price >= p")
+            if (np.diff(sims_k, axis=1) > 0).any():
+                raise AssertionError(f"large_k K={k} {label}: not sorted")
+            held[f"{k}/{label}"] = {"shape": list(res["ids"].shape),
+                                    "max_abs_err": err}
+    gates = {"fp32_vs_plain": held}
+
+    # -- gate 2: the K = 2,000 prefix; a list's rows ------------------------
+    def row(res, i: int) -> dict:
+        return {key: res[key][i] for key in ("ids", "valid", "sim")}
+
+    def prefix_and_rows(ans: dict, what: str, single_bits: bool) -> dict:
+        """The K = 2,000 prefix and the rows of a list bit for bit; a
+        single dict against its row bit for bit where it runs the batched
+        kernels (``single_bits``), else under the tie rule: the
+        single-query kernels add a row's dot product in another order than
+        the batched tiles (K = 1,024 as well)."""
+        for label in ans[MAX_K]:
+            _same_bits(ans[2000][label].data, ans[MAX_K][label].data,
+                       f"large_k prefix {what} {label}", MAX_K)
+        single = {}
+        for k in (MAX_K,) + LARGE_K:
+            lst = ans[k][f"list{N_QUERIES}"]
+            _same_bits(row(lst, 0), row(ans[k]["list1"], 0),
+                       f"large_k K={k} {what} row 0 = list1")
+            _same_bits(row(lst, slice(8)), ans[k]["list8"].data,
+                       f"large_k K={k} {what} rows = list8")
+            err, differ = 0.0, 0
+            for i in range(singles):
+                one = ans[k][f"single{i}"]
+                if single_bits:
+                    _same_bits(row(lst, i), one.data,
+                               f"large_k K={k} {what} row {i} = single")
+                    continue
+                err = max(err, assert_topk_close(
+                    row(lst, i), {key: one[key] for key in
+                                  ("ids", "valid", "sim")},
+                    atol=1e-4, tie_tol=1e-4,
+                    what=f"large_k K={k} {what} row {i} vs single"))
+                differ += int((row(lst, i)["sim"].view(torch.int32)
+                               != one["sim"].view(torch.int32)).sum())
+            single[k] = ({"bitwise": True} if single_bits else
+                         {"max_abs_err": err, "sims_bits_differ": differ,
+                          "of": singles * k})
+        return single
+
+    gates["prefix_1024"] = True
+    gates["single_vs_row"] = {"fp32": prefix_and_rows(fp32, "fp32", False)}
+
+    # -- gate 3: quantized = fp32, bit for bit -------------------------------
+    live = (table["price"] < p).view(torch.int8)
+    qs = torch.from_numpy(qv).to(corpus.device)
+
+    def missing(qkeys, k: int, c: int, top) -> int:
+        """Queries whose fp32 top-k ``top`` holds a row outside the rows of
+        the quantized top-(c·k) segments (ranked by their minima over the
+        whole corpus, as the routed quantized path ranks them)."""
+        segs = torch.arange(qkeys.shape[1], dtype=torch.int32,
+                            device=qkeys.device).expand_as(qkeys)
+        rows = qt_mod.candidate_rows(qkeys, segs, c * k).long()
+        inside = torch.zeros((qkeys.shape[0], N_ROWS + 8), dtype=torch.bool,
+                             device=qkeys.device)
+        inside.scatter_(1, rows.clamp(max=N_ROWS + 7), True)
+        return int((~inside.gather(1, top.long()).all(1)).sum())
+
+    # a quantized single dict runs the batched kernels at Q = 1, so its
+    # fp32 counterpart is the batched answer of one: a row of the list of
+    # 100 (rows do not depend on Q), or the batched wrapper on the
+    # no-predicate query (the fp32 fast path runs the single-query kernel)
+    batched = {}
+    for k in (MAX_K,) + LARGE_K:
+        lst = fp32[k][f"list{N_QUERIES}"]
+        ids_, sims_, valid_ = ops.fused_scan_topk_batch(corpus, qs[:1], k,
+                                                        None, metric)
+        nof = {"ids": ids_, "sim": sims_, "valid": valid_}
+        batched[k] = {label: (row(lst, int(label[6:]))
+                              if label.startswith("single") else
+                              row(nof, 0) if label == "nofilter_single" else
+                              nof if label == "fast_path" else res)
+                      for label, res in fp32[k].items()}
+    coverage = {}
+    for mode in MODES:
+        qc = twins[mode]
+        # the predicate's 100 queries and the no-predicate query
+        qkeys = [qt_mod.segment_minima(qt_mod.quant_keys_batch(
+            qc.qvecs, qc.scales, q_, m_, None, metric))
+            for q_, m_ in ((qs, live), (qs[:1], None))]
+        coverage[mode], quant = {}, {}
+        for k in (MAX_K,) + LARGE_K:
+            tops = (fp32[k][f"list{N_QUERIES}"]["ids"],
+                    batched[k]["fast_path"]["ids"])
+            miss = {}
+            for c in RESCORE:
+                miss[c] = sum(missing(qk, k, c, top)
+                              for qk, top in zip(qkeys, tops))
+                if miss[c] == 0:
+                    break
+            else:
+                raise AssertionError(f"large_k {mode} K={k}: no rescore "
+                                     f"factor in {RESCORE} covers fp32")
+            coverage[mode][k] = {"missing_queries": miss,
+                                 "rescore_factor": c}
+            quant[k] = answers(connect(cat, engine="brute", use_pallas=True,
+                                       quant=mode, rescore_factor=c),
+                               k, f"large_k{k}_{mode}")
+            for label, res in quant[k].items():
+                for key in ("ids", "sim", "valid"):
+                    if not torch.equal(res[key], batched[k][label][key]):
+                        raise AssertionError(f"large_k {mode} K={k} {label}: "
+                                             f"{key} differs from fp32")
+        gates["single_vs_row"][mode] = prefix_and_rows(quant, mode, True)
+        del qkeys, quant
+    gates["quant_equals_fp32"] = coverage
+
+    # -- gate 4: Q4 at rank <= 2,000, batch = perleft ------------------------
+    q4_sql = Q4.replace("ranked.rank <= 50", "ranked.rank <= 2000")
+    q4_runs = [("batch", flat.prepare(q4_sql), {}, None),
+               ("perleft", flat.prepare(q4_sql, hints=ExecutionHints(
+                   join_lowering="perleft")), {}, None)]
+    q4 = {}
+    for label, s, b, h, res in drive("large_k_q4", q4_runs):
+        want = plain.prepare(s.sql, hints=s.hints).execute(b, hints=h)
+        torch.cuda.synchronize()
+        as_topk = [{"ids": d["tid"], "sim": d["sim"], "valid": d["valid"],
+                    "stats": d["stats"]} for d in (res.data, want.data)]
+        err = assert_topk_close(*as_topk, atol=1e-4, tie_tol=1e-4,
+                                what=f"large_k q4 {label}")
+        if not bool(res["valid"].all()):
+            raise AssertionError(f"large_k q4 {label}: short lists")
+        q4[label] = {"shape": list(res["tid"].shape), "max_abs_err": err}
+        q4[f"_{label}"] = res
+    # perleft runs the single-query kernel: the tie rule, as above
+    q4["batch_vs_perleft_err"] = assert_topk_close(
+        *[{"ids": q4[f"_{lw}"]["tid"], "valid": q4[f"_{lw}"]["valid"],
+           "sim": q4[f"_{lw}"]["sim"]} for lw in ("batch", "perleft")],
+        atol=1e-4, tie_tol=1e-4, what="large_k q4 batch vs perleft")
+    del q4["_batch"], q4["_perleft"]
+    gates["q4"] = q4
+
+    # -- gate 5: one shard = flat --------------------------------------------
+    sharded = connect(cat, engine="brute", use_pallas=True,
+                      dist=DistSpec((1,), ("data",))).prepare(Q1, K=2000)
+    for label, _s, _b, _h, res in drive("large_k_sharded", [
+            (f"list{N_QUERIES}", sharded, binds, None),
+            ("single0", sharded, binds[0], None)]):
+        want = fp32[2000][f"list{N_QUERIES}"]
+        _same_bits(res, row(want, 0) if label == "single0" else want,
+                   f"large_k sharded {label}")
+    gates["sharded_equals_flat"] = True
+
+    # -- gate 6: the counters -------------------------------------------------
+    stage1 = ("scan_topk", "scan_topk_batch", "quant_scan_topk_batch")
+    need = {"": ("range_scan_batch", "range_scan")}
+    need.update({f"_{m}": ("quant_keys_batch", "replay_keys") for m in MODES})
+    for k in LARGE_K:
+        for suffix, kernels_ in need.items():
+            got = launches[f"large_k{k}{suffix}"]
+            if any(got[kname] for kname in stage1) or \
+                    not all(got[kname] for kname in kernels_):
+                raise AssertionError(f"large_k{k}{suffix}: launches {got}")
+    for path, kernels_ in (("large_k_q4", ("range_scan_batch",
+                                           "range_scan")),
+                           ("large_k_sharded", ("range_scan_batch",))):
+        got = launches[path]
+        if any(got[kname] for kname in stage1) or \
+                not all(got[kname] for kname in kernels_):
+            raise AssertionError(f"{path}: launches {got}")
+    if not launches[f"large_k{MAX_K}"]["scan_topk_batch"]:
+        raise AssertionError("large_k at K = 1,024 left the top-k kernels")
+    emit({"phase": "large_k", "k": list(LARGE_K), "gates": gates,
+          "launches": {key: v for key, v in launches.items()
+                       if key.startswith("large_k")}})
+
+    # -- e2e_large_k ----------------------------------------------------------
+    runs = {}
+    bucket = 128
+    mask = evaluate_batch(flat.prepare(Q1, K=2000).compiled.analysis
+                          .structured_predicate, table,
+                          {"qv": np.concatenate([qv, qv[-28:]]),
+                           "p": np.full(bucket, p, np.float32)},
+                          bucket).contiguous().view(torch.int8)
+    qvalid = (torch.arange(bucket, device=corpus.device)
+              < N_QUERIES).to(torch.int8)
+    q128 = torch.cat([qs, qs[-28:]]).contiguous()
+    inf128 = torch.full((bucket,), float("inf"), device=corpus.device)
+    for k in (2000, LARGE_K[-1]):
+        st = flat.prepare(Q1, K=k)
+        for key, b in (("single", binds[0]), (f"list{N_QUERIES}", binds)):
+            ms = latency_ms(lambda: st.execute(b))
+            runs[f"{k}/{key}"] = {
+                "latency_ms": ms,
+                "qps": (1 if key == "single" else N_QUERIES) * 1e3 / ms,
+                "peak_mb": peak_mb(lambda: st.execute(b))}
+        keys = rs_mod.range_scan_batch(corpus, q128, inf128, mask, qvalid,
+                                       metric)[0]
+        k_ms = time_ms(lambda: rs_mod.range_scan_batch(
+            corpus, q128, inf128, mask, qvalid, metric), 2, 5)
+        s_ms = time_ms(lambda: compact_range(keys, k, metric), 2, 5)
+        row_ = runs[f"{k}/list{N_QUERIES}"]
+        row_.update(kernel_ms=k_ms, stage2_ms=s_ms,
+                    kernel_share=k_ms / row_["latency_ms"],
+                    stage2_share=s_ms / row_["latency_ms"])
+        del keys
+    emit({"phase": "e2e_large_k", "device": name, "nvidia_smi": smi,
+          "runs": runs,
           "phase_s": time.perf_counter() - t_phase})
 
 
@@ -5839,6 +6163,9 @@ def main() -> None:
 
     # -- sharded: every class under EngineOptions.dist at one shard -----------
     sharded_phase(cat, qv, p, r, drive, launches, smi, name)
+
+    # -- large_k: LIMIT and rank above the top-k kernels' lists --------------
+    large_k_phase(cat, qv, p, twins, drive, launches, smi, name)
 
     # -- adaptive: the advisor over the ivf phase's index ---------------------
     adaptive_phase(cat, qv, r, drive, launches, smi, name)

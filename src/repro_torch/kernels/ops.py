@@ -2,6 +2,13 @@
 layout, the kernels' stage 1, and the stage-2 merges and compactions in
 plain torch.
 
+The top-k wrappers take any k >= 1, as the reference does.  The plan is
+chosen on the host by k before any launch: up to ``MAX_K`` (the lists the
+top-k kernels keep in shared memory) the fused top-k kernels, above it the
+range kernels at an infinite radius (every live row a hit, keys bit for bit
+the top-k kernels' keys) and a stable smallest-k over the row keys, so a
+longer answer's first ``MAX_K`` entries are the ``MAX_K`` answer.
+
 The kernels take ragged N, D and Q and mask the edge themselves, so none of
 the reference's padding helpers is needed: the only layout work left is
 viewing a bool mask as the int8 the kernels read (no copy), the per-query
@@ -16,7 +23,9 @@ from ..core.schema import Metric
 from ..index.flat import compact_range, stable_smallest_k
 from . import distance
 from .range_scan import range_scan, range_scan_batch
-from .scan_topk import scan_topk, scan_topk_batch
+from .scan_topk import MAX_K, scan_topk, scan_topk_batch
+
+INF = float("inf")
 
 
 def _mask_i8(mask: torch.Tensor | None) -> torch.Tensor | None:
@@ -42,14 +51,28 @@ def _merge(keys: torch.Tensor, ids: torch.Tensor, k: int, metric: Metric):
     return out_ids, sims, valid
 
 
+def _check_limit(k: int) -> None:
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+
+
 def fused_scan_topk(corpus: torch.Tensor, query: torch.Tensor, k: int,
                     row_mask: torch.Tensor | None, metric: Metric):
     """Fused single-query scan + filter + top-k (drop-in for
-    ``FlatIndex.topk``).  Returns (ids (k,), sims raw-metric (k,),
-    valid (k,))."""
-    keys, ids = scan_topk(corpus.to(torch.float32).contiguous(),
-                          query.to(torch.float32).reshape(-1).contiguous(),
-                          _mask_i8(row_mask), k, metric)
+    ``FlatIndex.topk``), any k >= 1: up to ``MAX_K`` the single-query
+    top-k kernel and its stage-2 merge, above it the single-query range
+    kernel at an infinite radius and a stable smallest-k over its keys.
+    Returns (ids (k,), sims raw-metric (k,), valid (k,))."""
+    _check_limit(k)
+    corpus = corpus.to(torch.float32).contiguous()
+    query = query.to(torch.float32).reshape(-1).contiguous()
+    mask = _mask_i8(row_mask)
+    if k > MAX_K:
+        keys, _hits, _count = range_scan(
+            corpus, query, torch.full((1,), INF, device=corpus.device), mask,
+            metric)
+        return compact_range(keys, k, metric)
+    keys, ids = scan_topk(corpus, query, mask, k, metric)
     return _merge(keys.reshape(-1), ids.reshape(-1), k, metric)
 
 
@@ -57,16 +80,27 @@ def fused_scan_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
                           k: int, row_mask: torch.Tensor | None,
                           metric: Metric,
                           qvalid: torch.Tensor | None = None):
-    """Batched fused scan + filter + top-k: Q queries in one launch.
+    """Batched fused scan + filter + top-k: Q queries in one launch, any
+    k >= 1: up to ``MAX_K`` the batched top-k kernel and its stage-2
+    merge, above it the batched range kernel at infinite radii and a
+    stable smallest-k over each query's (N,) keys.
 
     ``row_mask`` is None, a shared (N,) mask, or a per-query (Q, N) mask;
     ``qvalid`` (None | (Q,) bool) marks size-bucket pad queries, which emit
     no candidates (all ids -1).  Returns (ids (Q, k), sims raw-metric
     (Q, k), valid (Q, k))."""
+    _check_limit(k)
+    corpus = corpus.to(torch.float32).contiguous()
+    queries = queries.to(torch.float32).contiguous()
+    mask = _mask_i8(row_mask)
     qv = None if qvalid is None else _mask_i8(qvalid)
-    keys, ids = scan_topk_batch(corpus.to(torch.float32).contiguous(),
-                                queries.to(torch.float32).contiguous(),
-                                _mask_i8(row_mask), qv, k, metric)
+    if k > MAX_K:
+        keys, _hits, _counts = range_scan_batch(
+            corpus, queries,
+            torch.full((queries.shape[0],), INF, device=corpus.device), mask,
+            qv, metric)
+        return compact_range(keys, k, metric)
+    keys, ids = scan_topk_batch(corpus, queries, mask, qv, k, metric)
     return _merge(keys, ids, k, metric)
 
 

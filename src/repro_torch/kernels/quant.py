@@ -13,7 +13,10 @@ re-ranking a small candidate set with the fp32 kernels' own keys:
   rows ahead of it, so at most c·k − 1 segments have a smaller minimum: the
   global top-(c·k) segments, expanded to their rows, hold every row of
   quantized rank ≤ c·k.  Splits hold at most 8·1024 rows (1,024 segments):
-  a split that cannot hold c·k segments emits all of them.
+  a split that cannot hold c·k segments emits all of them.  Above
+  ``MAX_K`` the quantized key kernel scores every row and the segments are
+  ranked over all of the corpus at once: the same candidate set with no
+  list cap.
 * **Bitwise replay.**  ``replay_keys`` scores the candidate (row, query)
   pairs with the fp32 batched kernels' exact arithmetic (``csrc/
   replay_keys.cu``), and the candidates are sorted by row id before the
@@ -45,7 +48,8 @@ from ..roofline.op_counter import Work, counted
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 from .distance import MAX_GRID_Y
-from .ops import _mask_i8, _radius_keys, fused_range_topk_batch
+from .ops import (_check_limit, _mask_i8, _radius_keys,
+                  fused_range_topk_batch)
 from .range_scan import batch_plan
 from .scan_topk import (BLOCK_RESERVED, BLOCK_SMEM, MAX_K, SM_SMEM, _cdiv,
                         _check_k, _masked, _next_pow2, _split_topk,
@@ -210,11 +214,18 @@ def segment_topk(keys: torch.Tensor, count: int):
     slots."""
     qn, n = keys.shape
     _, splits, rows, s_count = quant_plan(n, qn, count)
+    return _split_topk(segment_minima(keys), s_count, splits, rows // SEG)
+
+
+def segment_minima(keys: torch.Tensor) -> torch.Tensor:
+    """(Q, N) row keys -> (Q, ceil(N / 8)) each 8-row segment's minimum,
+    the last segment padded with +inf: the segment key of the quantized
+    top-k kernel."""
+    qn, n = keys.shape
     pad = (-n) % SEG
     if pad:
         keys = torch.cat([keys, keys.new_full((qn, pad), INF)], 1)
-    seg_keys = keys.reshape(qn, -1, SEG).amin(dim=-1)
-    return _split_topk(seg_keys, s_count, splits, rows // SEG)
+    return keys.reshape(qn, -1, SEG).amin(dim=-1)
 
 
 def quant_scan_topk_batch_replayed(qvecs, scales, queries, mask_i8,
@@ -423,18 +434,29 @@ def fused_scan_topk_batch_q(corpus: torch.Tensor, qvecs: torch.Tensor,
                             metric: Metric, rescore_factor: int = 2,
                             qvalid: torch.Tensor | None = None):
     """Quantized twin of :func:`~repro_torch.kernels.ops.
-    fused_scan_topk_batch`: the segmented quantized kernel, the global
-    top-(c·k) segments per query, their rows in ascending order, and the
-    exact fp32 re-rank (c = ``rescore_factor``).  Contract (masks, the
-    valid lane, outputs) identical to the fp32 wrapper.  Returns (ids
-    (Q, k), sims raw-metric (Q, k), valid (Q, k))."""
-    _check_k(k)
+    fused_scan_topk_batch`: the global top-(c·k) segments per query, their
+    rows in ascending order, and the exact fp32 re-rank (c =
+    ``rescore_factor``), any k >= 1.  Up to ``MAX_K`` the segmented
+    quantized kernel gives the segments; above it the quantized key kernel
+    gives every row's key, and the segments are ranked by their minima
+    over all of the corpus, the candidate set the segmented kernel would
+    give with no list cap.  Contract (masks, the valid lane, outputs)
+    identical to the fp32 wrapper.  Returns (ids (Q, k), sims raw-metric
+    (Q, k), valid (Q, k))."""
+    _check_limit(k)
     corpus = corpus.to(torch.float32).contiguous()
     queries = queries.to(torch.float32).contiguous()
     count = max(1, int(rescore_factor)) * k
     qv = None if qvalid is None else _mask_i8(qvalid)
-    keys, segs = quant_scan_topk_batch(qvecs, scales, queries,
-                                       _mask_i8(row_mask), qv, count, metric)
+    mask = _mask_i8(row_mask)
+    if k > MAX_K:
+        keys = segment_minima(quant_keys_batch(qvecs, scales, queries, mask,
+                                               qv, metric))
+        segs = torch.arange(keys.shape[1], dtype=torch.int32,
+                            device=keys.device).expand_as(keys)
+    else:
+        keys, segs = quant_scan_topk_batch(qvecs, scales, queries, mask, qv,
+                                           count, metric)
     rows = candidate_rows(keys, segs, count)
     return _rescored_topk(corpus, queries, rows, row_mask, k, metric)
 

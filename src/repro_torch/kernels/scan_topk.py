@@ -29,7 +29,12 @@ from ..roofline.op_counter import Work, counted
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 
-MAX_K = 1024                 # the reference's BLOCK_N cap on k
+# The longest list the top-k kernels keep per query: each block holds 2·kp
+# (key, id) pairs per query in shared memory (see ``batch_smem``).  Not a
+# limit of the reference's: the ops-level wrappers (``ops.py``,
+# ``quant.fused_scan_topk_batch_q``) serve a larger k through the range
+# kernels.
+MAX_K = 1024
 
 # Launch geometry (H100 SXM).  The plain versions cut the corpus the same
 # way, so kernel and plain outputs compare entry by entry.
