@@ -48,6 +48,7 @@ from typing import Any
 
 import numpy as np
 
+from .. import tracing
 from ..core.compiler import (CompiledQuery, StalePlanError, compile_plan,
                              fingerprint_digest, plan_fingerprint, _scan_of,
                              _stacked_qn)
@@ -443,7 +444,13 @@ class Statement:
         * stacked dict (leading Q axis)   -> size-bucketed batch,
         * ``hints.exact_shape=True``      -> exact-shape batch.
 
-        Returns :class:`Result` (single) or :class:`ResultBatch` (batch)."""
+        Returns :class:`Result` (single) or :class:`ResultBatch` (batch).
+        The whole call is the span ``repro_torch.execute``
+        (:mod:`repro_torch.tracing`)."""
+        with tracing.span(tracing.EXECUTE):
+            return self._execute(binds, hints)
+
+    def _execute(self, binds, hints: ExecutionHints | None):
         self.ensure_fresh()
         hints = self.hints if hints is None else hints
         if (hints.join_lowering is not None
@@ -467,7 +474,8 @@ class Statement:
         if self._is_stacked(renamed):
             return self._execute_batch(None, renamed, hints)
         hints.validate_for_single()
-        out = self.compiled.plan.fn(self.compiled._arrays, dict(renamed))
+        with tracing.span(tracing.EXECUTOR):
+            out = self.compiled.plan.fn(self.compiled._arrays, dict(renamed))
         report = self._report_fn(path="single", num_queries=1, hints=hints)
         return Result(out, report)
 
@@ -476,7 +484,8 @@ class Statement:
         compiled = self.compiled
         hints.validate_for_plan(compiled.batch_native,
                                 compiled.plan.batch_reason)
-        binds = compiled._stack_binds(binds_list, stacked_binds or {})
+        with tracing.span(tracing.BIND):
+            binds = compiled._stack_binds(binds_list, stacked_binds or {})
         qn = _stacked_qn(binds)
         probe_budget = hints.probe_budget
         if isinstance(probe_budget, tuple):
@@ -490,7 +499,8 @@ class Statement:
         advisor = self._db.advisor
         if hints.exact_shape:
             path = "batch"
-            out = compiled.plan.batch_fn(compiled._arrays, binds)
+            with tracing.span(tracing.EXECUTOR):
+                out = compiled.plan.batch_fn(compiled._arrays, binds)
         elif hints.pilot_budget > 0:
             from ..serving.scheduler import run_effort_bucketed
             path = "effort"

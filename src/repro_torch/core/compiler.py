@@ -40,8 +40,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..roofline import op_counter
-from .expr import BoolOp, Bindings, Expr, Param
+from .expr import BoolOp, Bindings, Expr, Param, on_device
 from .physical import (BATCH_BUILDERS, BUILDERS, JOIN_LOWERING_FAMILIES,
                        EngineOptions, _stacked_qn)
 from .plan import PlanNode
@@ -217,8 +218,11 @@ def _pad_leading(v, bucket: int) -> np.ndarray:
 
 
 def _host(v) -> np.ndarray:
-    """A bind as a host array (tensors are copied off their device)."""
+    """A bind as a host array (tensors are copied off their device, which
+    waits for the device's stream)."""
     if isinstance(v, torch.Tensor):
+        if v.device.type != "cpu":
+            tracing.count("syncs")
         return v.detach().cpu().numpy()
     return np.asarray(v)
 
@@ -287,21 +291,23 @@ class BucketedExecutor:
         """Execute at bucket granularity WITHOUT slicing outputs back.
 
         Returns (padded outputs, bucket, valid), so tests can observe that
-        pad rows are inert — empty results, zero counters."""
-        bucket = _bucket_for(qn)
-        padded = {k: _pad_leading(v, bucket) for k, v in binds.items()}
-        valid = np.arange(bucket) < qn
-        if probe_budget is not None:
-            budget = np.asarray(probe_budget, np.int32)
-            if budget.ndim >= 1 and budget.shape[0] == qn:
-                budget = _pad_leading(budget, bucket)
-            probe_budget = budget
-        args = (self.arrays, padded, valid, probe_budget)
-        if self._aot is not None:
-            out = self._aot_call(bucket, args)
-        else:
-            out = self.executable(bucket)(*args)
-        return out, bucket, valid
+        pad rows are inert — empty results, zero counters.  The call is
+        the span ``repro_torch.executor``."""
+        with tracing.span(tracing.EXECUTOR):
+            bucket = _bucket_for(qn)
+            padded = {k: _pad_leading(v, bucket) for k, v in binds.items()}
+            valid = np.arange(bucket) < qn
+            if probe_budget is not None:
+                budget = np.asarray(probe_budget, np.int32)
+                if budget.ndim >= 1 and budget.shape[0] == qn:
+                    budget = _pad_leading(budget, bucket)
+                probe_budget = budget
+            args = (self.arrays, padded, valid, probe_budget)
+            if self._aot is not None:
+                out = self._aot_call(bucket, args)
+            else:
+                out = self.executable(bucket)(*args)
+            return out, bucket, valid
 
     # -- on-disk plan cache (core/aot.py) -----------------------------------
 
@@ -706,7 +712,7 @@ def _vmap_fallback(fn: Callable) -> Callable:
         if qvalid is None:
             return out
         dev = out["valid"].device
-        qv = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
+        qv = on_device(qvalid, dev, torch.bool)
 
         def lane(v):
             return qv.reshape((-1,) + (1,) * (v.ndim - 1))

@@ -19,6 +19,7 @@ from typing import Any, Iterator, Sequence
 
 import torch
 
+from .. import tracing
 from ..roofline.op_counter import Work, counted
 from .schema import Metric, Table
 
@@ -162,13 +163,23 @@ def as_tensor(value, device) -> torch.Tensor:
     32-bit canonicalization: float64 becomes float32 and int64 becomes
     int32, so ``price < p`` compares in the same precision as the JAX
     package does (a float64 ``p`` would otherwise flip rows at the
-    boundary)."""
+    boundary).  A host value moving to a device counts as an upload
+    (:func:`repro_torch.tracing.count_upload`)."""
+    tracing.count_upload(value, device)
     t = torch.as_tensor(value)
     if t.dtype == torch.float64:
         t = t.to(torch.float32)
     elif t.dtype == torch.int64:
         t = t.to(torch.int32)
     return t.to(device)
+
+
+def on_device(value, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype=dtype, device=device)``, counting an
+    upload where a host value moves to a device
+    (:func:`repro_torch.tracing.count_upload`)."""
+    tracing.count_upload(value, device)
+    return torch.as_tensor(value, dtype=dtype, device=device)
 
 
 def distance_values_work(metric: Metric, x: torch.Tensor,

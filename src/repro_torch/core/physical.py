@@ -45,6 +45,7 @@ from typing import Callable
 
 import torch
 
+from .. import tracing
 from ..dist.collectives import (distributed_range_batch,
                                 distributed_range_batch_q,
                                 distributed_topk_batch,
@@ -58,8 +59,8 @@ from ..index.ivf import (ProbeConfig, ivf_range, ivf_range_batch,
                          ivf_topk, ivf_topk_batch)
 from .expr import (Bindings, Column, Expr, Param, as_tensor,
                    distance_values, evaluate, evaluate_batch, evaluate_expr,
-                   full_fp32, in_range, order_key, pairwise_order_keys,
-                   stacked_param)
+                   full_fp32, in_range, on_device, order_key,
+                   pairwise_order_keys, stacked_param)
 from .schema import Catalog, Metric, Table
 from .semantics import Analysis, QueryClass
 
@@ -119,13 +120,20 @@ def _static_int(v, binds: Bindings, what: str) -> int:
     raise ValueError(f"{what} must be statically resolvable, got {v!r}")
 
 
+def _predicate(device):
+    """The span of a structured predicate's evaluation into a row mask on
+    ``device`` (:mod:`repro_torch.tracing`)."""
+    return tracing.span(tracing.PREDICATE, device)
+
+
 def _row_mask_fn(pred: Expr | None, table: Table):
     """Predicate -> (binds -> (N,) bool) or None."""
     if pred is None:
         return None
 
     def fn(binds: Bindings) -> torch.Tensor:
-        return evaluate(pred, table, binds).expand(table.num_rows)
+        with _predicate(table.device):
+            return evaluate(pred, table, binds).expand(table.num_rows)
 
     return fn
 
@@ -136,7 +144,8 @@ def _row_mask_batch_fn(pred: Expr | None, table: Table):
         return None
 
     def fn(binds: Bindings, qn: int) -> torch.Tensor:
-        return evaluate_batch(pred, table, binds, qn)
+        with _predicate(table.device):
+            return evaluate_batch(pred, table, binds, qn)
 
     return fn
 
@@ -178,11 +187,12 @@ def _join_mask_fn(pred: Expr | None, ltab: Table, rtab: Table,
     owner = _owner_fn(ltab, rtab, lalias, ralias)
 
     def fn(lidx: int, binds: Bindings) -> torch.Tensor:
-        m = _eval_join_pred(pred, owner, lambda name: ltab[name][lidx],
-                            lambda name: rtab[name],
-                            lambda name: as_tensor(binds[name], rtab.device),
-                            rtab.device)
-        return m.expand(rtab.num_rows)
+        with _predicate(rtab.device):
+            m = _eval_join_pred(
+                pred, owner, lambda name: ltab[name][lidx],
+                lambda name: rtab[name],
+                lambda name: as_tensor(binds[name], rtab.device), rtab.device)
+            return m.expand(rtab.num_rows)
 
     return fn
 
@@ -211,12 +221,13 @@ def _join_mask_batch_fn(pred: Expr | None, ltab: Table, rtab: Table,
         lead = () if qn is None else (1,)
         param = (stacked_param(binds, qn, 2, dev) if qn is not None
                  else lambda name: as_tensor(binds[name], dev))
-        m = _eval_join_pred(
-            pred, owner,
-            lambda name: ltab[name].reshape(lead + (-1, 1)),
-            lambda name: right[name].reshape(lead + (1, -1)), param, dev)
-        shape = (ltab.num_rows, right.num_rows)
-        return m.expand(shape if qn is None else (qn,) + shape)
+        with _predicate(dev):
+            m = _eval_join_pred(
+                pred, owner,
+                lambda name: ltab[name].reshape(lead + (-1, 1)),
+                lambda name: right[name].reshape(lead + (1, -1)), param, dev)
+            shape = (ltab.num_rows, right.num_rows)
+            return m.expand(shape if qn is None else (qn,) + shape)
 
     return fn
 
@@ -295,8 +306,7 @@ def _flat_range_topk_batch(opts: EngineOptions, metric: Metric, corpus, qs,
     m, n = qs.shape[0], corpus.shape[0]
     dev = corpus.device
     cap = min(int(capacity), n)
-    radius = torch.as_tensor(radius, dtype=torch.float32,
-                             device=dev).expand(m)
+    radius = on_device(radius, dev, torch.float32).expand(m)
     if opts.quant is not None:
         from ..kernels.quant import fused_range_topk_batch_q
         ids, sims, valid, count = fused_range_topk_batch_q(
@@ -365,12 +375,12 @@ def _flatten_valid_budget(qvalid, probe_budget, qn: int, nleft: int,
                           device):
     """Expand per-bind-set ``qvalid`` (Q,) and ``probe_budget`` (scalar |
     (Q,) | (Q, L)) to the flattened (Q·L,) query-batch layout."""
-    fq = (None if qvalid is None else torch.as_tensor(
-        qvalid, dtype=torch.bool, device=device).repeat_interleave(nleft))
+    fq = (None if qvalid is None else on_device(
+        qvalid, device, torch.bool).repeat_interleave(nleft))
     if probe_budget is None:
         fb = None
     else:
-        b = torch.as_tensor(probe_budget, dtype=torch.int32, device=device)
+        b = on_device(probe_budget, device, torch.int32)
         if b.ndim == 1:
             b = b[:, None]
         fb = b.expand(qn, nleft).reshape(-1)
@@ -461,8 +471,7 @@ def _dist_range_core(opts: EngineOptions, metric: Metric, capacity: int):
         sharded = arrays["sharded"]
         qn, n, dev = qs.shape[0], arrays["corpus"].shape[0], qs.device
         cap = min(int(capacity), n)
-        radius = torch.as_tensor(radius, dtype=torch.float32,
-                                 device=dev).expand(qn)
+        radius = on_device(radius, dev, torch.float32).expand(qn)
         masks = _dist_masks(arrays, rm)
         if opts.quant is not None:
             fn = distributed_range_batch_q(
@@ -600,8 +609,9 @@ def _live_scan_masks(pred: Expr | None, arrays, binds, qn: int):
         return mv, dv
 
     def seg(cols, valid):
-        return evaluate_batch(pred, _ColsTable(cols, valid), binds,
-                              qn) & valid[None, :]
+        with _predicate(valid.device):
+            return evaluate_batch(pred, _ColsTable(cols, valid), binds,
+                                  qn) & valid[None, :]
 
     return seg(arrays["live_cols"], mv), seg(arrays["live_dcols"], dv)
 
@@ -743,7 +753,7 @@ def build_vknn_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         qs = as_tensor(binds[qparam.name], dev)                  # (Q, D)
         qn = qs.shape[0]
         if qvalid is not None:
-            qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
+            qvalid = on_device(qvalid, dev, torch.bool)
         if live:
             row_mask, dmask = _live_scan_masks(a.structured_predicate,
                                                arrays, binds, qn)
@@ -836,8 +846,7 @@ def build_dr_sf(a: Analysis, catalog: Catalog, opts: EngineOptions,
                 arrays["index"], corpus, q, radius, None, cfg)
             sims, valid, count = (v[0] for v in _vbase_range_post(
                 metric, corpus, q[None], ids[None], valid[None],
-                torch.as_tensor(radius, dtype=torch.float32,
-                                device=dev).reshape(1),
+                on_device(radius, dev, torch.float32).reshape(1),
                 None if row_mask is None else row_mask[None]))
             stats = _extra_evals(stats, capacity, None)
         else:
@@ -875,7 +884,7 @@ def build_dr_sf_batch(a: Analysis, catalog: Catalog, opts: EngineOptions,
         qn = qs.shape[0]
         radius = _radius_batch(radius_expr, table, binds, qn)
         if qvalid is not None:
-            qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
+            qvalid = on_device(qvalid, dev, torch.bool)
         if live:
             row_mask, dmask = _live_scan_masks(a.structured_predicate,
                                                arrays, binds, qn)
@@ -955,8 +964,8 @@ def _dist_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions):
 
     def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None,
              dmask=None):
-        radius = torch.as_tensor(radius, dtype=torch.float32,
-                                 device=qs.device).expand(qs.shape[0])
+        radius = on_device(radius, qs.device,
+                           torch.float32).expand(qs.shape[0])
         out = main(arrays, qs, radius, rm, qvalid, probe_budget)
         if not live:
             return out
@@ -1060,8 +1069,7 @@ def _build_dist_join_perleft(a: Analysis, catalog: Catalog,
                     arrays["index"], corpus, lvec[i], radius, None, cfg)
                 post = _vbase_range_post(
                     metric, corpus, lvec[i:i + 1], ids[None], valid[None],
-                    torch.as_tensor(radius, dtype=torch.float32,
-                                    device=dev).reshape(1),
+                    on_device(radius, dev, torch.float32).reshape(1),
                     None if rm is None else rm[None])
                 rows.append((ids, *(v[0] for v in post), stats))
                 continue
@@ -1114,11 +1122,14 @@ def _full_sort_topk(opts: EngineOptions, metric: Metric, corpus, qs, k: int,
     inefficiency.  ``torch.sort(stable=True)``, so ties go to the lowest
     id as ``jnp.argsort`` sends them."""
     keys = _sort_keys(opts, metric, corpus, qs)                  # (M, N)
-    if rm is not None:
-        keys = keys.masked_fill(~rm, float("inf"))
-    if qvalid is not None:
-        keys = keys.masked_fill(~qvalid[:, None], float("inf"))
-    return compact_range(keys, k, metric)
+    # after the pairwise-key kernel, the sort is its stage 2
+    with (tracing.span(tracing.STAGE2, keys.device) if opts.use_pallas
+          else tracing.NULL):
+        if rm is not None:
+            keys = keys.masked_fill(~rm, float("inf"))
+        if qvalid is not None:
+            keys = keys.masked_fill(~qvalid[:, None], float("inf"))
+        return compact_range(keys, k, metric)
 
 
 def _knn_join_core(a: Analysis, catalog: Catalog, opts: EngineOptions,
@@ -1372,8 +1383,8 @@ def _category_core(opts: EngineOptions, metric: Metric, index, C: int,
     def core(arrays, qs, radius, rm, qvalid=None, probe_budget=None,
              dmask=None):
         corpus, cats = arrays["corpus"], arrays["categories"]
-        radius = torch.as_tensor(radius, dtype=torch.float32,
-                                 device=qs.device).expand(qs.shape[0])
+        radius = on_device(radius, qs.device,
+                           torch.float32).expand(qs.shape[0])
         if dist is not None:
             ids, sims, valid, _count, stats = dist(arrays, qs, radius, rm,
                                                    qvalid)
@@ -1491,7 +1502,7 @@ def build_category_partition_batch(a: Analysis, catalog: Catalog,
         qn = qs.shape[0]
         radius = _radius_batch(radius_expr, table, binds, qn)
         if qvalid is not None:
-            qvalid = torch.as_tensor(qvalid, dtype=torch.bool, device=dev)
+            qvalid = on_device(qvalid, dev, torch.bool)
         dmask = None
         if live:
             row_mask, dmask = _live_scan_masks(a.structured_predicate,

@@ -62,6 +62,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import tracing
 from ..checkpoint import checkpointer
 from ..core.schema import Catalog, ColumnKind, Metric
 from ..index.ivf import build_ivf
@@ -463,8 +464,12 @@ class LiveCorpus:
         """The cached device copy of one segment piece.  ``torch.tensor``
         always copies, so a CPU plan never aliases the host segments that
         ``insert`` writes in place (a mutation reaches a plan only through
-        an invalidation, as on the card)."""
+        an invalidation, as on the card).  Each copy to a device counts as
+        an upload (:func:`repro_torch.tracing.count_upload`)."""
         if key not in self._dev:
+            pieces = host.values() if isinstance(host, dict) else (host,)
+            for v in pieces:
+                tracing.count_upload(v, self.device)
             if isinstance(host, dict):
                 self._dev[key] = {n: torch.tensor(v, device=self.device)
                                   for n, v in host.items()}

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.expr import order_key
+from ..core.expr import on_device, order_key
 from ..core.schema import Metric
 from .flat import FlatIndex, stable_smallest_k
 
@@ -52,8 +52,7 @@ def delta_range_batch(metric: Metric, delta_vec: torch.Tensor,
     ``(keys, gids, count)``, keys and gids merge-ready."""
     m, dn = qs.shape[0], delta_vec.shape[0]
     cap = min(int(capacity), dn)
-    radius = torch.as_tensor(radius, dtype=torch.float32,
-                             device=qs.device).expand(m)
+    radius = on_device(radius, qs.device, torch.float32).expand(m)
     flat = FlatIndex(metric, delta_vec)
     rows = [flat.range_mask(qs[i], radius[i],
                             dmask if dmask is None or dmask.ndim == 1

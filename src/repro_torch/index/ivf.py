@@ -40,7 +40,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.expr import distance_values, full_fp32, order_key
+from .. import tracing
+from ..core.expr import distance_values, full_fp32, on_device, order_key
 from ..core.schema import Metric
 from .flat import stable_smallest_k
 from .kmeans import assign, kmeans
@@ -257,16 +258,14 @@ def _resolve_budget(probe_budget, cfg: ProbeConfig, qn: int, device):
         if cfg.probe_budget <= 0:
             return None
         probe_budget = cfg.probe_budget
-    return torch.as_tensor(probe_budget, dtype=torch.int32,
-                           device=device).expand(qn)
+    return on_device(probe_budget, device, torch.int32).expand(qn)
 
 
 def _active_init(qvalid, qn: int, device) -> torch.Tensor:
     """Size-bucket pad queries (qvalid False) never probe."""
     if qvalid is None:
         return torch.ones((qn,), dtype=torch.bool, device=device)
-    return torch.as_tensor(qvalid, dtype=torch.bool,
-                           device=device).reshape(qn)
+    return on_device(qvalid, device, torch.bool).reshape(qn)
 
 
 def _round_schedule(index: IVFIndex, cfg: ProbeConfig):
@@ -295,6 +294,7 @@ def _run_rounds(n_rounds: int, active_of, body) -> None:
     for r in range(n_rounds):
         if r and r % ACTIVE_CHECK_EVERY == 0:
             loop_stats["syncs"] += 1
+            tracing.count("syncs")
             if not bool(active_of().any()):
                 return
         body(r)
@@ -423,8 +423,8 @@ def _range_probe(index: IVFIndex, corpus: torch.Tensor, categories,
     budget = _resolve_budget(probe_budget, cfg, qn, dev)
     B, n_rounds, max_probes = _round_schedule(index, cfg)
     order, bounds = _order_pad_batch(index, qs, B, n_rounds, max_probes)
-    radius_key = order_key(index.metric, torch.as_tensor(
-        radius, dtype=torch.float32, device=dev).expand(qn))
+    radius_key = order_key(index.metric,
+                           on_device(radius, dev, torch.float32).expand(qn))
     capacity = cfg.capacity
     zeros = torch.zeros((qn,), dtype=torch.int32, device=dev)
     active = _active_init(qvalid, qn, dev)

@@ -13,12 +13,16 @@ The kernels take ragged N, D and Q and mask the edge themselves, so none of
 the reference's padding helpers is needed: the only layout work left is
 viewing a bool mask as the int8 the kernels read (no copy), the per-query
 valid lane, and the radius as an fp32 order key.
+
+Each stage 2 after a kernel is the span ``repro_torch.stage2``
+(:mod:`repro_torch.tracing`), timed on the card's stream too.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.expr import order_key
+from .. import tracing
+from ..core.expr import on_device, order_key
 from ..core.schema import Metric
 from ..index.flat import compact_range, stable_smallest_k
 from . import distance
@@ -26,6 +30,11 @@ from .range_scan import range_scan, range_scan_batch
 from .scan_topk import MAX_K, scan_topk, scan_topk_batch
 
 INF = float("inf")
+
+
+def _stage2(device: torch.device):
+    """The span of a stage 2 on ``device``."""
+    return tracing.span(tracing.STAGE2, device)
 
 
 def _mask_i8(mask: torch.Tensor | None) -> torch.Tensor | None:
@@ -71,9 +80,11 @@ def fused_scan_topk(corpus: torch.Tensor, query: torch.Tensor, k: int,
         keys, _hits, _count = range_scan(
             corpus, query, torch.full((1,), INF, device=corpus.device), mask,
             metric)
-        return compact_range(keys, k, metric)
+        with _stage2(keys.device):
+            return compact_range(keys, k, metric)
     keys, ids = scan_topk(corpus, query, mask, k, metric)
-    return _merge(keys.reshape(-1), ids.reshape(-1), k, metric)
+    with _stage2(keys.device):
+        return _merge(keys.reshape(-1), ids.reshape(-1), k, metric)
 
 
 def fused_scan_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
@@ -99,16 +110,18 @@ def fused_scan_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
             corpus, queries,
             torch.full((queries.shape[0],), INF, device=corpus.device), mask,
             qv, metric)
-        return compact_range(keys, k, metric)
+        with _stage2(keys.device):
+            return compact_range(keys, k, metric)
     keys, ids = scan_topk_batch(corpus, queries, mask, qv, k, metric)
-    return _merge(keys, ids, k, metric)
+    with _stage2(keys.device):
+        return _merge(keys, ids, k, metric)
 
 
 def _radius_keys(radius, metric: Metric, qn: int,
                  device: torch.device) -> torch.Tensor:
     """A raw radius (scalar or (Q,)) as (Q,) fp32 order keys on ``device``
     (rounded to fp32 first, as the reference does)."""
-    r = torch.as_tensor(radius, dtype=torch.float32, device=device)
+    r = on_device(radius, device, torch.float32)
     return order_key(metric, r.expand(qn)).contiguous()
 
 
@@ -173,7 +186,8 @@ def fused_range_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
     them directly instead of rebuilding them from the raw values."""
     keys, _hit, counts = _range_batch(corpus, queries, radius, row_mask,
                                       metric, qvalid)
-    return compact_range(keys, capacity, metric) + (counts,)
+    with _stage2(keys.device):
+        return compact_range(keys, capacity, metric) + (counts,)
 
 
 def pairwise_keys(queries: torch.Tensor, corpus: torch.Tensor,

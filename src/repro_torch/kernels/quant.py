@@ -33,7 +33,9 @@ Each kernel wrapper launches a hand-written CUDA kernel on a CUDA tensor
 and runs its plain PyTorch version beside it on a CPU tensor, and only then;
 it counts its launches in a plain integer attribute (``.launches``), and
 its ``*_work`` function is a launch's roofline work (as ``scan_topk.py``'s).
-Stage 2 is plain torch, and every top-k in it is ``stable_smallest_k``.
+Stage 2 is plain torch, and every top-k in it is ``stable_smallest_k``;
+each of its steps between kernels is the span ``repro_torch.stage2``
+(:mod:`repro_torch.tracing`).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import math
 
 import torch
 
+from .. import tracing
 from ..core.expr import pairwise_order_keys
 from ..core.schema import Metric
 from ..index.flat import stable_smallest_k
@@ -48,7 +51,7 @@ from ..roofline.op_counter import Work, counted
 from . import build
 from .build import METRIC_CODES, I, P, check_tensor, ptr, stream
 from .distance import MAX_GRID_Y
-from .ops import (_check_limit, _mask_i8, _radius_keys,
+from .ops import (_check_limit, _mask_i8, _radius_keys, _stage2,
                   fused_range_topk_batch)
 from .range_scan import batch_plan
 from .scan_topk import (BLOCK_RESERVED, BLOCK_SMEM, MAX_K, SM_SMEM, _cdiv,
@@ -417,14 +420,16 @@ def _rescored_topk(corpus, queries, rows, row_mask, k: int, metric: Metric):
     exact fp32 key: (ids, sims, valid)."""
     n = corpus.shape[0]
     exact = replay_keys(corpus, queries, rows, metric)
-    live = (rows < n) & _mask_at_rows(row_mask, rows.clamp(max=n - 1))
-    exact = torch.where(live, exact, INF)
-    out_keys, pos = stable_smallest_k(exact, k)
-    valid = torch.isfinite(out_keys)
-    ids = torch.where(
-        valid, torch.take_along_dim(rows, pos.clamp_min(0).long(), dim=1), -1)
-    sims = torch.where(valid, -out_keys if metric.is_similarity()
-                       else out_keys, 0.0)
+    with _stage2(exact.device):
+        live = (rows < n) & _mask_at_rows(row_mask, rows.clamp(max=n - 1))
+        exact = torch.where(live, exact, INF)
+        out_keys, pos = stable_smallest_k(exact, k)
+        valid = torch.isfinite(out_keys)
+        ids = torch.where(
+            valid, torch.take_along_dim(rows, pos.clamp_min(0).long(), dim=1),
+            -1)
+        sims = torch.where(valid, -out_keys if metric.is_similarity()
+                           else out_keys, 0.0)
     return ids, sims, valid
 
 
@@ -450,14 +455,17 @@ def fused_scan_topk_batch_q(corpus: torch.Tensor, qvecs: torch.Tensor,
     qv = None if qvalid is None else _mask_i8(qvalid)
     mask = _mask_i8(row_mask)
     if k > MAX_K:
-        keys = segment_minima(quant_keys_batch(qvecs, scales, queries, mask,
-                                               qv, metric))
-        segs = torch.arange(keys.shape[1], dtype=torch.int32,
-                            device=keys.device).expand_as(keys)
+        keys = quant_keys_batch(qvecs, scales, queries, mask, qv, metric)
+        with _stage2(keys.device):
+            keys = segment_minima(keys)
+            segs = torch.arange(keys.shape[1], dtype=torch.int32,
+                                device=keys.device).expand_as(keys)
+            rows = candidate_rows(keys, segs, count)
     else:
         keys, segs = quant_scan_topk_batch(qvecs, scales, queries, mask, qv,
                                            count, metric)
-    rows = candidate_rows(keys, segs, count)
+        with _stage2(keys.device):
+            rows = candidate_rows(keys, segs, count)
     return _rescored_topk(corpus, queries, rows, row_mask, k, metric)
 
 
@@ -535,39 +543,48 @@ def fused_range_topk_batch_q(corpus: torch.Tensor, qvecs: torch.Tensor,
     qv = None if qvalid is None else _mask_i8(qvalid)
     qkeys = quant_keys_batch(qvecs, scales, queries, _mask_i8(row_mask), qv,
                              metric)                               # (Q, N)
-    rk = _radius_keys(radius, metric, qn, corpus.device)[:, None]
-    slack = _range_slack(metric, half, l1, l2, queries, d)
-    certain = qkeys <= rk - slack
-    maybe = qkeys <= rk + slack                     # +inf lanes: never maybe
     cap = min(int(capacity), n)
     w = min(max(1, int(rescore_factor)) * cap, n)
-    # the branch is chosen on the host: one device sync per call.  Boundary
-    # rows are maybe rows, so one test covers both replay budgets.
-    if int(maybe.sum(dim=1).max()) > w:
+    with _stage2(qkeys.device):
+        rk = _radius_keys(radius, metric, qn, corpus.device)[:, None]
+        slack = _range_slack(metric, half, l1, l2, queries, d)
+        certain = qkeys <= rk - slack
+        maybe = qkeys <= rk + slack                 # +inf lanes: never maybe
+        # the branch is chosen on the host: one device sync per call.
+        # Boundary rows are maybe rows, so one test covers both replay
+        # budgets.
+        tracing.count("syncs")
+        over = int(maybe.sum(dim=1).max()) > w
+    if over:
         return fused_range_topk_batch(corpus, queries, radius, row_mask,
                                       metric, cap, qvalid=qvalid)
 
     def replayed(sel_keys):
         """Each query's rows with a finite ``sel_keys`` (at most ``w``), in
         ascending order, and their exact keys (+inf in empty slots)."""
-        vals, sel = stable_smallest_k(sel_keys, w)
-        rows = torch.where(torch.isfinite(vals), sel, I32_MAX)
-        rows = torch.sort(rows, dim=1).values
+        with _stage2(sel_keys.device):
+            vals, sel = stable_smallest_k(sel_keys, w)
+            rows = torch.where(torch.isfinite(vals), sel, I32_MAX)
+            rows = torch.sort(rows, dim=1).values
         return rows, replay_keys(corpus, queries, rows, metric)
 
     # emission: the best ``cap`` exact hits among the maybe rows
     rows_e, exact_e = replayed(torch.where(maybe, qkeys, INF))
-    hit_e = (rows_e < n) & (exact_e <= rk)
-    out_keys, pos = stable_smallest_k(torch.where(hit_e, exact_e, INF), cap)
-    valid = torch.isfinite(out_keys)
-    ids = torch.where(
-        valid, torch.take_along_dim(rows_e, pos.clamp_min(0).long(), dim=1),
-        -1)
-    sims = torch.where(valid, -out_keys if metric.is_similarity()
-                       else out_keys, 0.0)
-    # count: certain hits + the boundary rows that hit exactly
-    boundary = maybe & ~certain
+    with _stage2(exact_e.device):
+        hit_e = (rows_e < n) & (exact_e <= rk)
+        out_keys, pos = stable_smallest_k(torch.where(hit_e, exact_e, INF),
+                                          cap)
+        valid = torch.isfinite(out_keys)
+        ids = torch.where(
+            valid,
+            torch.take_along_dim(rows_e, pos.clamp_min(0).long(), dim=1), -1)
+        sims = torch.where(valid, -out_keys if metric.is_similarity()
+                           else out_keys, 0.0)
+        # count: certain hits + the boundary rows that hit exactly
+        boundary = maybe & ~certain
     rows_b, exact_b = replayed(torch.where(boundary, (qkeys - rk).abs(), INF))
-    count = (certain.sum(dim=1, dtype=torch.int32)
-             + ((rows_b < n) & (exact_b <= rk)).sum(dim=1, dtype=torch.int32))
+    with _stage2(exact_b.device):
+        count = (certain.sum(dim=1, dtype=torch.int32)
+                 + ((rows_b < n) & (exact_b <= rk)).sum(dim=1,
+                                                        dtype=torch.int32))
     return ids, sims, valid, count

@@ -61,6 +61,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from .. import tracing
+
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 DTYPES = ("bf16", "fp32", "fp64")
@@ -369,18 +371,23 @@ def counted(work: Callable[..., Work], kernel: bool = True):
     of the call's own arguments (evaluated only then, uncounted), and none
     of the ops inside the call are counted; without one it adds nothing
     but the check.  With ``kernel=False`` the call is recorded as one
-    plain op of that work instead (its operations as fp32 FLOPs)."""
+    plain op of that work instead (its operations as fp32 FLOPs).  A
+    kernel's call is the span ``repro_torch.kernel.<wrapper>``
+    (:mod:`repro_torch.tracing`)."""
     def deco(fn):
+        label = tracing.KERNEL + fn.__name__
+
         @functools.wraps(fn)
         def wrapper(*args, **kw):
-            c = active()
-            if c is None:
-                return fn(*args, **kw)
-            ins = [t for t in tree_flatten((args, kw))[0]
-                   if isinstance(t, torch.Tensor)]
-            with c._region(fn.__name__, lambda: work(*args, **kw), kernel,
-                           ins):
-                return fn(*args, **kw)
+            with tracing.span(label) if kernel else tracing.NULL:
+                c = active()
+                if c is None:
+                    return fn(*args, **kw)
+                ins = [t for t in tree_flatten((args, kw))[0]
+                       if isinstance(t, torch.Tensor)]
+                with c._region(fn.__name__, lambda: work(*args, **kw),
+                               kernel, ins):
+                    return fn(*args, **kw)
         return wrapper
     return deco
 
