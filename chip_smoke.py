@@ -11,12 +11,13 @@ of 512-d fp32 vectors, 100 queries; configs/chase_laion.py's
   Q1  VKNN-SF, the filtered vector top-k, K = 50, ``price < p`` at
       selectivity 0.3 (kernels scan_topk, scan_topk_batch);
   Q2  DR-SF, the filtered range scan ``DISTANCE <= r AND price < p``,
-      result buffer 4096 (the EngineOptions default) (range_scan_batch; the
+      result buffer 4096 (the EngineOptions default) (range_topk_batch,
+      the range tile compacting each query's hits on the card; the
       single-dict plan is the reference's kernel-less lowering);
   Q3  the distance join of the 100 queries with the corpus on
       ``DISTANCE <= r AND images.capture_date > queries.capture_date``,
       max_pairs 512 (benchmarks/q3_distjoin.py), under the batch lowering
-      (range_scan_batch) and the perleft one (range_scan, one launch per
+      (range_topk_batch) and the perleft one (range_scan, one launch per
       left row);
   Q4  the KNN join of 100 users with the 1M movies on
       ``users.preferred_rating = movies.rating``, K = 50
@@ -27,18 +28,18 @@ of 512-d fp32 vectors, 100 queries; configs/chase_laion.py's
   Q5  the category partition ``DISTANCE <= r AND cuisine <> 3``, top 10 per
       calorie level (8 levels; benchmarks/q5q6_category.py), result buffer
       4096: single dicts (the reference's kernel-less lowering), lists of
-      1, 8, 64 and 100, stacked, exact_shape (range_scan_batch);
+      1, 8, 64 and 100, stacked, exact_shape (range_topk_batch);
   Q6  the category join of the 100 queries with the corpus on
       ``DISTANCE <= r AND queries.cuisine <> recipes.cuisine``, top 10 per
       (query, level): batch lowering and a list of 4 radii
-      (range_scan_batch), perleft (kernel-less, as in the reference);
+      (range_topk_batch), perleft (kernel-less, as in the reference);
   pairwise_keys  the (100, 1M) order-key matrix;
 
 and Q1–Q3 again under ``EngineOptions(quant="int8")`` and ``quant="bf16"``:
 the batched scans stream the corpus's int8 or bf16 twin and re-rank their
 candidates with exact fp32 keys (quant_scan_topk_batch for Q1,
 quant_keys_batch for Q2 and Q3, replay_keys for both; a Q2 band wider than
-the replay budget runs range_scan_batch itself).  Every quantized answer
+the replay budget runs range_topk_batch itself).  Every quantized answer
 must equal the fp32 ``use_pallas=True`` answer of the same call bit for bit.
 Q4, Q5 and Q6's batched lowerings run under both modes too, held the same
 way.  Then Q1–Q6 run over the IVF index under the paper's own engines
@@ -94,7 +95,15 @@ one JSON line each:
            above every key, at the pairwise_bits shapes with Q in {1, 8,
            16, 17, 37, 100, 128, 130} (every block shape, a second query
            tile) and at 1,000,003 x 64 with Q in {8, 100}; row i of a
-           Q-query call equals the single-query call
+           Q-query call equals the single-query call.  Line
+           range_append_bits: the append mode (range_topk_batch: the
+           tile's APPEND epilogue and the per-query sort) and
+           ops.fused_range_topk_batch equal compact_range of the dense
+           keys bit for bit (ids, sims, valid, counts), every metric, mask
+           kind and dead lanes, capacities 16 (the dense fallback), 4,096
+           and 6,000, Q in {1, 8, 17, 100, 128, 130} and at 1,000,003 x 64;
+           the sort kernel alone on crafted words (±0.0 ties, ±inf hits,
+           shuffled slots)
   keys_bits  quant_keys_batch bit for bit: its keys (int32 view) equal
            quant_keys_batch_replayed (replay_keys over the dequantized
            rows, then the mask and the valid lane) and range_scan_batch's
@@ -804,7 +813,7 @@ def ivf_phase(cat, qv, p, r, sims, near_q, drive, launches, smi: str,
                 and any(launches[path].values()):
             raise AssertionError(f"{path} launched {launches[path]}: the "
                                  f"IVF probes run no kernel")
-    if launches["ivf_q2_pase"]["range_scan_batch"] < 1:
+    if launches["ivf_q2_pase"]["range_topk_batch"] < 1:
         raise AssertionError("pase Q2 did not run the flat range kernel")
     for (qname, engine), by_label in res.items():
         for label, out in by_label.items():
@@ -1092,14 +1101,14 @@ def ivf_joins_phase(cat, qv, r, sims, index, drive, launches, smi: str,
 
     # gate 6: the probes launch no kernel; each flat fallback launches the
     # kernels its path launches with no index
-    flat_kernels = {("q3", "pase", "batch"): {"range_scan_batch"},
+    flat_kernels = {("q3", "pase", "batch"): {"range_topk_batch"},
                     ("q3", "pase", "perleft"): {"range_scan"},
                     ("q4", "vbase", "batch"): {"scan_topk_batch"},
                     ("q4", "pase", "batch"): {"scan_topk_batch"},
                     ("q4", "vbase", "perleft"): {"scan_topk"},
                     ("q4", "pase", "perleft"): {"scan_topk"},
-                    ("q5", "pase", "lists"): {"range_scan_batch"},
-                    ("q6", "pase", "batch"): {"range_scan_batch"}}
+                    ("q5", "pase", "lists"): {"range_topk_batch"},
+                    ("q6", "pase", "batch"): {"range_topk_batch"}}
     for path, counts in launches.items():
         if not path.startswith("ivfj_"):
             continue
@@ -1943,9 +1952,9 @@ def sharded_phase(cat, qv, p, r, drive, launches, smi: str,
     joins = {"q3": (Q3, [{"r": r}]), "q4": (Q4Y, [{"y": np.int32(1980)}]),
              "q6": (Q6, [{"r": r}])}
     need = {"q1": "scan_topk_batch", "q1_nofilter": "scan_topk_batch",
-            "q4": "scan_topk_batch", "q2": "range_scan_batch",
-            "q2_nofilter": "range_scan_batch", "q3": "range_scan_batch",
-            "q5": "range_scan_batch", "q6": "range_scan_batch"}
+            "q4": "scan_topk_batch", "q2": "range_topk_batch",
+            "q2_nofilter": "range_topk_batch", "q3": "range_topk_batch",
+            "q5": "range_topk_batch", "q6": "range_topk_batch"}
     qneed = {"q1": ("quant_scan_topk_batch", "replay_keys"),
              "q1_nofilter": ("quant_scan_topk_batch", "replay_keys"),
              "q2": ("quant_keys_batch",), "q2_nofilter": ("quant_keys_batch",)}
@@ -2881,7 +2890,7 @@ def aot_phase(cat, qv, p, r, children: AotChildren, reset_counts, counts,
                 data[run] = res.data
             launches[f"aot_{label}"] = counts()
             for kname in ("scan_topk", "scan_topk_batch",
-                          "range_scan_batch"):
+                          "range_topk_batch"):
                 if launches[f"aot_{label}"][kname] < 1:
                     raise AssertionError(f"aot {label}: {kname} not "
                                          f"launched")
@@ -3383,7 +3392,7 @@ def live_phase(cat, qv, p, r, drive, launches, reset_counts, counts,
                 uid_view(frz, lambda i: surv_uids[np.maximum(i, 0)]), q,
                 f"live gate 2 {q} survivors"))
         for q in ("q1", "q2", "q3", "q5", "q6"):
-            kname = "scan_topk_batch" if q == "q1" else "range_scan_batch"
+            kname = "scan_topk_batch" if q == "q1" else "range_topk_batch"
             if launches[f"live_{q}"][kname] < 1:
                 raise AssertionError(f"live_{q} launched no {kname}")
         chased = {q: drive(f"live_{q}_chase", [
@@ -4493,7 +4502,7 @@ def roofline_phase(trained: dict, cat, qv, p, r, reset_counts, counts,
     printed over the measured execute.  Gate 4: ``lower(...).as_text()``
     names ``scan_topk`` for a single-dict Q1 and ``range_scan`` for a
     single-dict perleft Q3; ``lower_batch`` of Q2 names
-    ``range_scan_batch``, and a single-dict Q2, which runs the plain scan
+    ``range_topk_batch``, and a single-dict Q2, which runs the plain scan
     as the reference lowers it, names no kernel and counts its rowwise
     distance's 2·N·D operations; every answer after the lowerings equals
     the one before bit for bit."""
@@ -4565,7 +4574,7 @@ def roofline_phase(trained: dict, cat, qv, p, r, reset_counts, counts,
                           if line.startswith("kernel ")})
              for key, lw in lowered.items()}
     want_names = {"q1_single": ["scan_topk"], "q1_list": ["scan_topk_batch"],
-                  "q2_single": [], "q2_list": ["range_scan_batch"],
+                  "q2_single": [], "q2_list": ["range_topk_batch"],
                   "q3_perleft": ["range_scan"]}
     if names != want_names:
         raise AssertionError(f"roofline gate 4: kernels named {names}")
@@ -4573,7 +4582,7 @@ def roofline_phase(trained: dict, cat, qv, p, r, reset_counts, counts,
         raise AssertionError(f"roofline gate 4: single Q2 counts "
                              f"{lowered['q2_single'].cost.flops} FLOPs")
     for kname in ("scan_topk", "scan_topk_batch", "range_scan",
-                  "range_scan_batch"):
+                  "range_topk_batch"):
         if launches["roofline"][kname] < 1:
             raise AssertionError(f"roofline: {kname} never launched")
     cost = lowered["q1_list"].cost
@@ -4890,6 +4899,145 @@ def mesh_phase(cells: MeshCells, reset_counts, counts, launches, smi: str,
     cells.close()
 
 
+APPEND_QS = (1, 8, 17, 100, 128, 130)   # range_append_bits' batch sizes
+APPEND_ROWS = 1_000_003                  # and its ragged 1M-row corpus
+
+
+def range_append_bits(dev: torch.device, seed: int = 0) -> dict:
+    """range_bits' append mode: ``range_topk_batch`` (the range tile's
+    APPEND epilogue and the per-query sort) and ``ops.fused_range_topk_batch``
+    equal ``compact_range`` of ``range_scan_batch``'s dense keys bit for bit
+    (ids, sims as int32, valid, counts), every metric and mask kind with
+    the last three lanes dead, radii at the 100th-best key (the first
+    query's on duplicate rows) and above every key, capacities 16 (most
+    queries past it: the dense fallback), 4,096 and 6,000 (past the rows),
+    at the pairwise_bits shapes with Q in ``APPEND_QS`` and at 1,000,003 x
+    64 with Q in {8, 100}; the sort kernel alone on crafted words (±0.0
+    ties, ±inf hits, duplicate keys, shuffled slots) against the CPU's
+    stable sort.  Returns the line's fields."""
+    from repro_torch.core.expr import pairwise_order_keys
+    from repro_torch.core.schema import Metric
+    from repro_torch.index.flat import compact_range
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import range_scan as rs_mod
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = overflowed = 0
+
+    def unit(shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    def mask8(kind: str, qn: int, n: int):
+        if kind == "none":
+            return None
+        shape = (n,) if kind == "shared" else (qn, n)
+        return (torch.rand(shape, generator=gen, device=dev) < 0.4).to(
+            torch.int8)
+
+    def same(got, want, rows, what):
+        for name, a, b in zip(("ids", "sims", "valid"), got, want):
+            a, b = a[rows], b[rows]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differ")
+
+    def check(corpus, qs, rk, m8, qv8, metric, what):
+        nonlocal cases, overflowed
+        keys, _hits, counts = rs_mod.range_scan_batch(corpus, qs, rk, m8,
+                                                      qv8, metric)
+        raw = -rk if metric.is_similarity() else rk
+        for cap in (16, 4096, 6000):
+            want = compact_range(keys, cap, metric)
+            got = rs_mod.range_topk_batch(corpus, qs, rk, m8, qv8, metric,
+                                          cap)
+            if not torch.equal(got[3], counts):
+                raise AssertionError(f"{what} cap={cap}: counts differ")
+            fits = counts <= cap
+            same(got[:3], want, fits, f"{what} cap={cap} kernel")
+            empty = (got[0][~fits] == -1).all() and not got[2][~fits].any()
+            if not bool(empty):
+                raise AssertionError(f"{what} cap={cap}: overflow not empty")
+            fused = ops.fused_range_topk_batch(
+                corpus, qs, raw, None if m8 is None else m8.view(torch.bool),
+                metric, cap, qvalid=qv8.view(torch.bool))
+            every = torch.ones_like(fits)
+            same(fused[:3], want, every, f"{what} cap={cap} fused")
+            if not torch.equal(fused[3], counts):
+                raise AssertionError(f"{what} cap={cap}: fused counts")
+            cases += 1
+            overflowed += int((~fits).sum())
+
+    for n, d in ((5003, 130), (4099, 64), (3001, 512)):
+        corpus = unit((n, d))
+        corpus[n // 3: n // 3 + 40] = corpus[7]          # exact duplicates
+        for metric in Metric:
+            for qn in APPEND_QS:
+                qs = unit((qn, d))
+                qs[0] = corpus[7]
+                keys = pairwise_order_keys(metric, corpus, qs)
+                rk = torch.sort(keys, dim=-1).values[:, 100].contiguous()
+                rk[0] = keys[0, 7]                      # on the duplicates
+                radii = {"rank100": rk,
+                         "everything": keys.max(dim=1).values + 1}
+                qv8 = (torch.arange(qn, device=dev)
+                       < max(1, qn - 3)).to(torch.int8)
+                for mname in ("none", "shared", "per_query"):
+                    m8 = mask8(mname, qn, n)
+                    for rname, r in radii.items():
+                        check(corpus, qs, r.contiguous(), m8, qv8, metric,
+                              f"append bits {metric.value} n={n} d={d} "
+                              f"q={qn} {mname} {rname}")
+    n, d = APPEND_ROWS, 64
+    corpus = unit((n, d))
+    for metric in Metric:
+        for qn in (8, 100):
+            qs = unit((qn, d))
+            keys = pairwise_order_keys(metric, corpus, qs)
+            rk = torch.topk(keys, RANGE_TARGET, dim=1,
+                            largest=False).values[:, -1].contiguous()
+            del keys
+            qv8 = (torch.arange(qn, device=dev)
+                   < max(1, qn - 3)).to(torch.int8)
+            check(corpus, qs, rk, mask8("per_query", qn, n), qv8, metric,
+                  f"append bits {metric.value} n={n} d={d} q={qn}")
+    del corpus
+    # the sort kernel on crafted words: zeros of both signs, infinities,
+    # repeated keys, slots shuffled, counts 0, 1, up to and past the width
+    width, crafted = 64, 0
+    cpu = torch.Generator().manual_seed(seed)
+    pool = torch.tensor([0.0, -0.0, 1.5, -1.5, float("inf"), -float("inf"),
+                         2.0 ** -140, -(2.0 ** -140)])
+    for metric in Metric:
+        for count in (0, 1, 2, 7, 33, 64, 65):
+            qn, n = 3, 500
+            keys = pool[torch.randint(len(pool), (qn, n), generator=cpu)]
+            hit = torch.zeros((qn, n), dtype=torch.bool)
+            for q in range(qn):
+                hit[q, torch.randperm(n, generator=cpu)[:count]] = True
+            dense = torch.where(hit, keys, float("inf"))
+            order = torch.stack([torch.randperm(n, generator=cpu)
+                                 for _ in range(qn)])
+            words = rs_mod.append_hits_plain(keys, hit, width, order)
+            card = (words ^ (-(1 << 63))).to(dev)
+            counts = hit.sum(1, dtype=torch.int32).to(dev)
+            got = [t.cpu() for t in rs_mod.sort_hits(card, counts, metric)]
+            fits = counts.cpu() <= width
+            same(got, compact_range(dense, width, metric), fits,
+                 f"sort bits {metric.value} count={count}")
+            if bool((got[0][~fits] != -1).any()):
+                raise AssertionError(f"sort bits count={count}: overflow")
+            crafted += 1
+    return {"cases": cases, "overflowed_queries": overflowed,
+            "crafted": crafted,
+            "checks": ["range_topk_batch = compact_range(range_scan_batch "
+                       "keys) bit for bit where count <= capacity, empty "
+                       "past it; fused_range_topk_batch everywhere",
+                       "sort kernel = the CPU's stable sort on crafted "
+                       "words (±0.0, ±inf, shuffled)"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -4915,6 +5063,7 @@ def main() -> None:
                 "scan_topk_batch": st_mod.scan_topk_batch,
                 "range_scan": rs_mod.range_scan,
                 "range_scan_batch": rs_mod.range_scan_batch,
+                "range_topk_batch": rs_mod.range_topk_batch,
                 "quant_scan_topk_batch": qt_mod.quant_scan_topk_batch,
                 "quant_keys_batch": qt_mod.quant_keys_batch,
                 "replay_keys": qt_mod.replay_keys,
@@ -5514,6 +5663,7 @@ def main() -> None:
           "checks": ["= range_scan_batch_replayed, keys (int32 view), hits "
                      "and counts, every metric, mask kind and radius kind",
                      "row of batch = single query"]})
+    emit({"phase": "range_append_bits", **range_append_bits(dev)})
 
     # -- keys_bits: the quantized key kernel's keys bit for bit -------------
     # against quant_keys_batch_replayed (replay_keys over the dequantized
@@ -5967,12 +6117,12 @@ def main() -> None:
             ("perleft", db.prepare(Q6, hints=perleft), {"r": r}, None)]),
         lambda label: r, join_cuisine_ok)
     need = {"q1": ("scan_topk", "scan_topk_batch"),
-            "q2": ("range_scan_batch",),
-            "q3": ("range_scan", "range_scan_batch"),
+            "q2": ("range_topk_batch",),
+            "q3": ("range_scan", "range_topk_batch"),
             "pairwise": ("pairwise_keys",),
             "q4": ("scan_topk_batch", "scan_topk", "pairwise_keys"),
-            "q5": ("range_scan_batch",),
-            "q6": ("range_scan_batch",)}
+            "q5": ("range_topk_batch",),
+            "q6": ("range_topk_batch",)}
     for path, kernels in need.items():
         for kname in kernels:
             if launches[path][kname] < 1:
@@ -6050,7 +6200,7 @@ def main() -> None:
                "q3_budget": q3, "q4": q4y, "q5": q5, "q6": q6}
     need_q = {"q1": ("quant_scan_topk_batch", "replay_keys"),
               "q2": ("quant_keys_batch",),
-              "q2_full": ("quant_keys_batch", "range_scan_batch"),
+              "q2_full": ("quant_keys_batch", "range_topk_batch"),
               "q3": ("quant_keys_batch",),
               "q3_budget": ("quant_keys_batch", "replay_keys"),
               "q4": ("quant_scan_topk_batch", "replay_keys"),
@@ -6130,7 +6280,7 @@ def main() -> None:
         for kname in ("scan_topk", "scan_topk_batch"):
             if launches[f"q1_{mode}"][kname]:
                 raise AssertionError(f"q1_{mode} launched fp32 {kname}")
-        if launches[f"q3_budget_{mode}"]["range_scan_batch"]:
+        if launches[f"q3_budget_{mode}"]["range_topk_batch"]:
             raise AssertionError(f"q3_budget_{mode} took the full branch")
     emit({"phase": "slice_quant", "coverage": coverage, "bands": bands,
           "launches": {key: v for key, v in launches.items()
@@ -6452,13 +6602,14 @@ def main() -> None:
         valid = (torch.arange(b, device=dev) < qn).to(torch.int8)
         return qs, rk.expand(b).contiguous(), mask, valid
 
-    def stage_ms(kernel_fn, cap: int, loops: int = 1) -> tuple:
-        """(kernel ms, stage-2 compaction ms) at one path's shapes."""
-        keys = kernel_fn()[0]
-        reps = (1, 3) if loops > 1 or keys.numel() > 2e8 else (2, 5)
-        return (time_ms(lambda: [kernel_fn() for _ in range(loops)], *reps),
-                time_ms(lambda: [compact_range(keys, cap, metric)
-                                 for _ in range(loops)], *reps))
+    def stage_ms(args, cap: int) -> tuple:
+        """(kernel ms, stage-2 ms) at one path's shapes: range_topk_batch
+        (the range tile appending each query's hits and the per-query
+        sort), then stage 2's read of the counts for the dense fallback."""
+        out = rs_mod.range_topk_batch(corpus, *args, metric, cap)
+        return (time_ms(lambda: rs_mod.range_topk_batch(corpus, *args,
+                                                        metric, cap), 2, 5),
+                time_ms(lambda: (out[3].cpu() > cap).nonzero(), 2, 5))
 
     q2_e2e = {}
     single_keys = torch.where(
@@ -6471,22 +6622,19 @@ def main() -> None:
         "peak_mb": peak_mb(lambda: q2.execute(q2_binds[0])), "queries": 1}
     for qn in BATCHES:
         inputs = q2_inputs(qn)
-        k_ms, s_ms = stage_ms(
-            lambda: rs_mod.range_scan_batch(corpus, *inputs, metric),
-            CAPACITY)
+        k_ms, s_ms = stage_ms(inputs, CAPACITY)
         q2_e2e[f"batch{qn}"] = {
             "latency_ms": latency_ms(lambda: q2.execute(q2_binds[:qn]),
                                      iters=5),
-            "kernel": "range_scan_batch", "kernel_ms": k_ms,
+            "kernel": "range_topk_batch", "kernel_ms": k_ms,
             "stage2_ms": s_ms,
             "peak_mb": peak_mb(lambda: q2.execute(q2_binds[:qn])),
             "queries": qn, "bucket": inputs[0].shape[0]}
     q3_e2e = {}
-    k_ms, s_ms = stage_ms(lambda: rs_mod.range_scan_batch(
-        corpus, left, q3_rk, date_mask, None, metric), MAX_PAIRS)
+    k_ms, s_ms = stage_ms((left, q3_rk, date_mask, None), MAX_PAIRS)
     q3_e2e["batch"] = {"latency_ms": latency_ms(lambda: q3.execute({"r": r}),
                                                 iters=5),
-                       "kernel": "range_scan_batch", "kernel_ms": k_ms,
+                       "kernel": "range_topk_batch", "kernel_ms": k_ms,
                        "stage2_ms": s_ms,
                        "peak_mb": peak_mb(lambda: q3.execute({"r": r}))}
     row_masks = [date_mask[i] for i in range(N_QUERIES)]
@@ -6508,11 +6656,10 @@ def main() -> None:
     mask4 = date_mask.repeat(4, 1)
     rk4 = order_key(metric, torch.from_numpy(radii).to(dev)
                     ).repeat_interleave(N_QUERIES).contiguous()
-    k_ms, s_ms = stage_ms(lambda: rs_mod.range_scan_batch(
-        corpus, left4, rk4, mask4, None, metric), MAX_PAIRS)
+    k_ms, s_ms = stage_ms((left4, rk4, mask4, None), MAX_PAIRS)
     q3_e2e["list4"] = {"latency_ms": latency_ms(lambda: q3.execute(list4),
                                                 iters=3),
-                       "kernel": "range_scan_batch", "kernel_ms": k_ms,
+                       "kernel": "range_topk_batch", "kernel_ms": k_ms,
                        "stage2_ms": s_ms,
                        "peak_mb": peak_mb(lambda: q3.execute(list4))}
     for key, row in list(q2_e2e.items()) + list(q3_e2e.items()):
@@ -6597,13 +6744,18 @@ def main() -> None:
         return (torch.from_numpy(qv[idx]).to(dev), rk.expand(b).contiguous(),
                 mask, valid)
 
-    def cat_stage(kernel_fn, loops: int = 1) -> tuple:
-        """(kernel ms, stage-2 ms) at one path's shapes."""
-        keys = kernel_fn()[0]
-        reps = (1, 3) if keys.numel() > 2e8 else (2, 5)
-        return (time_ms(kernel_fn, *reps),
-                time_ms(lambda: [rank_stage(keys) for _ in range(loops)],
-                        *reps))
+    def cat_stage(args) -> tuple:
+        """(kernel ms, stage-2 ms) at one path's shapes: range_topk_batch,
+        then the count read and the category rank of its buffers."""
+        out = rs_mod.range_topk_batch(corpus, *args, metric, CAPACITY)
+
+        def stage2():
+            (out[3].cpu() > CAPACITY).nonzero()
+            return _ranked_buffer(metric, levels, *out[:3], n_levels,
+                                  K_CATEGORY)
+        return (time_ms(lambda: rs_mod.range_topk_batch(
+                    corpus, *args, metric, CAPACITY), 2, 5),
+                time_ms(stage2, 2, 5))
 
     q5_e2e = {}
     single_keys = torch.where(
@@ -6616,12 +6768,11 @@ def main() -> None:
         "peak_mb": peak_mb(lambda: q5.execute(q5_binds[0])), "queries": 1}
     for qn in BATCHES:
         inputs = q5_inputs(qn)
-        k_ms, s_ms = cat_stage(
-            lambda: rs_mod.range_scan_batch(corpus, *inputs, metric))
+        k_ms, s_ms = cat_stage(inputs)
         q5_e2e[f"batch{qn}"] = {
             "latency_ms": latency_ms(lambda: q5.execute(q5_binds[:qn]),
                                      iters=5),
-            "kernel": "range_scan_batch", "kernel_ms": k_ms,
+            "kernel": "range_topk_batch", "kernel_ms": k_ms,
             "stage2_ms": s_ms,
             "peak_mb": peak_mb(lambda: q5.execute(q5_binds[:qn])),
             "queries": qn, "bucket": inputs[0].shape[0]}
@@ -6631,11 +6782,10 @@ def main() -> None:
                != qtable["cuisine"][:, None]).view(torch.int8)
     q6_perleft = db.prepare(Q6, hints=perleft)
     q6_e2e = {}
-    k_ms, s_ms = cat_stage(lambda: rs_mod.range_scan_batch(
-        corpus, left, q3_rk, q6_mask, None, metric))
+    k_ms, s_ms = cat_stage((left, q3_rk, q6_mask, None))
     q6_e2e["batch"] = {"latency_ms": latency_ms(lambda: q6.execute({"r": r}),
                                                 iters=5),
-                       "kernel": "range_scan_batch", "kernel_ms": k_ms,
+                       "kernel": "range_topk_batch", "kernel_ms": k_ms,
                        "stage2_ms": s_ms, "bind_sets": 1,
                        "peak_mb": peak_mb(lambda: q6.execute({"r": r}))}
     row_keys = torch.where((sims[0] >= float(r)) & (q6_mask[0] != 0),
@@ -6649,11 +6799,10 @@ def main() -> None:
         "bind_sets": 1,
         "peak_mb": peak_mb(lambda: q6_perleft.execute({"r": r}))}
     mask4_q6 = q6_mask.repeat(4, 1)
-    k_ms, s_ms = cat_stage(lambda: rs_mod.range_scan_batch(
-        corpus, left4, rk4, mask4_q6, None, metric))
+    k_ms, s_ms = cat_stage((left4, rk4, mask4_q6, None))
     q6_e2e["list4"] = {"latency_ms": latency_ms(lambda: q6.execute(list4),
                                                 iters=3),
-                       "kernel": "range_scan_batch", "kernel_ms": k_ms,
+                       "kernel": "range_topk_batch", "kernel_ms": k_ms,
                        "stage2_ms": s_ms, "bind_sets": 4,
                        "peak_mb": peak_mb(lambda: q6.execute(list4))}
     for row in list(q5_e2e.values()) + list(q6_e2e.values()):

@@ -45,11 +45,11 @@ extern "C" int quant_keys_batch_launch(
   const Args a{queries, nullptr, mask, mask_mode, qvalid, out_keys, nullptr,
                nullptr, n, d, qn, rows_per_split, splits, vec, vec_out};
   if (mode == 0)
-    return static_cast<int>(launch_any<Int8Rows, false>(
+    return static_cast<int>(launch_any<Int8Rows, kKeys>(
         qt, metric, Int8Rows{static_cast<const int8_t*>(qcorpus), scales}, a,
         stream));
   if (mode == 1)
-    return static_cast<int>(launch_any<Bf16Rows, false>(
+    return static_cast<int>(launch_any<Bf16Rows, kKeys>(
         qt, metric, Bf16Rows{static_cast<const uint16_t*>(qcorpus)}, a,
         stream));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,9 +1,10 @@
 // The query-batched key tile of the two range kernels, for Hopper (sm_90a):
 // range_scan_batch.cu (fp32 rows; keys, hits and counts at a per-query
-// radius) and quant_keys_batch.cu (int8 / bf16 rows; masked keys, no
-// radius).  For every (query, corpus row) pair it computes the order key
-// and masks it with the row mask (none, shared (N,) or query-major (Q, N))
-// and the query's valid lane, all query-major (Q, N).
+// radius, or each query's hits appended to a buffer) and
+// quant_keys_batch.cu (int8 / bf16 rows; masked keys, no radius).  For
+// every (query, corpus row) pair it computes the order key and masks it
+// with the row mask (none, shared (N,) or query-major (Q, N)) and the
+// query's valid lane, all query-major (Q, N).
 //
 // Design: pairwise_keys.cu's SGEMM tile with scan_topk_batch.cu's staging
 // and a 4-row epilogue, plain fp32 FMAs (no TF32, no tensor cores).
@@ -43,6 +44,23 @@
 //   added to each query's count with one integer atomicAdd per (block,
 //   query).  Every output and mask offset is computed in 64 bits: Q·N·4
 //   bytes passes 2^31 at 540 queries of a 1M-row corpus.
+// - Epilogue modes (`MODE`): KEYS (masked keys only), HITS (the radius
+//   test, keys, hits and counts, above) and APPEND.  APPEND writes no
+//   (Q, N) output: each hit's (key, row) goes, as one 64-bit word
+//   (pack_hit below), into its query's row of a (Q, W) buffer, and each
+//   query's count is the number of its hits, as in HITS.  A hit's slot:
+//   per tile, the LR lanes that share a query (a warp's lane group) sum
+//   their hits with an inclusive shuffle scan, the group's last lane adds
+//   the group's total to counts[q] with one integer atomicAdd, whose
+//   return value is the group's base, and each lane writes its hits at
+//   base + its exclusive prefix.  So counts[q] ends at the exact hit
+//   count, and the slots 0 .. count − 1 are each written once, in an
+//   order the atomics choose; slots at or past W are not written (the
+//   count still counts them).  A warp vote skips the scan where no lane
+//   of the warp has a hit for the query.  The hits are rare where the
+//   mode is used (a radius of about a hundred matches a query), so the
+//   atomics are a few per query and tile; a block takes no barrier for
+//   them.  range_scan_batch.cu sorts each row of the buffer.
 //
 // Keys bit for bit: each (row, query) dot product and each row's squared
 // norm is one sequential fmaf chain over d = 0 .. ceil(D / 32)·32 − 1,
@@ -104,6 +122,33 @@ struct Shape {
   static constexpr size_t kSmemBytes =
       sizeof(float) * (2 * static_cast<size_t>(kStage) + BR);
 };
+
+// The epilogue's modes (see the header).
+enum Mode : int { kKeys = 0, kHits = 1, kAppend = 2 };
+
+// One appended hit as a 64-bit word whose unsigned order is the (key, row)
+// order with keys compared as floats: the high word is the key's bits made
+// monotone (sign flipped for +, all bits for −), −0.0 first made +0.0 so
+// that it ties +0.0; the low word is row·2 + 1 where the key was −0.0, so
+// that unpack_key returns the key's own bits.  Rows are below 2^31, and
+// distinct, so no two hits of a query share a word.
+__device__ __forceinline__ unsigned long long pack_hit(float key, int row) {
+  unsigned b = __float_as_uint(key);
+  const unsigned neg0 = b == 0x80000000u;
+  if (neg0) b = 0u;
+  const unsigned hi = b ^ ((b & 0x80000000u) ? 0xffffffffu : 0x80000000u);
+  return (static_cast<unsigned long long>(hi) << 32) |
+         (static_cast<unsigned>(row) << 1) | neg0;
+}
+__device__ __forceinline__ float unpack_key(unsigned long long w) {
+  if (w & 1ull) return __uint_as_float(0x80000000u);
+  const unsigned hi = static_cast<unsigned>(w >> 32);
+  return __uint_as_float(hi ^ ((hi & 0x80000000u) ? 0x80000000u
+                                                  : 0xffffffffu));
+}
+__device__ __forceinline__ int unpack_row(unsigned long long w) {
+  return static_cast<int>(static_cast<unsigned>(w) >> 1);
+}
 
 using Wide = Shape<128, 128, 8, 8, 4, 16, 1>;
 using Mid = Shape<32, 256, 4, 8, 4, 16, 2>;
@@ -213,16 +258,20 @@ struct Bf16Rows {
 
 // QGA: the micro-tile's query groups that hold a query below qn (S::QG, or
 // fewer when the block's upper query groups all lie past the last query).
-// Without HITS, `radius_keys`, `out_hits` and `counts` are not read or
-// written (null), and a key is +inf only where the mask or the lane is 0.
-template <class S, int METRIC, int QGA, class Rows, bool HITS>
+// In KEYS, `radius_keys`, `out_hits` and `counts` are not read or written
+// (null), and a key is +inf only where the mask or the lane is 0.  Only
+// APPEND writes `pairs` ((qn, width) words) and only it leaves `out_keys`
+// and `out_hits` unwritten (null).
+template <class S, int METRIC, int QGA, class Rows, int MODE>
 __global__ void __launch_bounds__(kThreads, S::MINB) range_tile_kernel(
     const Rows corpus, const float* __restrict__ queries,
     const float* __restrict__ radius_keys, const int8_t* __restrict__ mask,
     int mask_mode, const int8_t* __restrict__ qvalid,
     float* __restrict__ out_keys, int8_t* __restrict__ out_hits,
-    int* __restrict__ counts, int n, int d, int qn, int rows_per_split,
-    int vec, int vec_out) {
+    int* __restrict__ counts, unsigned long long* __restrict__ pairs,
+    int width, int n, int d, int qn, int rows_per_split, int vec,
+    int vec_out) {
+  constexpr bool HITS = MODE != kKeys;  // the radius test and the counts
   constexpr int BQ = S::BQ, BR = S::BR, BK = S::BK, QM = S::QM, RM = S::RM;
   constexpr int RG = S::RG, LR = S::LR;
   constexpr int QJ = 4 * QGA;  // the micro-tile's queries that are computed
@@ -240,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, S::MINB) range_tile_kernel(
   __shared__ float s_qq[BQ];
   __shared__ float s_rk[HITS ? BQ : 1];
   __shared__ int s_live[BQ];
-  __shared__ int s_cnt[HITS ? BQ : 1];
+  __shared__ int s_cnt[MODE == kHits ? BQ : 1];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -253,10 +302,8 @@ __global__ void __launch_bounds__(kThreads, S::MINB) range_tile_kernel(
   for (int qi = tid; qi < BQ; qi += kThreads) {
     const int q = q0 + qi;
     s_live[qi] = q < qn && (qvalid == nullptr || qvalid[q] != 0);
-    if constexpr (HITS) {
-      s_cnt[qi] = 0;
-      s_rk[qi] = q < qn ? radius_keys[q] : -pos_inf();
-    }
+    if constexpr (MODE == kHits) s_cnt[qi] = 0;
+    if constexpr (HITS) s_rk[qi] = q < qn ? radius_keys[q] : -pos_inf();
   }
   if (METRIC != kInnerProduct)
     repro_tile::query_norms<BQ>(queries, q0, qn, d, s_qq);
@@ -448,6 +495,62 @@ __global__ void __launch_bounds__(kThreads, S::MINB) range_tile_kernel(
     if ((t + 1) * chunks < steps) stash(buf0, pa, sa, (t + 1) * chunks);
     __syncthreads();  // s_cc and the next tile's first chunk
 
+    if constexpr (MODE == kAppend) {
+      // each hit of the micro-tile appended to its query's row of `pairs`
+      // (no lane leaves the loop early: the lane group's shuffles need
+      // every lane; a row past the split or a query past qn is never live)
+#pragma unroll
+      for (int j = 0; j < QJ; ++j) {
+        const int qi = qi_of(j);
+        const float qq = METRIC == kInnerProduct ? 0.f : s_qq[qi];
+        const float rk = s_rk[qi];
+        float key[RG][4];
+        unsigned hw[RG];
+        int h = 0;
+#pragma unroll
+        for (int g = 0; g < RG; ++g) {
+          const int rl = g * S::RGS + tr * 4;
+          hw[g] = 0u;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            key[g][e] = order_key<METRIC>(
+                acc[4 * g + e][j],
+                METRIC == kInnerProduct ? 0.f : s_cc[rl + e], qq);
+            const bool live = ((mw[g][j] >> (8 * e)) & 0xffu) != 0;
+            hw[g] |= live && key[g][e] <= rk ? 1u << (8 * e) : 0u;
+          }
+          h += __popc(hw[g]);
+        }
+        if (!__any_sync(kFull, h != 0)) continue;  // warp-uniform
+        int incl = h;  // inclusive scan over the lane group
+#pragma unroll
+        for (int o = 1; o < LR; o <<= 1) {
+          const int v = __shfl_up_sync(kFull, incl, o, LR);
+          if (lane % LR >= o) incl += v;
+        }
+        const int total = __shfl_sync(kFull, incl, LR - 1, LR);
+        int base = 0;
+        if (lane % LR == LR - 1 && total > 0)
+          base = atomicAdd(&counts[q0 + qi], total);
+        int slot = __shfl_sync(kFull, base, LR - 1, LR) + incl - h;
+        if (h > 0) {
+          unsigned long long* dst =
+              pairs + static_cast<size_t>(q0 + qi) * width;
+#pragma unroll
+          for (int g = 0; g < RG; ++g) {
+            const int row = t0 + g * S::RGS + tr * 4;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if ((hw[g] >> (8 * e)) & 1u) {
+                if (slot < width) dst[slot] = pack_hit(key[g][e], row + e);
+                ++slot;
+              }
+            }
+          }
+        }
+      }
+      continue;
+    }
     // keys (and hits and counts) of the micro-tile, 4 consecutive rows at
     // a time along N
 #pragma unroll
@@ -496,7 +599,7 @@ __global__ void __launch_bounds__(kThreads, S::MINB) range_tile_kernel(
     }
   }
 
-  if constexpr (HITS) {
+  if constexpr (MODE == kHits) {
     // counts: over the LR lanes that share a query, then one shared
     // atomic per lane group and one global atomic per (block, query)
 #pragma unroll
@@ -524,14 +627,16 @@ struct Args {
   int8_t* out_hits;
   int* counts;
   int n, d, qn, rows_per_split, splits, vec, vec_out;
+  unsigned long long* pairs;  // APPEND only: (qn, width) words
+  int width;
 };
 
-template <class S, int METRIC, int QGA, class Rows, bool HITS>
+template <class S, int METRIC, int QGA, class Rows, int MODE>
 cudaError_t launch(const Rows& corpus, const Args& a, cudaStream_t stream) {
   if (a.rows_per_split < S::BR || a.rows_per_split % S::BR != 0 ||
       static_cast<long long>(a.splits) * a.rows_per_split < a.n)
     return cudaErrorInvalidValue;
-  auto kernel = range_tile_kernel<S, METRIC, QGA, Rows, HITS>;
+  auto kernel = range_tile_kernel<S, METRIC, QGA, Rows, MODE>;
   // once per instantiation (the process's one card)
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -540,48 +645,48 @@ cudaError_t launch(const Rows& corpus, const Args& a, cudaStream_t stream) {
   const dim3 grid((a.qn + S::BQ - 1) / S::BQ, a.splits);
   kernel<<<grid, kThreads, S::kSmemBytes, stream>>>(
       corpus, a.queries, a.radius_keys, a.mask, a.mask_mode, a.qvalid,
-      a.out_keys, a.out_hits, a.counts, a.n, a.d, a.qn, a.rows_per_split,
-      a.vec, a.vec_out);
+      a.out_keys, a.out_hits, a.counts, a.pairs, a.width, a.n, a.d, a.qn,
+      a.rows_per_split, a.vec, a.vec_out);
   return cudaGetLastError();
 }
 
 // The wide shape's upper query groups are all past the last query when Q
 // fits the lower ones (buckets of 33..64 queries): their products are
 // skipped, half the block's FMAs.
-template <class S, int METRIC, class Rows, bool HITS>
+template <class S, int METRIC, class Rows, int MODE>
 cudaError_t launch_groups(const Rows& corpus, const Args& a,
                           cudaStream_t stream) {
   if constexpr (S::QG > 1) {
     if (a.qn <= S::QGS)
-      return launch<S, METRIC, 1, Rows, HITS>(corpus, a, stream);
+      return launch<S, METRIC, 1, Rows, MODE>(corpus, a, stream);
   }
-  return launch<S, METRIC, S::QG, Rows, HITS>(corpus, a, stream);
+  return launch<S, METRIC, S::QG, Rows, MODE>(corpus, a, stream);
 }
 
-template <class S, class Rows, bool HITS>
+template <class S, class Rows, int MODE>
 cudaError_t launch_metric(int metric, const Rows& corpus, const Args& a,
                           cudaStream_t stream) {
   switch (metric) {
     case kInnerProduct:
-      return launch_groups<S, kInnerProduct, Rows, HITS>(corpus, a, stream);
-    case kL2: return launch_groups<S, kL2, Rows, HITS>(corpus, a, stream);
+      return launch_groups<S, kInnerProduct, Rows, MODE>(corpus, a, stream);
+    case kL2: return launch_groups<S, kL2, Rows, MODE>(corpus, a, stream);
     case kCosine:
-      return launch_groups<S, kCosine, Rows, HITS>(corpus, a, stream);
+      return launch_groups<S, kCosine, Rows, MODE>(corpus, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The block shape by its queries per block `qt` (128 wide, 32 mid, 8
 // narrow), then the metric.
-template <class Rows, bool HITS>
+template <class Rows, int MODE>
 cudaError_t launch_any(int qt, int metric, const Rows& corpus,
                        const Args& a, cudaStream_t stream) {
   if (qt == Wide::BQ)
-    return launch_metric<Wide, Rows, HITS>(metric, corpus, a, stream);
+    return launch_metric<Wide, Rows, MODE>(metric, corpus, a, stream);
   if (qt == Mid::BQ)
-    return launch_metric<Mid, Rows, HITS>(metric, corpus, a, stream);
+    return launch_metric<Mid, Rows, MODE>(metric, corpus, a, stream);
   if (qt == Narrow::BQ)
-    return launch_metric<Narrow, Rows, HITS>(metric, corpus, a, stream);
+    return launch_metric<Narrow, Rows, MODE>(metric, corpus, a, stream);
   return cudaErrorInvalidValue;
 }
 

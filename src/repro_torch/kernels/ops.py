@@ -1,6 +1,8 @@
 """Public contracts of the fused scans and the pairwise key matrix: mask
 layout, the kernels' stage 1, and the stage-2 merges and compactions in
-plain torch.
+plain torch (a batched range compaction runs on the card instead, up to
+``range_scan.APPEND_WIDTH``, and plain torch only recomputes the queries
+past its buffer).
 
 The top-k wrappers take any k >= 1, as the reference does.  The plan is
 chosen on the host by k before any launch: up to ``MAX_K`` (the lists the
@@ -26,7 +28,8 @@ from ..core.expr import on_device, order_key
 from ..core.schema import Metric
 from ..index.flat import compact_range, stable_smallest_k
 from . import distance
-from .range_scan import range_scan, range_scan_batch
+from .range_scan import (APPEND_WIDTH, range_scan, range_scan_batch,
+                         range_topk_batch)
 from .scan_topk import MAX_K, scan_topk, scan_topk_batch
 
 INF = float("inf")
@@ -181,13 +184,48 @@ def fused_range_topk_batch(corpus: torch.Tensor, queries: torch.Tensor,
     (ids (Q, capacity), sims raw-metric, valid (Q, capacity), count (Q,)
     total hits before truncation).
 
-    The kernel's keys are already +inf off the hits, and on a hit they equal
-    the reference's ``order_key(raw)`` bit for bit, so the compaction sorts
-    them directly instead of rebuilding them from the raw values."""
-    keys, _hit, counts = _range_batch(corpus, queries, radius, row_mask,
-                                      metric, qvalid)
-    with _stage2(keys.device):
-        return compact_range(keys, capacity, metric) + (counts,)
+    Up to ``range_scan.APPEND_WIDTH`` the kernel compacts on the card
+    (``range_topk_batch``: only the hits are sorted); stage 2 reads the
+    counts on the host (one sync) and recomputes each query with more hits
+    than ``capacity`` on the dense path below, counted as
+    ``range_overflows``.  The dense path, and every capacity above the
+    bound: the kernel's keys are already +inf off the hits, and on a hit
+    they equal the reference's ``order_key(raw)`` bit for bit, so the
+    compaction sorts them directly instead of rebuilding them from the raw
+    values.  Both give the same answer bit for bit."""
+    if not 1 <= capacity <= APPEND_WIDTH:
+        keys, _hit, counts = _range_batch(corpus, queries, radius, row_mask,
+                                          metric, qvalid)
+        with _stage2(keys.device):
+            return compact_range(keys, capacity, metric) + (counts,)
+    corpus = corpus.to(torch.float32).contiguous()
+    queries = queries.to(torch.float32).contiguous()
+    dev = corpus.device
+    mask = _mask_i8(row_mask)
+    rk = _radius_keys(radius, metric, queries.shape[0], dev)
+    qv = None if qvalid is None else _mask_i8(qvalid)
+    ids, sims, valid, counts = range_topk_batch(corpus, queries, rk, mask,
+                                                qv, metric, capacity)
+    with _stage2(dev):
+        if dev.type != "cpu":
+            tracing.count("syncs")
+        over = torch.nonzero(counts.cpu() > capacity).flatten()
+        if len(over):
+            tracing.count("range_overflows", len(over))
+            idx = on_device(over, dev, torch.long)
+            if dev.type == "cpu":
+                # a row of the plain scan depends on the batch around it
+                # (the CPU's matmul), a row of the kernel's does not
+                keys = range_scan_batch(corpus, queries, rk, mask, qv,
+                                        metric)[0][idx]
+            else:
+                keys = range_scan_batch(
+                    corpus, queries[idx], rk[idx],
+                    mask if mask is None or mask.ndim == 1 else mask[idx],
+                    None, metric)[0]
+            ids[idx], sims[idx], valid[idx] = compact_range(keys, capacity,
+                                                            metric)
+    return ids, sims, valid, counts
 
 
 def pairwise_keys(queries: torch.Tensor, corpus: torch.Tensor,

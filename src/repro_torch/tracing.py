@@ -25,7 +25,10 @@ nothing.  After :func:`enable` each span
 Counters are always on, at the cost of an integer add: ``uploads`` counts
 host-to-device copies of the execute path, ``syncs`` the points where it
 waits for a card's stream (each blocking upload, each host read of a
-device value, the IVF probe loop's active check).
+device value, the IVF probe loop's active check), ``range_overflows`` the
+queries of a batched range compaction that had more hits than its buffer
+and were recomputed on the dense path (``kernels/ops.py``
+``fused_range_topk_batch``).
 
 :func:`snapshot` returns the table and the counters; call it after the
 card's work is done (it waits for pending events).  Typical use::
@@ -50,7 +53,7 @@ EXECUTOR = "repro_torch.executor"
 PREDICATE = "repro_torch.predicate"
 STAGE2 = "repro_torch.stage2"
 KERNEL = "repro_torch.kernel."
-COUNTERS = ("uploads", "syncs")
+COUNTERS = ("uploads", "syncs", "range_overflows")
 
 # pending event pairs folded in (the complete ones) once this many wait
 _FOLD_AT = 64

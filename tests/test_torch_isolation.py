@@ -85,9 +85,10 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="range_scan runs on cuda"):
         fused_range_scan(corpus, torch.zeros(8, device="meta"), 0.5, None,
                          Metric.L2)
-    for batch in (fused_range_scan_batch,
-                  lambda *a: fused_range_topk_batch(*a, capacity=4)):
-        with pytest.raises(ValueError, match="range_scan_batch runs on cuda"):
+    for batch, name in ((fused_range_scan_batch, "range_scan_batch"),
+                        (lambda *a: fused_range_topk_batch(*a, capacity=4),
+                         "range_topk_batch")):
+        with pytest.raises(ValueError, match=f"{name} runs on cuda"):
             batch(corpus, torch.zeros((2, 8), device="meta"), 0.5, None,
                   Metric.L2)
     from repro_torch.kernels import quant

@@ -80,14 +80,14 @@ CASES = [
     ("q1_single", Q1, {}, False, {"scan_topk": (1, 1)}, 0),
     ("q1_list", Q1, {}, True, {"scan_topk_batch": (1, 4)}, 0),
     ("q2_single", Q2, {}, False, {}, 1),
-    ("q2_list", Q2, {}, True, {"range_scan_batch": (1, 4)}, 0),
-    ("q3_batch", Q3, {}, False, {"range_scan_batch": (1, L)}, 0),
+    ("q2_list", Q2, {}, True, {"range_topk_batch": (1, 4)}, 0),
+    ("q3_batch", Q3, {}, False, {"range_topk_batch": (1, L)}, 0),
     ("q3_perleft", Q3, {"join_lowering": "perleft"}, False,
      {"range_scan": (L, 1)}, 0),
     ("q4_batch", Q4, {}, False, {"scan_topk_batch": (1, L)}, 0),
     ("q5_single", Q5, {}, False, {}, 1),
-    ("q5_list", Q5, {}, True, {"range_scan_batch": (1, 4)}, 0),
-    ("q6_batch", Q6, {}, False, {"range_scan_batch": (1, L)}, 0),
+    ("q5_list", Q5, {}, True, {"range_topk_batch": (1, 4)}, 0),
+    ("q6_batch", Q6, {}, False, {"range_topk_batch": (1, L)}, 0),
 ]
 
 

@@ -244,6 +244,63 @@ def test_q2_single_dict_is_the_reference_lowering(env, monkeypatch):
     assert calls == ["fused_range_topk_batch"]
 
 
+# capacities of the range compaction against the lists' counts (20 to 80
+# hits a query over 3,000 rows): below them (the dense fallback), above
+# them, and above N
+SLICE_CAPACITIES = [8, 512, 5000]
+
+
+def _dense_path(monkeypatch):
+    """Every range compaction on the dense keys and one sort over N (the
+    path above the append compaction's width)."""
+    import repro_torch.kernels.ops as port_ops
+    monkeypatch.setattr(port_ops, "APPEND_WIDTH", 0)
+
+
+@pytest.mark.parametrize("capacity", SLICE_CAPACITIES)
+@pytest.mark.parametrize("qn", [3, 5])
+@pytest.mark.parametrize("metric", ["ip", "l2", "cosine"])
+def test_q2_lists_compacted_on_hits_equal_the_dense_sort(
+        metric_envs, metric, qn, capacity, monkeypatch):
+    """A Q2 list through the append compaction equals, bit for bit, the
+    same list through the dense keys and one sort over N, pad lanes
+    included; ``range_overflows`` rises once per live query with more hits
+    than the capacity."""
+    from repro_torch import tracing
+    from repro_torch.core.physical import ProbeConfig
+
+    env = metric_envs(metric)
+    st = connect(env["cat"], engine="brute", use_pallas=True,
+                 probe=ProbeConfig(capacity=capacity)).prepare(Q2)
+    binds = _q2_binds(env, qn, seed=qn + 10)
+    before = tracing.snapshot()["counters"]["range_overflows"]
+    got = st.execute(binds)
+    over = tracing.snapshot()["counters"]["range_overflows"] - before
+    cap = min(capacity, SMALL["n_rows"])
+    assert got["ids"].shape == (qn, cap)
+    assert over == int((got["count"] > cap).sum())
+    assert (over > 0) if capacity == SLICE_CAPACITIES[0] else over == 0
+    _dense_path(monkeypatch)
+    _assert_bitwise(got.data, st.execute(binds).data)
+
+
+@pytest.mark.parametrize("max_pairs", [8, 512])
+@pytest.mark.parametrize("metric", ["ip", "l2", "cosine"])
+def test_q3_batch_compacted_on_hits_equals_the_dense_sort(
+        metric_envs, metric, max_pairs, monkeypatch):
+    """The Q3 batch lowering's per-left-row compaction: the append path
+    equals the dense keys and one sort over N bit for bit."""
+    env = metric_envs(metric)
+    radius = _metric_radius(_better(env["corpus"], env["left"], metric),
+                            metric, 8 * 60)
+    st = connect(env["cat"], engine="brute", use_pallas=True,
+                 max_pairs=max_pairs).prepare(Q3)
+    got = st.execute({"r": np.float32(radius)})
+    assert (got["count"] > 8).any()
+    _dense_path(monkeypatch)
+    _assert_bitwise(got.data, st.execute({"r": np.float32(radius)}).data)
+
+
 # ---------------------------------------------------------------------------
 # Q3 distance join
 # ---------------------------------------------------------------------------

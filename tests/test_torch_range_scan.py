@@ -21,6 +21,7 @@ import torch
 from repro.core.schema import Metric as RefMetric
 from repro.kernels import ops as ref_ops
 from repro_torch.core.schema import Metric
+from repro_torch.index.flat import compact_range
 from repro_torch.kernels import ops
 from repro_torch.kernels import range_scan as rs
 from repro_torch.kernels.distance import MAX_GRID_Y
@@ -357,3 +358,167 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="runs on cuda"):
         range_scan_batch(corpus.to("meta"), q[None].to("meta"),
                          rk.to("meta"), None, None, Metric.L2)
+
+
+# ---------------------------------------------------------------------------
+# the compaction on the card's path (range_topk_batch: the append epilogue
+# and the per-query sort) against compact_range over the dense keys
+# ---------------------------------------------------------------------------
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _assert_bitwise(got, want, rows, what: str) -> None:
+    for name, a, b in zip(("ids", "sims", "valid", "counts"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, name)
+        assert torch.equal(_bits(a)[rows], _bits(b)[rows]), (what, name)
+
+
+def _dense_compaction(corpus, queries, rk, m8, qv8, metric, capacity):
+    keys, _hits, counts = range_scan_batch(corpus, queries, rk, m8, qv8,
+                                           metric)
+    return compact_range(keys, capacity, metric) + (counts,)
+
+
+# capacities against the counts (about 90 hits a live query, 777 rows):
+# below every count (each live query takes the dense fallback), above
+# every count, and above N
+CAPACITIES = [16, 300, 1000]
+
+
+@pytest.mark.parametrize("capacity", CAPACITIES)
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("metric", METRICS)
+def test_append_compaction_is_the_dense_sort_bit_for_bit(metric, mask,
+                                                         capacity):
+    """``range_topk_batch`` (plain) equals ``compact_range`` of the dense
+    keys bit for bit on every query whose count fits, and leaves the
+    others empty with their full count; ``fused_range_topk_batch`` equals
+    it on every query, raising ``range_overflows`` once per query past
+    the capacity.  Duplicate rows give equal keys; lane 2 is a pad
+    query."""
+    from repro_torch import tracing
+
+    m = Metric(metric)
+    rng, corpus, queries = _inputs(43, 777, 24, 5)
+    corpus[100:130] = corpus[7]                    # exact duplicates: ties
+    queries[0] = corpus[7]
+    rm = _mask(rng, mask, 5, 777)
+    radius = _tie_safe_radius(_keys(corpus, queries, metric), metric,
+                              rank=90)
+    qvalid = np.arange(5) != 2
+    c, q = _t(corpus), _t(queries)
+    rk = ops._radius_keys(_t(radius), m, 5, c.device)
+    m8, qv8 = ops._mask_i8(_t(rm)), ops._mask_i8(_t(qvalid))
+    want = _dense_compaction(c, q, rk, m8, qv8, m, capacity)
+    counts = want[3]
+    fits = counts <= capacity
+    assert int(counts[2]) == 0 and (counts[qvalid] > 0).all()
+
+    got = rs.range_topk_batch(c, q, rk, m8, qv8, m, capacity)
+    _assert_bitwise(got, want, fits, "kernel")
+    assert torch.equal(got[3], counts)
+    assert (got[0][~fits] == -1).all() and not got[2][~fits].any()
+    assert (got[1][~fits] == 0).all()
+
+    before = tracing.snapshot()["counters"]["range_overflows"]
+    fused = ops.fused_range_topk_batch(c, q, _t(radius), _t(rm), m,
+                                       capacity, qvalid=_t(qvalid))
+    over = tracing.snapshot()["counters"]["range_overflows"] - before
+    _assert_bitwise(fused, want, slice(None), "fused")
+    assert over == int((~fits).sum())
+    if capacity == CAPACITIES[0]:
+        assert over == int(qvalid.sum())
+    else:
+        assert over == 0
+
+
+def _crafted(seed: int, qn: int, n: int):
+    """(Q, N) keys drawn from zeros of both signs, infinities, repeated
+    values and subnormals, and hit masks with every count from 0 up."""
+    g = torch.Generator().manual_seed(seed)
+    pool = torch.tensor([0.0, -0.0, 1.5, -1.5, float("inf"), -float("inf"),
+                         2.0 ** -140, -(2.0 ** -140), 0.25])
+    keys = pool[torch.randint(len(pool), (qn, n), generator=g)]
+    hit = torch.zeros((qn, n), dtype=torch.bool)
+    for i in range(qn):
+        hit[i, torch.randperm(n, generator=g)[:i * 7]] = True
+    return g, keys, hit
+
+
+@pytest.mark.parametrize("order", ["rows", "shuffled"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_sort_of_appended_hits_keeps_the_stable_sort_ties(metric, order):
+    """The sort kernel's plain version over appended words equals the
+    stable sort of the dense keys: −0.0 ties +0.0 with the lower row
+    first, each sim carries its key's own bits, −inf and +inf hits are
+    not valid; the order the slots were filled in (the card's atomics
+    choose it) cannot show; a query past the width is empty."""
+    m = Metric(metric)
+    qn, n, width = 12, 90, 48
+    g, keys, hit = _crafted(5, qn, n)
+    dense = torch.where(hit, keys, float("inf"))
+    perm = (None if order == "rows" else
+            torch.stack([torch.randperm(n, generator=g) for _ in range(qn)]))
+    words = rs.append_hits_plain(keys, hit, width, perm)
+    counts = hit.sum(1, dtype=torch.int32)
+    got = rs.sort_hits_plain(words, counts, m) + (counts,)
+    want = compact_range(dense, width, m) + (counts,)
+    fits = counts <= width
+    assert (~fits).any() and fits.any()
+    _assert_bitwise(got, want, fits, f"{metric} {order}")
+    assert (got[0][~fits] == -1).all() and not got[2][~fits].any()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_packed_words_order_as_key_then_row(seed):
+    """``pack_hits`` words order as (key compared as a float, row), so
+    −0.0 and +0.0 tie, and ``unpack_hits`` returns each key's own bits and
+    its row."""
+    g, keys, _hit = _crafted(seed, 1, 400)
+    keys = keys[0]
+    rows = torch.randperm(400, generator=g).to(torch.int32)
+    words = rs.pack_hits(keys, rows)
+    back, back_rows = rs.unpack_hits(words)
+    assert torch.equal(back.view(torch.int32), keys.view(torch.int32))
+    assert torch.equal(back_rows, rows)
+    by_word = torch.argsort(words)
+    by_row = torch.argsort(rows.long(), stable=True)
+    by_key = by_row[torch.sort(keys[by_row], stable=True).indices]
+    assert torch.equal(by_word, by_key)
+
+
+def test_capacity_past_the_bound_keeps_the_dense_sort():
+    """Past ``APPEND_WIDTH`` (the sort kernel's shared memory) the
+    compaction stays the dense kernel and one sort over N; the wrapper
+    refuses such a capacity, and an empty one."""
+    from repro_torch.kernels.range_scan import APPEND_WIDTH, range_topk_batch
+    from repro_torch.roofline import analyze
+
+    assert APPEND_WIDTH * 8 <= BLOCK_SMEM < APPEND_WIDTH * 16
+    src = (Path(rs.__file__).with_name("csrc")
+           / "range_scan_batch.cu").read_text()
+    assert re.search(r"constexpr int kMaxWidth = (\d+);", src).group(1) \
+        == str(APPEND_WIDTH)
+    rng, corpus, queries = _inputs(47, 300, 16, 3)
+    radius = _tie_safe_radius(_keys(corpus, queries, "l2"), "l2", rank=40)
+    c, q = _t(corpus), _t(queries)
+    rk = ops._radius_keys(_t(radius), Metric.L2, 3, c.device)
+    for cap in (0, APPEND_WIDTH + 1):
+        with pytest.raises(ValueError, match="capacity"):
+            range_topk_batch(c, q, rk, None, None, Metric.L2, cap)
+    kernels = {}
+    for cap in (APPEND_WIDTH + 1, APPEND_WIDTH):
+        kernels[cap] = set(analyze(ops.fused_range_topk_batch, c, q,
+                                   _t(radius), None, Metric.L2,
+                                   cap).kernels)
+    assert kernels == {APPEND_WIDTH + 1: {"range_scan_batch"},
+                       APPEND_WIDTH: {"range_topk_batch"}}
+    wide = ops.fused_range_topk_batch(c, q, _t(radius), None, Metric.L2,
+                                      APPEND_WIDTH + 1)
+    narrow = ops.fused_range_topk_batch(c, q, _t(radius), None, Metric.L2,
+                                        APPEND_WIDTH)
+    for a, b in zip(wide, narrow):
+        assert torch.equal(_bits(a[:, :APPEND_WIDTH] if a.ndim == 2 else a),
+                           _bits(b))

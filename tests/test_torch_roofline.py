@@ -232,6 +232,10 @@ def _kernel_calls():
         (quant.quant_keys_batch, (twin, scales, qs, mask1, qvalid, m)),
         (quant.replay_keys, (corpus, qs, rows, m)),
         (distance.pairwise_keys, (qs, corpus, m)),
+        (range_scan.range_topk_batch, (corpus, qs, rk, mask2, qvalid, m,
+                                       16)),
+        (range_scan.range_topk_batch, (corpus, qs, rk, mask1, None, m,
+                                       3000)),
     ]
 
 
@@ -239,13 +243,14 @@ WORK = {"scan_topk": scan_topk.scan_topk_work,
         "scan_topk_batch": scan_topk.scan_topk_batch_work,
         "range_scan": range_scan.range_scan_work,
         "range_scan_batch": range_scan.range_scan_batch_work,
+        "range_topk_batch": range_scan.range_topk_batch_work,
         "quant_scan_topk_batch": quant.quant_scan_topk_batch_work,
         "quant_keys_batch": quant.quant_keys_batch_work,
         "replay_keys": quant.replay_keys_work,
         "pairwise_keys": distance.pairwise_keys_work}
 
 
-@pytest.mark.parametrize("i", range(10))
+@pytest.mark.parametrize("i", range(12))
 def test_kernel_wrapper_reports_its_work_only(i):
     fn, args = _kernel_calls()[i]
     out = fn(*args)

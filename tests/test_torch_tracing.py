@@ -113,7 +113,7 @@ def test_an_execute_names_exactly_its_stages(traced, catalog, queries,
     if case == "q2-list":
         st = db.prepare(Q2)
         binds = _lists(queries, p=np.float32(40.0), r=np.float32(0.2))
-        kernel, bind = "range_scan_batch", {tracing.BIND}
+        kernel, bind = "range_topk_batch", {tracing.BIND}
     else:
         st = db.prepare(Q1, K=5)
         binds = _lists(queries, p=np.float32(40.0))
