@@ -4,8 +4,13 @@ lowerings.
 
 The flat batched scan streams the whole corpus per launch.  These paths
 stream its int8 (per-row symmetric scale) or bf16 twin instead — 4× or 2×
-fewer bytes — and keep every answer EXACTLY the fp32 path's, bit for bit, by
-re-ranking a small candidate set with the fp32 kernels' own keys:
+fewer bytes — and re-rank a small candidate set with the fp32 kernels' own
+keys.  A range answer is exactly the fp32 path's, bit for bit.  A top-k
+answer returns exact fp32 similarities, and every row of the fp32 top-k
+that lies among the quantized top-(c·k) (c = ``rescore_factor``); it
+equals the fp32 path's bit for bit whenever the quantized top-(c·k) covers
+the fp32 top-k (below), which the twin's small error makes the usual case
+but does not assure:
 
 * **Segmented candidates** (Q1).  ``quant_scan_topk_batch`` reduces its
   quantized keys to per-8-row segment minima and keeps each query's best
@@ -35,7 +40,12 @@ it counts its launches in a plain integer attribute (``.launches``), and
 its ``*_work`` function is a launch's roofline work (as ``scan_topk.py``'s).
 Stage 2 is plain torch, and every top-k in it is ``stable_smallest_k``;
 each of its steps between kernels is the span ``repro_torch.stage2``
-(:mod:`repro_torch.tracing`).
+(:mod:`repro_torch.tracing`).  Around them, the twin's kernel with its
+candidate selection (or the slack classification) is the span
+``repro_torch.quant.scan`` and the replay with its re-rank
+``repro_torch.quant.replay``, both timed on the card's stream; the
+counters ``quant_replayed``, ``quant_band_rows`` and ``quant_fallbacks``
+count the replayed slots, the range bands' rows and the fp32 fallbacks.
 """
 from __future__ import annotations
 
@@ -419,17 +429,21 @@ def _rescored_topk(corpus, queries, rows, row_mask, k: int, metric: Metric):
     """The best ``k`` of each query's candidate rows (ascending ids) by
     exact fp32 key: (ids, sims, valid)."""
     n = corpus.shape[0]
-    exact = replay_keys(corpus, queries, rows, metric)
-    with _stage2(exact.device):
-        live = (rows < n) & _mask_at_rows(row_mask, rows.clamp(max=n - 1))
-        exact = torch.where(live, exact, INF)
-        out_keys, pos = stable_smallest_k(exact, k)
-        valid = torch.isfinite(out_keys)
-        ids = torch.where(
-            valid, torch.take_along_dim(rows, pos.clamp_min(0).long(), dim=1),
-            -1)
-        sims = torch.where(valid, -out_keys if metric.is_similarity()
-                           else out_keys, 0.0)
+    tracing.count("quant_replayed", rows.numel())
+    with tracing.span(tracing.QUANT_REPLAY, corpus.device):
+        exact = replay_keys(corpus, queries, rows, metric)
+        with _stage2(exact.device):
+            live = (rows < n) & _mask_at_rows(row_mask,
+                                              rows.clamp(max=n - 1))
+            exact = torch.where(live, exact, INF)
+            out_keys, pos = stable_smallest_k(exact, k)
+            valid = torch.isfinite(out_keys)
+            ids = torch.where(
+                valid,
+                torch.take_along_dim(rows, pos.clamp_min(0).long(), dim=1),
+                -1)
+            sims = torch.where(valid, -out_keys if metric.is_similarity()
+                               else out_keys, 0.0)
     return ids, sims, valid
 
 
@@ -454,18 +468,20 @@ def fused_scan_topk_batch_q(corpus: torch.Tensor, qvecs: torch.Tensor,
     count = max(1, int(rescore_factor)) * k
     qv = None if qvalid is None else _mask_i8(qvalid)
     mask = _mask_i8(row_mask)
-    if k > MAX_K:
-        keys = quant_keys_batch(qvecs, scales, queries, mask, qv, metric)
-        with _stage2(keys.device):
-            keys = segment_minima(keys)
-            segs = torch.arange(keys.shape[1], dtype=torch.int32,
-                                device=keys.device).expand_as(keys)
-            rows = candidate_rows(keys, segs, count)
-    else:
-        keys, segs = quant_scan_topk_batch(qvecs, scales, queries, mask, qv,
-                                           count, metric)
-        with _stage2(keys.device):
-            rows = candidate_rows(keys, segs, count)
+    dev = corpus.device
+    with tracing.span(tracing.QUANT_SCAN, dev):
+        if k > MAX_K:
+            keys = quant_keys_batch(qvecs, scales, queries, mask, qv, metric)
+            with _stage2(dev):
+                keys = segment_minima(keys)
+                segs = torch.arange(keys.shape[1], dtype=torch.int32,
+                                    device=dev).expand_as(keys)
+                rows = candidate_rows(keys, segs, count)
+        else:
+            keys, segs = quant_scan_topk_batch(qvecs, scales, queries, mask,
+                                               qv, count, metric)
+            with _stage2(dev):
+                rows = candidate_rows(keys, segs, count)
     return _rescored_topk(corpus, queries, rows, row_mask, k, metric)
 
 
@@ -516,6 +532,14 @@ def _range_slack(metric: Metric, half: torch.Tensor, l1: torch.Tensor,
     return slack * 1.001 + 1e-6
 
 
+def _ascending_rows(sel_keys: torch.Tensor, w: int) -> torch.Tensor:
+    """Each query's rows with a finite ``sel_keys`` (at most ``w``), in
+    ascending order, ``I32_MAX`` in empty slots: (Q, w) int32."""
+    vals, sel = stable_smallest_k(sel_keys, w)
+    rows = torch.where(torch.isfinite(vals), sel, I32_MAX)
+    return torch.sort(rows, dim=1).values
+
+
 def fused_range_topk_batch_q(corpus: torch.Tensor, qvecs: torch.Tensor,
                              scales: torch.Tensor, half: torch.Tensor,
                              l1: torch.Tensor, l2: torch.Tensor,
@@ -534,57 +558,66 @@ def fused_range_topk_batch_q(corpus: torch.Tensor, qvecs: torch.Tensor,
     When any query has more maybe rows than that budget, the replay sets
     would be incomplete, and the call runs the fp32 range kernel on the
     fp32 corpus instead — the keys the replay reproduces — so the answer
-    is exact either way.  Returns (ids (Q, P), sims, valid, count (Q,)) with
-    P = min(capacity, N), as the fp32 wrapper."""
+    is exact either way.  Each query's count of maybe rows reaches the
+    host in one copy (one sync), which picks the branch and feeds the
+    counter ``quant_band_rows``; a fallback counts in ``quant_fallbacks``.
+    Returns (ids (Q, P), sims, valid, count (Q,)) with P = min(capacity,
+    N), as the fp32 wrapper."""
     corpus = corpus.to(torch.float32).contiguous()
     queries = queries.to(torch.float32).contiguous()
     n, d = corpus.shape
     qn = queries.shape[0]
+    dev = corpus.device
     qv = None if qvalid is None else _mask_i8(qvalid)
-    qkeys = quant_keys_batch(qvecs, scales, queries, _mask_i8(row_mask), qv,
-                             metric)                               # (Q, N)
     cap = min(int(capacity), n)
     w = min(max(1, int(rescore_factor)) * cap, n)
-    with _stage2(qkeys.device):
-        rk = _radius_keys(radius, metric, qn, corpus.device)[:, None]
-        slack = _range_slack(metric, half, l1, l2, queries, d)
-        certain = qkeys <= rk - slack
-        maybe = qkeys <= rk + slack                 # +inf lanes: never maybe
-        # the branch is chosen on the host: one device sync per call.
-        # Boundary rows are maybe rows, so one test covers both replay
-        # budgets.
-        tracing.count("syncs")
-        over = int(maybe.sum(dim=1).max()) > w
+    with tracing.span(tracing.QUANT_SCAN, dev):
+        qkeys = quant_keys_batch(qvecs, scales, queries, _mask_i8(row_mask),
+                                 qv, metric)                       # (Q, N)
+        with _stage2(dev):
+            rk = _radius_keys(radius, metric, qn, dev)[:, None]
+            slack = _range_slack(metric, half, l1, l2, queries, d)
+            certain = qkeys <= rk - slack
+            maybe = qkeys <= rk + slack             # +inf lanes: never maybe
+            # the branch is chosen on the host from each query's count of
+            # maybe rows, read in one copy: one device sync per call.
+            # Boundary rows are maybe rows, so one test covers both replay
+            # budgets.
+            tracing.count("syncs")
+            band = maybe.sum(dim=1).tolist()
+        tracing.count("quant_band_rows", sum(band))
+        over = max(band) > w
+        if not over:
+            with _stage2(dev):
+                n_certain = certain.sum(dim=1, dtype=torch.int32)
+                # emission: the maybe rows; count: the boundary rows,
+                # nearest the radius first
+                rows_e = _ascending_rows(torch.where(maybe, qkeys, INF), w)
+                rows_b = _ascending_rows(
+                    torch.where(maybe & ~certain, (qkeys - rk).abs(), INF),
+                    w)
+    del qkeys, certain, maybe
     if over:
+        tracing.count("quant_fallbacks")
         return fused_range_topk_batch(corpus, queries, radius, row_mask,
                                       metric, cap, qvalid=qvalid)
-
-    def replayed(sel_keys):
-        """Each query's rows with a finite ``sel_keys`` (at most ``w``), in
-        ascending order, and their exact keys (+inf in empty slots)."""
-        with _stage2(sel_keys.device):
-            vals, sel = stable_smallest_k(sel_keys, w)
-            rows = torch.where(torch.isfinite(vals), sel, I32_MAX)
-            rows = torch.sort(rows, dim=1).values
-        return rows, replay_keys(corpus, queries, rows, metric)
-
-    # emission: the best ``cap`` exact hits among the maybe rows
-    rows_e, exact_e = replayed(torch.where(maybe, qkeys, INF))
-    with _stage2(exact_e.device):
-        hit_e = (rows_e < n) & (exact_e <= rk)
-        out_keys, pos = stable_smallest_k(torch.where(hit_e, exact_e, INF),
-                                          cap)
-        valid = torch.isfinite(out_keys)
-        ids = torch.where(
-            valid,
-            torch.take_along_dim(rows_e, pos.clamp_min(0).long(), dim=1), -1)
-        sims = torch.where(valid, -out_keys if metric.is_similarity()
-                           else out_keys, 0.0)
-        # count: certain hits + the boundary rows that hit exactly
-        boundary = maybe & ~certain
-    rows_b, exact_b = replayed(torch.where(boundary, (qkeys - rk).abs(), INF))
-    with _stage2(exact_b.device):
-        count = (certain.sum(dim=1, dtype=torch.int32)
-                 + ((rows_b < n) & (exact_b <= rk)).sum(dim=1,
-                                                        dtype=torch.int32))
+    tracing.count("quant_replayed", rows_e.numel() + rows_b.numel())
+    with tracing.span(tracing.QUANT_REPLAY, dev):
+        exact_e = replay_keys(corpus, queries, rows_e, metric)
+        exact_b = replay_keys(corpus, queries, rows_b, metric)
+        with _stage2(dev):
+            # emission: the best ``cap`` exact hits among the maybe rows
+            hit_e = (rows_e < n) & (exact_e <= rk)
+            out_keys, pos = stable_smallest_k(
+                torch.where(hit_e, exact_e, INF), cap)
+            valid = torch.isfinite(out_keys)
+            ids = torch.where(
+                valid,
+                torch.take_along_dim(rows_e, pos.clamp_min(0).long(), dim=1),
+                -1)
+            sims = torch.where(valid, -out_keys if metric.is_similarity()
+                               else out_keys, 0.0)
+            # count: certain hits + the boundary rows that hit exactly
+            count = n_certain + ((rows_b < n) & (exact_b <= rk)).sum(
+                dim=1, dtype=torch.int32)
     return ids, sims, valid, count

@@ -4,8 +4,11 @@ A span names one stage of a request: the front door
 (``repro_torch.execute``), bind stacking (``repro_torch.bind``), the
 executor (``repro_torch.executor``), a structured predicate
 (``repro_torch.predicate``), a hand-written kernel's launch
-(``repro_torch.kernel.<wrapper>``) and the plain-torch step after a kernel
-(``repro_torch.stage2``).  Tracing is off by default, and then
+(``repro_torch.kernel.<wrapper>``), the plain-torch step after a kernel
+(``repro_torch.stage2``), and on a quantized twin's scan
+(``kernels/quant.py``) the twin's kernel with its candidate selection
+(``repro_torch.quant.scan``) and the fp32 replay with its re-rank
+(``repro_torch.quant.replay``).  Tracing is off by default, and then
 :func:`span` reads one flag and hands back a shared context that does
 nothing.  After :func:`enable` each span
 
@@ -28,7 +31,12 @@ waits for a card's stream (each blocking upload, each host read of a
 device value, the IVF probe loop's active check), ``range_overflows`` the
 queries of a batched range compaction that had more hits than its buffer
 and were recomputed on the dense path (``kernels/ops.py``
-``fused_range_topk_batch``).
+``fused_range_topk_batch``).  On a quantized twin (``kernels/quant.py``):
+``quant_replayed`` the (query, row) slots replayed in fp32 (from the
+shapes, pad lanes and empty slots included), ``quant_band_rows`` the rows
+of a quantized range list's slack band (its maybe rows, summed over the
+queries), ``quant_fallbacks`` the quantized range calls that ran the fp32
+range kernel instead.
 
 :func:`snapshot` returns the table and the counters; call it after the
 card's work is done (it waits for pending events).  Typical use::
@@ -53,7 +61,10 @@ EXECUTOR = "repro_torch.executor"
 PREDICATE = "repro_torch.predicate"
 STAGE2 = "repro_torch.stage2"
 KERNEL = "repro_torch.kernel."
-COUNTERS = ("uploads", "syncs", "range_overflows")
+QUANT_SCAN = "repro_torch.quant.scan"
+QUANT_REPLAY = "repro_torch.quant.replay"
+COUNTERS = ("uploads", "syncs", "range_overflows", "quant_replayed",
+            "quant_band_rows", "quant_fallbacks")
 
 # pending event pairs folded in (the complete ones) once this many wait
 _FOLD_AT = 64
